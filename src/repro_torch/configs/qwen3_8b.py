@@ -1,0 +1,17 @@
+"""qwen3-8b [dense] — qk_norm, GQA. [hf:Qwen/Qwen3-8B; hf]"""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="qwen3-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=12288,
+    vocab_size=151_936,
+    qk_norm=True,
+    rope_theta=1e6,
+    source="hf:Qwen/Qwen3-8B",
+))

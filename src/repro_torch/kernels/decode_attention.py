@@ -1,0 +1,118 @@
+"""Decode attention (one query token against a KV cache): the port of
+``repro/kernels/decode_attention.py``.
+
+Replaces the Pallas TPU kernel ``_decode_kernel`` / ``decode_attention_bhd``
+with the hand-written split-KV CUDA kernel in ``csrc/decode_attention.cu``
+(sm_90a): a first pass over sequence splits in parallel, a second that merges
+their log-sum-exps.
+
+Bound on the H100: bytes. Each valid cache position is read once per kv
+head; for B=4, 1024 valid positions, KV=16, D=128 in bf16 that is 33.5 MB,
+about 10 us at 3.35 TB/s. The kernel reads only positions below
+``cache_len[b]`` and reads the model's (B, S, KV, D) cache in place through
+its strides, with no transposed copy.
+
+``decode_attention_bhd`` launches the kernel for CUDA tensors and takes the
+plain version only for CPU tensors. ``decode_attention_bhd.launches`` counts
+kernel launches (one per call; each call runs both passes).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "decode_attention_fwd": (
+        [_P] * 7 + [_I] * 6 + [_L] * 10 + [ctypes.c_float, _I, _P], _I),
+    "decode_attention_nsplit": ([_I], _I),
+}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+
+
+def decode_attention_plain(q, k_cache, v_cache, cache_len):
+    """Plain PyTorch version. q: (B, H, D); caches (B, KV, S, D); cache_len
+    (B,). fp32 math, scale 1/sqrt(D); positions >= cache_len[b] are masked,
+    and a row with no valid position gives zeros (the Pallas kernel's finite
+    mask averages all of V there; the model never asks for such a row)."""
+    b, h, d = q.shape
+    kv, s = k_cache.shape[1], k_cache.shape[2]
+    qf = q.float().reshape(b, kv, h // kv, 1, d) * d ** -0.5
+    sc = (qf @ k_cache.float()[:, :, None].transpose(-1, -2))[..., 0, :]
+    valid = torch.arange(s, device=q.device)[None, :] < \
+        cache_len.to(q.device)[:, None]                      # (B, S)
+    sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = sc.amax(-1, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    e = torch.exp(sc - m)                                    # (B, KV, G, S)
+    o = (e[..., None, :] @ v_cache.float()[:, :, None])[..., 0, :]
+    o = o / e.sum(-1, keepdim=True).clamp_min(1e-37)
+    return o.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_bhd(q, k_cache, v_cache, cache_len):
+    """q: (B, H, D); caches (B, KV, S, D); cache_len (B,) -> (B, H, D).
+
+    Any strides are accepted as long as the head dim is contiguous."""
+    b, h, d = q.shape
+    if k_cache.shape != v_cache.shape or k_cache.shape[0] != b \
+            or k_cache.shape[3] != d or h % k_cache.shape[1] \
+            or tuple(cache_len.shape) != (b,):
+        raise ValueError(f"bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k_cache.shape)} v{tuple(v_cache.shape)} "
+                         f"cache_len{tuple(cache_len.shape)}")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, cache_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"no decode attention for device {q.device}")
+    return _launch(q, k_cache, v_cache, cache_len)
+
+
+decode_attention_bhd.launches = 0
+
+
+def _launch(q, k_cache, v_cache, cache_len):
+    b, h, d = q.shape
+    kv, s = k_cache.shape[1], k_cache.shape[2]
+    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise TypeError(f"decode attention takes float32 or bfloat16 q and "
+                        f"caches of one dtype, got {q.dtype}, "
+                        f"{k_cache.dtype}, {v_cache.dtype}")
+    if not (k_cache.device == v_cache.device == cache_len.device == q.device):
+        raise ValueError("q, caches and cache_len must be on one device")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
+    lens = cache_len.to(torch.int32).contiguous()
+    o = torch.empty_like(q)
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("o", o)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+    lib = _build.load("decode_attention", _SIGNATURES)
+    nsplit = lib.decode_attention_nsplit(s)
+    part_acc = torch.empty(b * h * nsplit * d, dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty(b * h * nsplit * 2, dtype=torch.float32,
+                          device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.decode_attention_fwd(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+        o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        _DTYPES[q.dtype], b, s, h, kv, d,
+        q.stride(0), q.stride(1),
+        k_cache.stride(0), k_cache.stride(2), k_cache.stride(1),
+        v_cache.stride(0), v_cache.stride(2), v_cache.stride(1),
+        o.stride(0), o.stride(1),
+        d ** -0.5, q.device.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"decode attention kernel failed to launch: "
+                           f"cudaError {rc}")
+    decode_attention_bhd.launches += 1
+    return o

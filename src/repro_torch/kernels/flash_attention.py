@@ -1,0 +1,101 @@
+"""Flash attention forward: the port of ``repro/kernels/flash_attention.py``.
+
+Replaces the Pallas TPU kernel ``_flash_kernel`` / ``flash_attention_bhsd``
+with the hand-written CUDA kernel in ``csrc/flash_attention.cu`` (sm_90a).
+
+Bound on the H100: at the prefill shape (B=4, S=2048, H=16, D=128, causal,
+bf16) it does 6.9e10 FLOP on 134 MB, so it is bound by operations (about
+69 us at 989 TFLOP/s). The kernel keeps scores and probabilities on chip,
+skips key tiles above the diagonal and reads q, k, v and writes o through
+their strides, so the model's (B, S, H, D) activations are never transposed
+or GQA-expanded; its products are scalar fp32 FMA for now, not tensor cores.
+
+``flash_attention_bhsd`` launches the kernel for CUDA tensors and takes the
+plain version only for CPU tensors. ``flash_attention_bhsd.launches`` counts
+kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "flash_attention_fwd": (
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12
+        + [_I, ctypes.c_float, _I, _P], _I),
+}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True):
+    """Plain PyTorch version. q: (B, H, S, D); k, v: (B, KV, S, D); fp32
+    math, scale 1/sqrt(D), output in q's dtype. Query head h reads kv head
+    h // (H / KV)."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    qf = q.float().reshape(b, kv, h // kv, s, d) * d ** -0.5
+    sc = qf @ k.float()[:, :, None].transpose(-1, -2)     # (B, KV, G, S, S)
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).triu(1)
+        sc = sc.masked_fill(mask, float("-inf"))
+    p = torch.softmax(sc, dim=-1)
+    o = p @ v.float()[:, :, None]                          # (B, KV, G, S, D)
+    return o.reshape(b, h, s, d).to(q.dtype)
+
+
+def flash_attention_bhsd(q, k, v, *, causal: bool = True):
+    """q: (B, H, S, D); k, v: (B, KV, S, D) with H % KV == 0 -> (B, H, S, D).
+
+    Any strides are accepted as long as the head dim is contiguous; the
+    output has q's memory layout."""
+    b, h, s, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (s, d) \
+            or h % k.shape[1]:
+        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for device {q.device}")
+    return _launch(q, k, v, causal)
+
+
+flash_attention_bhsd.launches = 0
+
+
+def _launch(q, k, v, causal):
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention takes float32 or bfloat16 q, k, v "
+                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (k.device == v.device == q.device):
+        raise ValueError("q, k and v must be on one device")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
+    o = torch.empty_like(q)          # keeps q's layout, e.g. a (B, S, H, D) view
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+    lib = _build.load("flash_attention", _SIGNATURES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _DTYPES[q.dtype], b, s, h, kv, d,
+        q.stride(0), q.stride(2), q.stride(1),
+        k.stride(0), k.stride(2), k.stride(1),
+        v.stride(0), v.stride(2), v.stride(1),
+        o.stride(0), o.stride(2), o.stride(1),
+        int(causal), d ** -0.5, q.device.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash attention kernel failed to launch: "
+                           f"cudaError {rc}")
+    flash_attention_bhsd.launches += 1
+    return o

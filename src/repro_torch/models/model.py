@@ -1,0 +1,94 @@
+"""LM wrapper (the port of ``repro/models/model.py``): embedding, block stack,
+tied or untied head, prefill and decode entries."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import blocks as B
+from repro_torch.models import transformer as T
+
+NORM_KEYS = ("ln1", "ln2", "final_norm")
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
+    """fp32 params from a seeded ``torch.Generator`` on ``device``, with the
+    reference's structure, shapes and init scales (not its random bits)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.n_codebooks:
+        raise NotImplementedError("codebook embeddings are not ported yet")
+    params = {"embed": torch.randn((cfg.vocab_size, cfg.d_model),
+                                   generator=gen, device=dev) * 0.02,
+              "final_norm": B.init_norm(cfg, device=dev)}
+    params.update(T.init_stack(cfg, gen))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = B.dense_init(gen, (cfg.d_model, cfg.vocab_size))
+    return params
+
+
+def cast_params(params, dtype):
+    """Cast the weights that the blocks cast per call (``.to(cd)``) once, at
+    load. The values are those of the reference's per-call ``.astype(cd)``;
+    norm params stay fp32, since the reference applies them in fp32."""
+    out = {}
+    for key, val in params.items():
+        if key in NORM_KEYS:
+            out[key] = val
+        elif isinstance(val, dict):
+            out[key] = cast_params(val, dtype)
+        else:
+            out[key] = val.to(dtype)
+    return out
+
+
+def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *, cache_len=None,
+             compute_dtype=torch.bfloat16, device="cuda") -> dict:
+    """RoPE table of ``seq_len`` rows and, for decode, the positions
+    ``cache_len[:, None]``. A position past the table would read outside it
+    (the reference's ``jnp.take`` gives NaN there), so it raises here."""
+    dev = resolve_device(device)
+    ctx = {"mode": mode, "compute_dtype": compute_dtype,
+           "rope": B.rope_table(seq_len, cfg.resolved_head_dim,
+                                cfg.rope_theta, device=dev)}
+    if cache_len is not None:
+        if cache_len.numel() and int(cache_len.max()) >= seq_len:
+            raise IndexError(f"decode position {int(cache_len.max())} is "
+                             f"past the buffer of {seq_len}")
+        ctx["cache_len"] = cache_len
+        ctx["positions"] = cache_len[:, None].long()
+    return ctx
+
+
+def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype):
+    return params["embed"][tokens].to(compute_dtype)
+
+
+def lm_logits(params, x, cfg: ArchConfig):
+    xf = B.apply_norm(params["final_norm"], x, cfg)
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return xf @ w.to(xf.dtype)
+
+
+def forward(params, tokens, cfg: ArchConfig, ctx: dict, states=None):
+    """Returns (logits, states)."""
+    x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"])
+    x, states = T.apply_stack(params, x, cfg, ctx, states)
+    return lm_logits(params, x, cfg), states
+
+
+def prefill(params, tokens, cfg: ArchConfig, ctx: dict):
+    """Forward over the prompt; returns last-position logits (B, V). The head
+    runs on the last position only: each row's logits depend on that row
+    alone, so the values are those of the reference's full-sequence head."""
+    x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"])
+    x, _ = T.apply_stack(params, x, cfg, ctx)
+    return lm_logits(params, x[:, -1:], cfg)[:, 0]
+
+
+def decode_step(params, tokens, states, cache_len, cfg: ArchConfig,
+                ctx: dict):
+    """One-token decode. tokens (B, 1); states from init_decode_state,
+    updated in place. Returns (logits (B, 1, V), states)."""
+    return forward(params, tokens, cfg, ctx, states)

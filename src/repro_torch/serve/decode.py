@@ -1,0 +1,75 @@
+"""Serving steps (the port of ``repro/serve/decode.py``): prefill and
+one-token decode.
+
+There is no ``attn_impl`` switch: on CUDA tensors prefill attention is the
+flash kernel and decode attention the decode kernel; their plain versions
+serve CPU tensors only.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import model as M
+from repro_torch.models import transformer as T
+
+
+def make_prefill_step(cfg: ArchConfig, *, compute_dtype=torch.bfloat16,
+                      device="cuda"):
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        tokens = batch["tokens"].to(dev)
+        ctx = M.make_ctx(cfg, tokens.shape[1], "prefill",
+                         compute_dtype=compute_dtype, device=dev)
+        return M.prefill(params, tokens, cfg, ctx)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ArchConfig, buffer_len: int, *,
+                    compute_dtype=torch.bfloat16, device="cuda"):
+    """One new token against a KV cache of ``buffer_len``. The step updates
+    the cache in ``states`` in place and returns it."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def serve_step(params, states, batch):
+        tokens = batch["tokens"].to(dev)          # (B, 1)
+        cache_len = batch["cache_len"].to(dev)    # (B,) current filled length
+        ctx = M.make_ctx(cfg, buffer_len, "decode", cache_len=cache_len,
+                         compute_dtype=compute_dtype, device=dev)
+        logits, states = M.decode_step(params, tokens, states, cache_len,
+                                       cfg, ctx)
+        next_tok = logits[:, -1].argmax(-1)       # ties go to the first index
+        return logits, states, next_tok
+
+    return serve_step
+
+
+def greedy_generate(cfg: ArchConfig, params, prompt, max_new: int, *,
+                    compute_dtype=torch.bfloat16, device="cuda"):
+    """Reference autoregressive loop: feed the prompt token by token through
+    the decode path, then generate ``max_new`` tokens. The cache has the
+    compute dtype (bf16 by default, as in the reference)."""
+    dev = resolve_device(device)
+    b = prompt.shape[0]
+    buf = prompt.shape[1] + max_new
+    states = T.init_decode_state(cfg, b, buf, dtype=compute_dtype, device=dev)
+    step = make_serve_step(cfg, buf, compute_dtype=compute_dtype, device=dev)
+    prompt = prompt.to(dev)
+    cache_len = torch.zeros((b,), dtype=torch.int32, device=dev)
+    out = []
+    cur = prompt[:, :1]
+    for i in range(buf - 1):
+        _, states, nxt = step(params, states,
+                              {"tokens": cur, "cache_len": cache_len})
+        cache_len = cache_len + 1
+        if i + 1 < prompt.shape[1]:
+            cur = prompt[:, i + 1:i + 2]          # teacher-force the prompt
+        else:
+            cur = nxt[:, None]
+            out.append(cur)
+    return torch.cat(out, dim=1) if out else prompt[:, :0]

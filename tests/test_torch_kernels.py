@@ -1,0 +1,243 @@
+"""The port's attention kernels against the JAX package: each plain version
+against ``repro.kernels.ref`` and against the Pallas kernel in interpret
+mode, on the shape sets of ``tests/test_kernels.py``. The CUDA kernels are
+held against their plain versions in ``test_torch_card.py``."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import blocks as JB  # noqa: E402
+from repro_torch.kernels import decode_attention as dec  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+FLASH_SHAPES = [(1, 256, 4, 4, 64),      # MHA
+                (2, 256, 4, 2, 32),      # GQA 2:1
+                (1, 512, 8, 2, 64),      # GQA 4:1, more blocks
+                (1, 128, 2, 1, 128)]     # MQA, single block
+RAGGED_SHAPES = [(1, 192, 2, 2, 80), (2, 320, 4, 2, 96), (1, 100, 2, 1, 64)]
+DECODE_SHAPES = [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 32)]
+
+
+def _tol(dtype):
+    """Tolerances of tests/test_kernels.py: bf16 keeps 8 bits of mantissa."""
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def _inputs(seed, shapes, dtype="float32"):
+    """The same values for both packages: numpy fp32, then each framework
+    rounds to the dtype (both round to nearest even)."""
+    rng = np.random.default_rng(seed)
+    jd, td = DTYPES[dtype]
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    return ([jnp.asarray(a).astype(jd) for a in arrays],
+            [torch.from_numpy(a).to(td) for a in arrays])
+
+
+def _np(x):
+    return np.asarray(x.float()) if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: plain version vs ref.py and the Pallas kernel
+# ---------------------------------------------------------------------------
+
+
+def _flash_case(b, s, h, kv, d, dtype, causal, seed=0):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        seed, [(b, s, h, d), (b, s, kv, d), (b, s, kv, d)], dtype)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.shape == (b, s, h, d) and got.dtype == tq.dtype
+    tol = _tol(dtype)
+    np.testing.assert_allclose(
+        _np(got), _np(jref.attention_ref(jq, jk, jv, causal=causal)), **tol)
+    np.testing.assert_allclose(
+        _np(got), _np(jops.flash_attention(jq, jk, jv, causal=causal,
+                                           interpret=True)), **tol)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_ref_and_pallas(b, s, h, kv, d, dtype):
+    _flash_case(b, s, h, kv, d, dtype, causal=True)
+
+
+def test_flash_plain_noncausal():
+    _flash_case(1, 256, 2, 2, 64, "float32", causal=False, seed=1)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", RAGGED_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_ragged_shapes(b, s, h, kv, d, causal):
+    _flash_case(b, s, h, kv, d, "float32", causal=causal, seed=5)
+
+
+@pytest.mark.parametrize("blocks", [(64, 64), (128, 64), (64, 128)])
+def test_flash_plain_matches_pallas_block_shapes(blocks):
+    """The Pallas kernel's block sizes are a scheduling choice: the port's
+    result (which has no block parameter) matches every one of them."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        2, [(1, 256, 2, 32), (1, 256, 2, 32), (1, 256, 2, 32)])
+    got = ops.flash_attention(tq, tk, tv)
+    want = jops.flash_attention(jq, jk, jv, block_q=blocks[0],
+                                block_k=blocks[1], interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_port_attention_ref_matches_jax_ref(causal):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        2, [(2, 96, 4, 32), (2, 96, 2, 32), (2, 96, 2, 32)])
+    np.testing.assert_allclose(
+        _np(ref.attention_ref(tq, tk, tv, causal=causal)),
+        _np(jref.attention_ref(jq, jk, jv, causal=causal)),
+        rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# decode attention: plain version vs ref.py, the Pallas kernel and the
+# model's einsum path
+# ---------------------------------------------------------------------------
+
+
+def _lens(seed, b, s):
+    return np.random.default_rng(seed + 100).integers(1, s, b).astype(np.int32)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_ref_pallas_and_blocks(b, s, h, kv, d, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        0, [(b, 1, h, d), (b, s, kv, d), (b, s, kv, d)], dtype)
+    lens = _lens(0, b, s)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert got.shape == (b, 1, h, d) and got.dtype == tq.dtype
+    jl = jnp.asarray(lens)
+    tol = _tol(dtype)
+    want_ref = jref.decode_attention_ref(
+        jq[:, 0], jnp.swapaxes(jk, 1, 2), jnp.swapaxes(jv, 1, 2), jl)
+    np.testing.assert_allclose(_np(got[:, 0]), _np(want_ref), **tol)
+    want_pallas = jops.decode_attention(jq, jk, jv, jl, block_k=256,
+                                        interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want_pallas), **tol)
+    np.testing.assert_allclose(
+        _np(got), _np(JB.decode_attention(jq, jk, jv, jl)), **tol)
+
+
+def test_decode_plain_ragged_cache_length():
+    """A cache length no block size divides (the Pallas kernel asserts
+    S % block_k == 0; the port masks instead)."""
+    b, s, h, kv, d = 3, 300, 4, 2, 32
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        3, [(b, h, d), (b, kv, s, d), (b, kv, s, d)])
+    lens = np.array([1, 150, 300], np.int32)
+    got = dec.decode_attention_bhd(tq, tk, tv, torch.from_numpy(lens))
+    want = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+def test_decode_plain_empty_row_gives_zeros():
+    """A row with no valid position is zero. (The Pallas kernel's finite
+    -1e30 mask weights every position equally there and returns the mean of
+    all of V; the jnp oracle returns NaN. The model never asks: it attends
+    over cache_len + 1 >= 1 positions.) Other rows are unaffected."""
+    b, s, h, kv, d = 2, 512, 2, 1, 32
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        4, [(b, 1, h, d), (b, s, kv, d), (b, s, kv, d)])
+    lens = np.array([0, 7], np.int32)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert torch.all(got[0] == 0)
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(lens), block_k=256,
+                                 interpret=True)
+    np.testing.assert_allclose(_np(got[1]), _np(want[1]), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(_np(want[0, 0, 0]),
+                               _np(jnp.mean(jv[0, :, 0], axis=0)),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_port_decode_ref_matches_jax_ref():
+    b, s, h, kv, d = 2, 64, 4, 2, 16
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        6, [(b, h, d), (b, kv, s, d), (b, kv, s, d)])
+    lens = _lens(6, b, s)
+    np.testing.assert_allclose(
+        _np(ref.decode_attention_ref(tq, tk, tv, torch.from_numpy(lens))),
+        _np(jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens))),
+        rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: strided views, no fallback, launch counts
+# ---------------------------------------------------------------------------
+
+
+def test_flash_adapter_passes_views_not_copies(monkeypatch):
+    seen = {}
+
+    def spy(q, k, v, *, causal):
+        seen.update(q=q, k=k, v=v)
+        return fa.flash_attention_plain(q, k, v, causal=causal)
+
+    monkeypatch.setattr(fa, "flash_attention_bhsd", spy)
+    q, k, v = (torch.randn(2, 16, h, 8) for h in (4, 2, 2))
+    out = ops.flash_attention(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        assert seen[name].data_ptr() == t.data_ptr(), name
+        assert seen[name].shape == (2, t.shape[2], 16, 8), name
+    assert out.shape == q.shape
+
+
+def test_decode_adapter_passes_cache_views_not_copies(monkeypatch):
+    seen = {}
+
+    def spy(q, k_cache, v_cache, cache_len):
+        seen.update(k=k_cache, v=v_cache)
+        return dec.decode_attention_plain(q, k_cache, v_cache, cache_len)
+
+    monkeypatch.setattr(dec, "decode_attention_bhd", spy)
+    kc, vc = torch.randn(2, 32, 2, 8), torch.randn(2, 32, 2, 8)
+    out = ops.decode_attention(torch.randn(2, 1, 4, 8), kc, vc,
+                               torch.tensor([3, 32]))
+    assert seen["k"].data_ptr() == kc.data_ptr()
+    assert seen["v"].data_ptr() == vc.data_ptr()
+    assert seen["k"].shape == (2, 2, 32, 8)
+    assert out.shape == (2, 1, 4, 8)
+
+
+def test_cpu_tensors_take_plain_version_without_counting():
+    before = (fa.flash_attention_bhsd.launches,
+              dec.decode_attention_bhd.launches)
+    ops.flash_attention(*(torch.randn(1, 8, 2, 8) for _ in range(3)))
+    ops.decode_attention(torch.randn(1, 1, 2, 8), torch.randn(1, 8, 2, 8),
+                         torch.randn(1, 8, 2, 8), torch.tensor([4]))
+    assert (fa.flash_attention_bhsd.launches,
+            dec.decode_attention_bhd.launches) == before
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    q = torch.empty(1, 2, 8, 8, device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_attention_bhsd(q, q, q)
+    with pytest.raises(ValueError):
+        dec.decode_attention_bhd(torch.empty(1, 2, 8, device="meta"), q, q,
+                                 torch.empty(1, device="meta"))
+
+
+def test_wrappers_check_shapes():
+    with pytest.raises(ValueError):
+        fa.flash_attention_bhsd(torch.randn(1, 3, 8, 8), torch.randn(1, 2, 8, 8),
+                                torch.randn(1, 2, 8, 8))
+    with pytest.raises(ValueError):
+        dec.decode_attention_bhd(torch.randn(1, 2, 8), torch.randn(1, 1, 8, 4),
+                                 torch.randn(1, 1, 8, 4), torch.tensor([3]))

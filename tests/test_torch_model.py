@@ -1,0 +1,254 @@
+"""The port's blocks and model against ``repro.models`` on the same inputs and
+converted weights (reduced olmo-1b and qwen3-8b, on the CPU)."""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs.base import get_arch  # noqa: E402
+from repro.models import blocks as JB  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs.base import get_arch as port_arch  # noqa: E402
+from repro_torch.models import blocks as B  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+
+ARCHS = ["olmo-1b", "qwen3-8b"]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# elementwise blocks: fp32 agrees to rounding; bf16 to one or two ulps of
+# values of order 1 (2**-8 relative)
+TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _pair(rng, shape, dtype="float32", scale=1.0):
+    a = (rng.standard_normal(shape) * scale).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a).astype(jd), torch.from_numpy(a).to(td)
+
+
+def _np(x):
+    return np.asarray(x.float()) if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+def _params(arch):
+    cfg = get_arch(arch).reduced()
+    jp = JM.init_params(cfg, jax.random.PRNGKey(0))
+    return cfg, port_arch(arch).reduced(), jp, \
+        convert.from_numpy(jax.tree.map(np.asarray, jp))
+
+
+# ---------------------------------------------------------------------------
+# norms, RoPE, MLP, cache insert
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["olmo-nonparam-ln", "qwen3-rmsnorm",
+                                  "param-layernorm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_norm(case, dtype):
+    rng = np.random.default_rng(0)
+    cfg = get_arch("olmo-1b" if case.startswith("olmo") else "qwen3-8b")
+    if case == "param-layernorm":
+        cfg = dataclasses.replace(cfg, parametric_norm=True,
+                                  norm_type="layernorm")
+    cfg = cfg.reduced()
+    tcfg = port_arch(cfg.name[:-len("-smoke")])
+    tcfg = dataclasses.replace(tcfg, parametric_norm=cfg.parametric_norm,
+                               norm_type=cfg.norm_type).reduced()
+    jx, tx = _pair(rng, (2, 5, cfg.d_model), dtype, scale=3.0)
+    if not cfg.parametric_norm:
+        jp, tp = {"_np": jnp.zeros((0,))}, {"_np": torch.zeros(0)}
+    else:
+        js, ts = _pair(rng, (cfg.d_model,))
+        jp, tp = {"scale": js}, {"scale": ts}
+        if cfg.norm_type == "layernorm":
+            jb, tb = _pair(rng, (cfg.d_model,))
+            jp["bias"], tp["bias"] = jb, tb
+    got = B.apply_norm(tp, tx, tcfg)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(_np(got), _np(JB.apply_norm(jp, jx, cfg)),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_head_norm(dtype):
+    rng = np.random.default_rng(1)
+    jx, tx = _pair(rng, (2, 5, 4, 16), dtype, scale=2.0)
+    js, ts = _pair(rng, (16,), dtype)
+    np.testing.assert_allclose(_np(B.rms_head_norm(tx, ts)),
+                               _np(JB.rms_head_norm(jx, js)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_rope_table(theta):
+    jc, js = JB.rope_table(40, 16, theta)
+    tc, ts = B.rope_table(40, 16, theta)
+    np.testing.assert_allclose(_np(tc), _np(jc), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(ts), _np(js), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("per_token", [False, True])
+def test_apply_rope(dtype, per_token):
+    """Half-split RoPE with cos/sin rounded to x's dtype before the products,
+    for a (S, half) table and for per-token (B, 1, half) decode positions."""
+    rng = np.random.default_rng(2)
+    b, s = (3, 1) if per_token else (2, 7)
+    jx, tx = _pair(rng, (b, s, 4, 16), dtype, scale=2.0)
+    rows = 32 if per_token else s
+    jc, js = JB.rope_table(rows, 16, 1e4)
+    tc, ts = B.rope_table(rows, 16, 1e4)
+    if per_token:
+        pos = np.array([[0], [5], [31]])
+        jc, js = jnp.take(jc, pos, axis=0), jnp.take(js, pos, axis=0)
+        tc, ts = tc[torch.from_numpy(pos)], ts[torch.from_numpy(pos)]
+    got = B.apply_rope(tx, tc, ts)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(_np(got), _np(JB.apply_rope(jx, jc, js)),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_block(dtype):
+    rng = np.random.default_rng(3)
+    jx, tx = _pair(rng, (2, 5, 32), dtype)
+    jp, tp = {}, {}
+    for name, shape in (("w_gate", (32, 64)), ("w_up", (32, 64)),
+                        ("w_down", (64, 32))):
+        jp[name], tp[name] = _pair(rng, shape, scale=0.2)
+    np.testing.assert_allclose(_np(B.mlp_block(tp, tx)),
+                               _np(JB.mlp_block(jp, jx)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("mode", ["onehot", "scatter"])
+def test_cache_insert_matches_reference(mode, monkeypatch):
+    monkeypatch.setattr(JB, "CACHE_INSERT_IMPL", mode)
+    rng = np.random.default_rng(4)
+    jc, tc = _pair(rng, (3, 8, 2, 4))
+    jn, tn = _pair(rng, (3, 1, 2, 4))
+    idx = np.array([0, 5, 7], np.int32)
+    want = JB._cache_insert(jc, jn, jnp.asarray(idx))
+    got = B.cache_insert(tc, tn, torch.from_numpy(idx), mode=mode)
+    assert got is tc                                  # written in place
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_cache_insert_out_of_range():
+    """onehot drops an index past the cache, as the reference does; scatter
+    raises on the CPU rather than writing anywhere."""
+    cache = torch.zeros(2, 4, 1, 2)
+    new = torch.ones(2, 1, 1, 2)
+    B.cache_insert(cache, new, torch.tensor([1, 4]), mode="onehot")
+    assert cache[0, 1].eq(1).all() and cache[1].eq(0).all()
+    with pytest.raises(IndexError):
+        B.cache_insert(cache, new, torch.tensor([1, 4]), mode="scatter")
+
+
+def test_make_ctx_rejects_position_past_rope_table():
+    cfg = port_arch("olmo-1b").reduced()
+    M.make_ctx(cfg, 8, "decode", cache_len=torch.tensor([0, 7]), device="cpu")
+    with pytest.raises(IndexError):
+        M.make_ctx(cfg, 8, "decode", cache_len=torch.tensor([0, 8]),
+                   device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# attention block and the whole model
+# ---------------------------------------------------------------------------
+
+
+def _layer0_params(jp, tp):
+    jl = jax.tree.map(lambda a: a[0], jp["layers"]["attn"])
+    tl = {k: v[0] for k, v in tp["layers"]["attn"].items()}
+    return jl, tl
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_attention_block_prefill(arch):
+    cfg, tcfg, jp, tp = _params(arch)
+    jl, tl = _layer0_params(jp, tp)
+    jx, tx = _pair(np.random.default_rng(5), (2, 9, cfg.d_model))
+    rope_j = JB.rope_table(9, 16, cfg.rope_theta)
+    rope_t = B.rope_table(9, 16, cfg.rope_theta)
+    want, _ = JB.attention_block(jl, jx, cfg, rope=rope_j)
+    got, cache = B.attention_block(tl, tx, tcfg, rope=rope_t)
+    assert cache is None
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_attention_block_decode(arch):
+    """Insert at cache_len, then attend over cache_len + 1 positions, with
+    RoPE at positions cache_len from a table of buffer_len rows."""
+    cfg, tcfg, jp, tp = _params(arch)
+    jl, tl = _layer0_params(jp, tp)
+    rng = np.random.default_rng(6)
+    b, buf = 3, 10
+    jx, tx = _pair(rng, (b, 1, cfg.d_model))
+    shape = (b, buf, cfg.n_kv_heads, 16)
+    jk, tk = _pair(rng, shape)
+    jv, tv = _pair(rng, shape)
+    lens = np.array([0, 4, 9], np.int32)
+    want, (wk, wv) = JB.attention_block(
+        jl, jx, cfg, rope=JB.rope_table(buf, 16, cfg.rope_theta),
+        positions=jnp.asarray(lens)[:, None], kv_cache=(jk, jv),
+        cache_len=jnp.asarray(lens))
+    tl_len = torch.from_numpy(lens)
+    got, (gk, gv) = B.attention_block(
+        tl, tx, tcfg, rope=B.rope_table(buf, 16, cfg.rope_theta),
+        positions=tl_len[:, None].long(), kv_cache=(tk, tv), cache_len=tl_len)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(gk), _np(wk), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(gv), _np(wv), rtol=1e-5, atol=1e-5)
+
+
+def _forward_pair(arch, dtype):
+    cfg, tcfg, jp, tp = _params(arch)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 12))
+    jd, td = DTYPES[dtype]
+    ctx = JM.make_ctx(cfg, 12, "train", remat=None, compute_dtype=jd)
+    want, _, _ = JM.forward(jp, jnp.asarray(toks), cfg, ctx)
+    tctx = M.make_ctx(tcfg, 12, "prefill", compute_dtype=td, device="cpu")
+    got, _ = M.forward(tp, torch.from_numpy(toks), tcfg, tctx)
+    assert got.shape == want.shape and got.dtype == td
+    return _np(got), _np(want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_logits_fp32(arch):
+    got, want = _forward_pair(arch, "float32")
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_logits_bf16(arch):
+    """bf16: both frameworks round activations to 8 bits of mantissa, at
+    places that differ (XLA fuses elementwise chains in fp32; PyTorch rounds
+    each op; the reference rounds attention probabilities to bf16, the
+    flash kernel does not). Rounding error scales with the values rounded,
+    and JAX's own bf16 logits sit 0.06-0.09 from its fp32 ones on qwen3's
+    untied head (logits up to ~4). So the two bf16 runs must agree within
+    5e-2 of the logits' range, and the port's bf16 error against JAX's fp32
+    logits may be at most 1.5x JAX's own."""
+    got, want = _forward_pair(arch, "bfloat16")
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=5e-2 * np.abs(want).max())
+    _, fp32 = _forward_pair(arch, "float32")
+    assert np.abs(got - fp32).max() <= 1.5 * np.abs(want - fp32).max()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cast_params_keeps_norms_fp32(arch):
+    _, tcfg, _, tp = _params(arch)
+    cast = convert.flatten(M.cast_params(tp, torch.bfloat16))
+    for key, val in cast.items():
+        norm = key.split("/")[0] == "final_norm" or "/ln" in key
+        assert val.dtype == (torch.float32 if norm else torch.bfloat16), key
