@@ -268,4 +268,5 @@ def list_archs() -> list[str]:
 
 
 def _load_all() -> None:
-    from repro_torch.configs import olmo_1b, qwen3_8b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        olmo_1b, qwen3_8b, rwkv6_7b, zamba2_7b)

@@ -1,0 +1,138 @@
+"""Mamba-2 SSD scan: the port of ``repro/kernels/mamba2_ssd.py``.
+
+Replaces the Pallas TPU kernel ``_ssd_kernel`` / ``ssd_bhsp`` with the
+hand-written CUDA kernel in ``csrc/mamba2_ssd.cu`` (sm_90a): one block per
+(b, h) walks the recurrence in time order, each thread holding one column
+of the (N x P) fp32 state in registers.
+
+Bound on the H100: bytes. At the zamba2-7b prefill shape (B=4, S=2048,
+H=112, P=64, G=1, N=64; bf16 x, B, C and y, fp32 dt) it must move about
+240 MB, about 0.072 ms at 3.35 TB/s; its 1.5e10 FLOP take about 15 us at the
+bf16 tensor-core rate. The kernel reads x and dt once and writes y once
+through the model's (B, S, H, P) strides and keeps the state on chip, but
+its sequential walk over tokens keeps it well above that bound for now.
+
+The Pallas kernel (and the reference model's ``ssd_chunked``) factor the
+intra-chunk decay into two half-shifted exponentials that overflow fp32 once
+a chunk's summed log-decay passes about -176, and assert
+``S % chunk == 0``. Here no exponent is ever positive: the kernel applies one
+``exp(dt_t A) <= 1`` per token, and the plain version forms each pairwise
+decay as ``exp(cum_t - cum_j)`` of a masked, non-positive difference. Both
+take any S >= 1.
+
+``ssd_bhsp`` launches the kernel for CUDA tensors and takes the plain version
+only for CPU tensors. ``ssd_bhsp.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "ssd_fwd": ([_P] * 7 + [_I] * 7 + [_L] * 15 + [_I, _P], _I),
+}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+MAX_STATE = 64
+PLAIN_CHUNK = 64     # tokens per chunk of the plain version
+
+
+def ssd_plain(x, dt, A, Bm, Cm, D):
+    """Plain PyTorch version. x: (B, H, S, P); dt: (B, H, S); A, D: (H,);
+    Bm, Cm: (B, G, S, N), head h reading group h // (H / G).
+
+    Chunk-parallel, in fp32, in a form that cannot overflow: within a chunk
+    the decay from token j to token t >= j is exp(cum_t - cum_j), the
+    difference (a sum of dt A <= 0) masked with ``torch.where`` before the
+    exp. The last chunk may be short. Output in x's dtype."""
+    b, h, s, p_ = x.shape
+    reps = h // Bm.shape[1]
+    Bh = Bm.float().repeat_interleave(reps, dim=1)            # (B, H, S, N)
+    Ch = Cm.float().repeat_interleave(reps, dim=1)
+    la = dt.float() * A.float()[None, :, None]                # (B, H, S) <= 0
+    xd = x.float() * dt.float()[..., None]                    # dt-weighted
+    state = torch.zeros((b, h, Bm.shape[3], p_), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for c0 in range(0, s, PLAIN_CHUNK):
+        bc, cc, xc = (a[:, :, c0:c0 + PLAIN_CHUNK] for a in (Bh, Ch, xd))
+        cum = la[:, :, c0:c0 + PLAIN_CHUNK].cumsum(-1)        # inclusive
+        n = cum.shape[-1]
+        tot = cum[..., -1:]
+        y = (cc * torch.exp(cum)[..., None]) @ state          # earlier chunks
+        lower = torch.ones(n, n, dtype=torch.bool, device=x.device).tril()
+        diff = cum[..., :, None] - cum[..., None, :]          # (B, H, t, j)
+        dec = torch.exp(torch.where(lower, diff,
+                                    torch.full_like(diff, float("-inf"))))
+        ys.append(y + ((cc @ bc.transpose(-1, -2)) * dec) @ xc)
+        state = torch.exp(tot)[..., None] * state + \
+            (bc * torch.exp(tot - cum)[..., None]).transpose(-1, -2) @ xc
+    y = torch.cat(ys, dim=2) + x.float() * D.float()[None, :, None, None]
+    return y.to(x.dtype)
+
+
+def ssd_bhsp(x, dt, A, Bm, Cm, D):
+    """x: (B, H, S, P); dt: (B, H, S); A, D: (H,); Bm, Cm: (B, G, S, N) ->
+    y (B, H, S, P) in x's dtype.
+
+    Any strides are accepted as long as the P and N dims are contiguous;
+    the output has x's memory layout."""
+    b, h, s, p_ = x.shape
+    if x.dim() != 4 or tuple(dt.shape) != (b, h, s) \
+            or tuple(A.shape) != (h,) or tuple(D.shape) != (h,) \
+            or Bm.shape != Cm.shape or Bm.dim() != 4 \
+            or Bm.shape[0] != b or Bm.shape[2] != s or h % Bm.shape[1]:
+        raise ValueError(f"bad shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
+                         f"A{tuple(A.shape)} B{tuple(Bm.shape)} "
+                         f"C{tuple(Cm.shape)} D{tuple(D.shape)}")
+    if x.device.type == "cpu":
+        return ssd_plain(x, dt, A, Bm, Cm, D)
+    if x.device.type != "cuda":
+        raise ValueError(f"no SSD kernel for device {x.device}")
+    return _launch(x, dt, A, Bm, Cm, D)
+
+
+ssd_bhsp.launches = 0
+
+
+def _launch(x, dt, A, Bm, Cm, D):
+    b, h, s, p_ = x.shape
+    g, n = Bm.shape[1], Bm.shape[3]
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"SSD takes float32 or bfloat16 x, B, C of one dtype, "
+                        f"got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if dt.dtype != torch.float32:
+        raise TypeError(f"SSD takes float32 dt, got {dt.dtype}")
+    if not (dt.device == A.device == Bm.device == Cm.device == D.device
+            == x.device):
+        raise ValueError("x, dt, A, B, C and D must be on one device")
+    if p_ > MAX_HEAD_DIM or n > MAX_STATE:
+        raise ValueError(f"head dim {p_} > {MAX_HEAD_DIM} or state {n} > "
+                         f"{MAX_STATE}")
+    y = torch.empty_like(x)          # keeps x's layout, e.g. a (B, S, H, P) view
+    for name, t in (("x", x), ("B", Bm), ("C", Cm), ("y", y)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s last dim must be contiguous")
+    Af, Df = A.float().contiguous(), D.float().contiguous()   # (H,) each
+    lib = _build.load("mamba2_ssd", _SIGNATURES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.ssd_fwd(
+        x.data_ptr(), dt.data_ptr(), Af.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), Df.data_ptr(), y.data_ptr(), _DTYPES[x.dtype],
+        b, s, h, g, p_, n,
+        x.stride(0), x.stride(2), x.stride(1),
+        dt.stride(0), dt.stride(2), dt.stride(1),
+        Bm.stride(0), Bm.stride(2), Bm.stride(1),
+        Cm.stride(0), Cm.stride(2), Cm.stride(1),
+        y.stride(0), y.stride(2), y.stride(1),
+        x.device.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"SSD kernel failed to launch: cudaError {rc}")
+    ssd_bhsp.launches += 1
+    return y

@@ -1,15 +1,18 @@
-"""Public (B, S, H, D) adapters for the attention kernels (the port of
-``repro/kernels/ops.py``'s ``flash_attention`` and ``decode_attention``).
+"""Public (B, S, H, D) adapters for the kernels (the port of
+``repro/kernels/ops.py``: ``flash_attention``, ``decode_attention``,
+``wkv6`` and ``mamba2_ssd``).
 
 The JAX adapters transpose to (B, H, S, D) around the Pallas calls. Here
 ``permute`` only relabels strides: the kernels read the model's (B, S, H, D)
 activations and (B, S, KV, D) caches in place, so no layer of any tick
-copies its cache.
+copies its cache and no prefill copies its activations.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba2_ssd as _ssd
+from repro_torch.kernels import wkv6 as _wkv
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
@@ -25,3 +28,17 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     o = _dec.decode_attention_bhd(q[:, 0], k_cache.permute(0, 2, 1, 3),
                                   v_cache.permute(0, 2, 1, 3), cache_len)
     return o[:, None]
+
+
+def wkv6(r, k, v, logw, u):
+    """r, k, v, logw: (B, S, H, K); u: (H, K) -> (B, S, H, K)."""
+    tr = lambda a: a.permute(0, 2, 1, 3)
+    return tr(_wkv.wkv6_bhsk(tr(r), tr(k), tr(v), tr(logw), u))
+
+
+def mamba2_ssd(x, dt, A, B, C, D):
+    """x: (B, S, H, P); dt: (B, S, H); B, C: (B, S, G, N); A, D: (H,) ->
+    (B, S, H, P)."""
+    y = _ssd.ssd_bhsp(x.permute(0, 2, 1, 3), dt.permute(0, 2, 1), A,
+                      B.permute(0, 2, 1, 3), C.permute(0, 2, 1, 3), D)
+    return y.permute(0, 2, 1, 3)

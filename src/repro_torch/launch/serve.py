@@ -99,6 +99,7 @@ def serve(cfg: ArchConfig, params, prompts: list[list[int]], *, slots: int,
             if len(outputs[r]) >= max_new:
                 done += 1
                 cache_len[s] = 0                    # reset the slot's cache
+                T.reset_slot(states, s)             # and recurrent state
                 refill(s)
     return ServeResult(outputs, first_logits, ticks, time.perf_counter() - t0)
 

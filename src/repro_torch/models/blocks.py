@@ -23,11 +23,11 @@ from repro_torch.kernels import ops
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, shape):
+def dense_init(gen: torch.Generator, shape, fan_in=None):
     """Normal / sqrt(fan_in) in fp32, fan_in being the second-to-last dim
-    (the input dim of a weight, stacked or not)."""
+    (the input dim of a weight, stacked or not) unless given."""
     return torch.randn(shape, generator=gen, device=gen.device) \
-        / math.sqrt(shape[-2])
+        / math.sqrt(shape[-2] if fan_in is None else fan_in)
 
 
 def init_norm(cfg: ArchConfig, lead=(), device="cpu"):

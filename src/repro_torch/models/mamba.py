@@ -1,0 +1,131 @@
+"""Mamba-2 (SSD) block (the port of ``repro/models/mamba.py``): projections ->
+causal depthwise conv -> selective state space scan -> gated RMSNorm ->
+out projection.
+
+Prefill runs the scan through ``ops.mamba2_ssd`` (the CUDA kernel on the
+card, its plain version on the CPU); decode steps a (B, H, N, P) fp32 SSM
+state and a (B, W-1, C) conv state with ``ssd_recurrent`` in plain torch, as
+the reference does. Both states are updated in place.
+
+Recurrence per head (state N x P, P = head_dim, scalar decay per head):
+    h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t^T
+    y_t = C_t^T h_t + D * x_t
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models.blocks import dense_init
+
+
+def init_mamba_layer(cfg: ArchConfig, gen: torch.Generator, lead=()):
+    """Separate z, x, B, C and dt projections, as in the reference."""
+    mc = cfg.mamba
+    d = cfg.d_model
+    di = mc.d_inner(d)
+    nh = mc.n_heads(d)
+    gn = mc.n_groups * mc.d_state
+    dev = gen.device
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(lo + (hi - lo) * torch.rand((*lead, nh), generator=gen,
+                                               device=dev))
+    a_log = torch.log(torch.linspace(1.0, 16.0, nh, device=dev))
+    return {
+        "z_proj": dense_init(gen, (*lead, d, di)),
+        "x_proj": dense_init(gen, (*lead, d, di)),
+        "B_proj": dense_init(gen, (*lead, d, gn)),
+        "C_proj": dense_init(gen, (*lead, d, gn)),
+        "dt_proj": dense_init(gen, (*lead, d, nh)),
+        "conv_x": 0.1 * torch.randn((*lead, mc.d_conv, di), generator=gen,
+                                    device=dev),
+        "conv_b_x": torch.zeros((*lead, di), device=dev),
+        "conv_BC": 0.1 * torch.randn((*lead, mc.d_conv, 2 * gn),
+                                     generator=gen, device=dev),
+        "conv_b_BC": torch.zeros((*lead, 2 * gn), device=dev),
+        "A_log": a_log.expand(*lead, nh).clone(),
+        "D": torch.ones((*lead, nh), device=dev),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),   # inverse softplus
+        "gate_norm": torch.ones((*lead, di), device=dev),
+        "out_proj": dense_init(gen, (*lead, di, d)),
+    }
+
+
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv as shifted adds in x's dtype. x: (B, S, C);
+    w: (W, C). state: (B, W-1, C) previous inputs for decode, zeros for
+    prefill. Returns (silu(y), new_state).
+
+    The reference pads prefill with ``zeros_like(x[:, :W-1])``, which has
+    only S rows when S < W - 1, and its output is then empty; the port pads
+    with W - 1 rows whatever S is."""
+    wlen = w.shape[0]
+    pad = x.new_zeros((x.shape[0], wlen - 1, x.shape[2])) if state is None \
+        else state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                   # (B, S+W-1, C)
+    s = x.shape[1]
+    y = xp[:, :s] * w[0].to(x.dtype)
+    for i in range(1, wlen):
+        y = y + xp[:, i:i + s] * w[i].to(x.dtype)
+    y = y + b.to(x.dtype)
+    return F.silu(y), xp[:, -(wlen - 1):]
+
+
+def ssd_recurrent(x, dt, A, B, C, D, state):
+    """Single-token decode. x: (B, 1, H, P); dt: (B, 1, H); B, C:
+    (B, 1, G, N); state (B, H, N, P) fp32, updated in place. Returns
+    (y (B, 1, H, P), state)."""
+    reps = x.shape[2] // B.shape[2]
+    xf = x.float()[:, 0]
+    xt = xf * dt.float()[:, 0, :, None]                         # (B, H, P)
+    bt = B.float()[:, 0].repeat_interleave(reps, dim=1)         # (B, H, N)
+    ct = C.float()[:, 0].repeat_interleave(reps, dim=1)
+    a = torch.exp(dt.float()[:, 0] * A.float()[None])           # (B, H)
+    state.mul_(a[..., None, None]).add_(
+        torch.einsum("bhn,bhp->bhnp", bt, xt))
+    y = torch.einsum("bhn,bhnp->bhp", ct, state) \
+        + xf * D.float()[None, :, None]
+    return y[:, None].to(x.dtype), state
+
+
+def mamba_block(p, x, cfg: ArchConfig, *, state=None):
+    """state: (ssm_state, conv_state) for decode, updated in place; None for
+    prefill. Returns (out, state)."""
+    mc = cfg.mamba
+    b, s, d = x.shape
+    di = mc.d_inner(d)
+    gn = mc.n_groups * mc.d_state
+    cd = x.dtype
+
+    z = x @ p["z_proj"].to(cd)
+    xs = x @ p["x_proj"].to(cd)
+    bc = torch.cat([x @ p["B_proj"].to(cd), x @ p["C_proj"].to(cd)], dim=-1)
+    dt_raw = x @ p["dt_proj"].to(cd)
+    ssm, conv = (None, None) if state is None else state
+    xs, conv_x = _causal_conv(xs, p["conv_x"], p["conv_b_x"],
+                              None if conv is None else conv[..., :di])
+    bc, conv_bc = _causal_conv(bc, p["conv_BC"], p["conv_b_BC"],
+                               None if conv is None else conv[..., di:])
+    if conv is not None:
+        conv[..., :di].copy_(conv_x)
+        conv[..., di:].copy_(conv_bc)
+    xs = xs.view(b, s, mc.n_heads(d), mc.head_dim)
+    Bm = bc[..., :gn].reshape(b, s, mc.n_groups, mc.d_state)
+    Cm = bc[..., gn:].reshape(b, s, mc.n_groups, mc.d_state)
+    # F.softplus returns x itself above x = 20, where JAX's softplus gives
+    # x + log1p(exp(-x)): the two differ by less than 2.1e-9
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    if ssm is None:
+        y = ops.mamba2_ssd(xs, dt, A, Bm, Cm, p["D"])
+    else:
+        y, _ = ssd_recurrent(xs, dt, A, Bm, Cm, p["D"], ssm)
+    # gated RMSNorm (Mamba-2): norm(y * silu(z)) in fp32
+    yf = (y.reshape(b, s, di) * F.silu(z)).float()
+    y = (yf * torch.rsqrt(yf.square().mean(-1, keepdim=True) + 1e-5)
+         * p["gate_norm"]).to(cd)
+    return y @ p["out_proj"].to(cd), state

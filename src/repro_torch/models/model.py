@@ -9,7 +9,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import transformer as T
 
-NORM_KEYS = ("ln1", "ln2", "final_norm")
+# leaves the reference reads in fp32 (norms, the RWKV bonus, decay base and
+# group-norm scale, the Mamba A_log, D, dt_bias and gated-norm scale)
+FP32_KEYS = ("ln1", "ln2", "final_norm", "bonus_u", "decay_base", "ln_x",
+             "A_log", "D", "dt_bias", "gate_norm")
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
@@ -31,10 +34,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
 def cast_params(params, dtype):
     """Cast the weights that the blocks cast per call (``.to(cd)``) once, at
     load. The values are those of the reference's per-call ``.astype(cd)``;
-    norm params stay fp32, since the reference applies them in fp32."""
+    the leaves of ``FP32_KEYS`` stay fp32, since the reference reads them in
+    fp32 (casting them would change their values)."""
     out = {}
     for key, val in params.items():
-        if key in NORM_KEYS:
+        if key in FP32_KEYS:
             out[key] = val
         elif isinstance(val, dict):
             out[key] = cast_params(val, dtype)
@@ -45,13 +49,15 @@ def cast_params(params, dtype):
 
 def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *, cache_len=None,
              compute_dtype=torch.bfloat16, device="cuda") -> dict:
-    """RoPE table of ``seq_len`` rows and, for decode, the positions
-    ``cache_len[:, None]``. A position past the table would read outside it
-    (the reference's ``jnp.take`` gives NaN there), so it raises here."""
+    """RoPE table of ``seq_len`` rows (none for an attention-free config)
+    and, for decode, the positions ``cache_len[:, None]``. A position past
+    the table would read outside it (the reference's ``jnp.take`` gives NaN
+    there), so it raises here."""
     dev = resolve_device(device)
-    ctx = {"mode": mode, "compute_dtype": compute_dtype,
-           "rope": B.rope_table(seq_len, cfg.resolved_head_dim,
-                                cfg.rope_theta, device=dev)}
+    ctx = {"mode": mode, "compute_dtype": compute_dtype}
+    if not cfg.attention_free:
+        ctx["rope"] = B.rope_table(seq_len, cfg.resolved_head_dim,
+                                   cfg.rope_theta, device=dev)
     if cache_len is not None:
         if cache_len.numel() and int(cache_len.max()) >= seq_len:
             raise IndexError(f"decode position {int(cache_len.max())} is "

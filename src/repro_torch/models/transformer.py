@@ -1,11 +1,23 @@
-"""Stacked layers (the port of ``repro/models/transformer.py``), uniform dense
-layout only.
+"""Stacked layers over block types (the port of ``repro/models/transformer.py``).
 
-Params of all layers are stacked along dim 0, as in the reference; its
-``lax.scan`` over layers becomes a loop over that dim. The decode state
-has the same stacking: {"layers": (k, v)}, each (L, B, S, KV, D), and each
-layer writes its new token into its slice in place. The periodic layouts
-(VLM, hybrid) and the MoE and RWKV blocks are not ported yet.
+Layouts, as in the reference:
+  uniform : all layers of one block kind, params stacked along dim 0
+            -> dense (olmo-1b, qwen3-8b) and rwkv (rwkv6-7b)
+  periodic: periods of [inner_n stacked layers + one special layer], then
+            trailing inner layers
+            -> hybrid (zamba2-7b): (5 mamba + 1 *shared* attention block)
+               x 13 + 3 mamba, the attention weights shared by all sites
+
+The reference's ``lax.scan``s over layers become loops over the stacked
+dims. The decode state has the same stacking as the params:
+  dense : {"layers": (k, v)}, each (L, B, S, KV, D)
+  rwkv  : {"layers": (wkv (L, B, H, K, K) fp32, tm_last, cm_last (L, B, 1, D))}
+  hybrid: {"inner": (ssm (P, I, B, H, N, Pd) fp32, conv (P, I, B, W-1, C)),
+           "single": (k, v) per attention site, each (P, B, S, KV, D),
+           "trailing": (ssm, conv) with a leading max(trailing, 1) dim}
+Every layer updates its slice of the decode state in place (the reference
+returns new arrays; in place saves a copy of every cache and state per layer
+and tick). The VLM cross-attention block and MoE are not ported.
 """
 from __future__ import annotations
 
@@ -13,66 +25,179 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
+from repro_torch.models import mamba as M
+from repro_torch.models import rwkv as R
 
 
 def build_layout(cfg: ArchConfig) -> dict:
-    if cfg.family != "dense" or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: only the uniform dense layout is ported")
-    return {"kind": "uniform", "block": "dense", "n": cfg.n_layers}
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported")
+    if cfg.family == "hybrid":
+        k = cfg.hybrid_attn_every
+        periods = cfg.n_layers // k
+        return {"kind": "periodic", "periods": periods, "inner_n": k - 1,
+                "inner_block": "mamba", "single_block": "shared_attn",
+                "trailing": cfg.n_layers - periods * k}
+    if cfg.family in ("dense", "ssm"):
+        return {"kind": "uniform", "n": cfg.n_layers,
+                "block": "rwkv" if cfg.family == "ssm" else "dense"}
+    raise NotImplementedError(
+        f"{cfg.name}: the {cfg.family} family is not ported")
+
+
+def init_layer(block: str, cfg: ArchConfig, gen: torch.Generator, lead=()):
+    dev = gen.device
+    if block in ("dense", "shared_attn"):
+        return {"attn": B.init_attention(cfg, gen, lead),
+                "mlp": B.init_mlp(cfg, gen, lead),
+                "ln1": B.init_norm(cfg, lead, dev),
+                "ln2": B.init_norm(cfg, lead, dev)}
+    if block == "rwkv":
+        return {"tm": R.init_rwkv_layer(cfg, gen, lead),
+                "ln1": B.init_norm(cfg, lead, dev),
+                "ln2": B.init_norm(cfg, lead, dev)}
+    if block == "mamba":
+        return {"m": M.init_mamba_layer(cfg, gen, lead),
+                "ln1": B.init_norm(cfg, lead, dev)}
+    raise NotImplementedError(block)
 
 
 def init_stack(cfg: ArchConfig, gen: torch.Generator):
     layout = build_layout(cfg)
-    lead = (layout["n"],)
-    return {"layers": {"attn": B.init_attention(cfg, gen, lead),
-                       "mlp": B.init_mlp(cfg, gen, lead),
-                       "ln1": B.init_norm(cfg, lead, gen.device),
-                       "ln2": B.init_norm(cfg, lead, gen.device)}}
+    if layout["kind"] == "uniform":
+        return {"layers": init_layer(layout["block"], cfg, gen,
+                                     (layout["n"],))}
+    inner = layout["inner_block"]
+    return {"layers": {
+        "inner": init_layer(inner, cfg, gen,
+                            (layout["periods"], layout["inner_n"])),
+        # the reference keeps one trailing layer even when there are none
+        "trailing": init_layer(inner, cfg, gen,
+                               (max(layout["trailing"], 1),))},
+        "shared_block": init_layer("shared_attn", cfg, gen)}
 
 
 def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
-    """One dense layer. Returns (x, state); a decode state is updated in
-    place."""
-    if block != "dense":
-        raise NotImplementedError(block)
-    h = B.apply_norm(p["ln1"], x, cfg)
-    o, state = B.attention_block(
-        p["attn"], h, cfg, rope=ctx.get("rope"),
-        positions=ctx.get("positions"), kv_cache=state,
-        cache_len=ctx.get("cache_len"))
-    x = x + o
-    h = B.apply_norm(p["ln2"], x, cfg)
-    return x + B.mlp_block(p["mlp"], h), state
+    """One layer. Returns (x, state); a decode state is updated in place."""
+    decode = ctx["mode"] == "decode"
+    if block in ("dense", "shared_attn"):
+        h = B.apply_norm(p["ln1"], x, cfg)
+        o, state = B.attention_block(
+            p["attn"], h, cfg, rope=ctx.get("rope"),
+            positions=ctx.get("positions"), kv_cache=state,
+            cache_len=ctx.get("cache_len"))
+        x = x + o
+        h = B.apply_norm(p["ln2"], x, cfg)
+        return x + B.mlp_block(p["mlp"], h), state
+    if block == "rwkv":
+        wkv, tm_last, cm_last = state if decode else (None, None, None)
+        h = B.apply_norm(p["ln1"], x, cfg)
+        o, _ = R.rwkv_time_mix(p["tm"], h, cfg, state=wkv, last_x=tm_last)
+        x = x + o
+        h2 = B.apply_norm(p["ln2"], x, cfg)
+        # channel-mix params live under the time-mix key, as in the reference
+        x = x + R.rwkv_channel_mix(p["tm"], h2, last_x=cm_last)
+        if decode:       # the next token shifts in this token's normed inputs
+            tm_last.copy_(h[:, -1:])
+            cm_last.copy_(h2[:, -1:])
+        return x, state
+    if block == "mamba":
+        h = B.apply_norm(p["ln1"], x, cfg)
+        o, state = M.mamba_block(p["m"], h, cfg, state=state)
+        return x + o, state
+    raise NotImplementedError(block)
 
 
 def _layer(tree, i: int):
-    """Layer i's params: index dim 0 of every stacked leaf (views)."""
+    """Index dim 0 of every leaf of a param dict or state tuple (views)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_layer(v, i) for v in tree)
     return tree[i]
 
 
+def _run(block, stacked, n, x, cfg, ctx, states):
+    for i in range(n):
+        st = None if states is None else _layer(states, i)
+        x, _ = layer_fwd(block, _layer(stacked, i), x, cfg, ctx, st)
+    return x
+
+
 def apply_stack(params, x, cfg: ArchConfig, ctx: dict, states=None):
-    """Run all layers. states: decode state or None. Returns (x, states)."""
+    """Run all layers. states: decode state (updated in place) or None.
+    Returns (x, states)."""
     layout = build_layout(cfg)
     decode = ctx["mode"] == "decode"
-    for i in range(layout["n"]):
-        st = None
-        if decode:
-            k_all, v_all = states["layers"]
-            st = (k_all[i], v_all[i])
-        x, _ = layer_fwd(layout["block"], _layer(params["layers"], i), x, cfg,
-                         ctx, st)
+
+    def part(key):
+        return states[key] if decode else None
+
+    if layout["kind"] == "uniform":
+        x = _run(layout["block"], params["layers"], layout["n"], x, cfg, ctx,
+                 part("layers"))
+        return x, states
+    inner = layout["inner_block"]
+    for i in range(layout["periods"]):
+        x = _run(inner, _layer(params["layers"]["inner"], i),
+                 layout["inner_n"], x, cfg, ctx,
+                 _layer(states["inner"], i) if decode else None)
+        x, _ = layer_fwd(layout["single_block"], params["shared_block"], x,
+                         cfg, ctx, _layer(states["single"], i) if decode
+                         else None)
+    x = _run(inner, params["layers"]["trailing"], layout["trailing"], x, cfg,
+             ctx, part("trailing"))
     return x, states
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, buffer_len: int,
                       dtype=torch.bfloat16, device="cpu"):
-    """Zeroed KV caches for the whole stack (bf16 by default, as in the
-    reference)."""
+    """Zeroed decode state for the whole stack: KV caches and last-token and
+    conv states in ``dtype`` (bf16 by default, as in the reference),
+    recurrent wkv and SSM states in fp32."""
     layout = build_layout(cfg)
-    shape = (layout["n"], batch, buffer_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"layers": (torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device))}
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def attn_state(*lead):
+        shape = (*lead, batch, buffer_len, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return (zeros(*shape), zeros(*shape))
+
+    def rwkv_state(*lead):
+        hd = cfg.rwkv.head_dim
+        return (zeros(*lead, batch, cfg.d_model // hd, hd, hd,
+                      dt=torch.float32),
+                zeros(*lead, batch, 1, cfg.d_model),
+                zeros(*lead, batch, 1, cfg.d_model))
+
+    def mamba_state(*lead):
+        mc = cfg.mamba
+        conv_ch = mc.d_inner(cfg.d_model) + 2 * mc.n_groups * mc.d_state
+        return (zeros(*lead, batch, mc.n_heads(cfg.d_model), mc.d_state,
+                      mc.head_dim, dt=torch.float32),
+                zeros(*lead, batch, mc.d_conv - 1, conv_ch))
+
+    if layout["kind"] == "uniform":
+        maker = rwkv_state if layout["block"] == "rwkv" else attn_state
+        return {"layers": maker(layout["n"])}
+    return {"inner": mamba_state(layout["periods"], layout["inner_n"]),
+            "single": attn_state(layout["periods"]),
+            "trailing": mamba_state(max(layout["trailing"], 1))}
+
+
+def reset_slot(states, s: int) -> None:
+    """Zero slot ``s``'s recurrent state in place, for a new request: the
+    RWKV wkv state and both last-token tensors, the Mamba SSM and conv
+    states. KV caches are left as they are, since ``cache_len`` masks what a
+    new request has not written."""
+    if "layers" in states:
+        if len(states["layers"]) == 3:     # rwkv: (wkv, tm_last, cm_last)
+            for t in states["layers"]:
+                t[:, s].zero_()
+        return
+    for t in states["inner"]:              # (periods, inner_n, B, ...)
+        t[:, :, s].zero_()
+    for t in states["trailing"]:           # (n, B, ...)
+        t[:, s].zero_()

@@ -1,9 +1,10 @@
 """Serving steps (the port of ``repro/serve/decode.py``): prefill and
 one-token decode.
 
-There is no ``attn_impl`` switch: on CUDA tensors prefill attention is the
-flash kernel and decode attention the decode kernel; their plain versions
-serve CPU tensors only.
+There is no ``attn_impl`` switch: on CUDA tensors prefill runs the flash,
+WKV6 and SSD kernels and decode attention the decode kernel (the RWKV and
+Mamba decode steps are plain torch, as in the reference); their plain
+versions serve CPU tensors only.
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ def make_prefill_step(cfg: ArchConfig, *, compute_dtype=torch.bfloat16,
 
 def make_serve_step(cfg: ArchConfig, buffer_len: int, *,
                     compute_dtype=torch.bfloat16, device="cuda"):
-    """One new token against a KV cache of ``buffer_len``. The step updates
-    the cache in ``states`` in place and returns it."""
+    """One new token against a KV cache of ``buffer_len`` (and the recurrent
+    states). The step updates ``states`` in place and returns it."""
     dev = resolve_device(device)
 
     @torch.no_grad()

@@ -14,7 +14,10 @@ import numpy as np  # noqa: E402
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import wkv6 as wkv  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve import decode as D  # noqa: E402
 
@@ -30,8 +33,16 @@ FLASH_CASES = [
     *[(*shape, causal, "float32")
       for shape in [(1, 192, 2, 2, 80), (2, 320, 4, 2, 96), (1, 100, 2, 1, 64)]
       for causal in (True, False)],
+    # zamba2-7b's shared attention block: head dim 112
+    (2, 200, 4, 4, 112, True, "float32"), (1, 256, 4, 4, 112, True, "bfloat16"),
 ]
-DECODE_SHAPES = [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 32), (3, 300, 4, 2, 128)]
+DECODE_SHAPES = [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 32), (3, 300, 4, 2, 128),
+                 (2, 300, 4, 4, 112)]
+# tests/test_kernels.py's shapes, and a length no chunk divides
+WKV6_SHAPES = [(1, 128, 2, 32), (2, 256, 4, 64), (1, 64, 1, 16),
+               (1, 601, 2, 64)]
+SSD_SHAPES = [(1, 128, 2, 32, 1, 16), (2, 256, 4, 64, 2, 32),
+              (1, 64, 2, 16, 1, 8), (1, 601, 4, 64, 1, 64)]
 
 
 def _tol(dtype):
@@ -90,6 +101,99 @@ def test_decode_kernel_matches_plain(card, b, s, h, kv, d, dtype):
     np.testing.assert_allclose(_np(got[:, 0]), _np(want), **_tol(dtype))
 
 
+def _recurrence_tol(dtype, f32):
+    """tests/test_kernels.py's tolerances: f32 for WKV6 (2e-4) or SSD
+    (5e-4), bf16 outputs rounded to 8 bits of mantissa (2e-2)."""
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=f32, atol=f32)
+
+
+def _wkv6_inputs(seed, b, s, h, k, dtype, card, logw_range=(-7.0, -0.7)):
+    """tests/test_kernels.py's draws; logw = -exp(U(logw_range)) and u stay
+    fp32, as in the model."""
+    rng = np.random.default_rng(seed)
+    r, kk, v = (torch.from_numpy((rng.standard_normal((b, s, h, k)) * 0.5)
+                                 .astype(np.float32))
+                .to(device=card, dtype=DTYPES[dtype]) for _ in range(3))
+    logw = torch.from_numpy(-np.exp(rng.uniform(*logw_range, (b, s, h, k)))
+                            .astype(np.float32)).to(card)
+    u = torch.from_numpy((rng.standard_normal((h, k)) * 0.3)
+                         .astype(np.float32)).to(card)
+    return r, kk, v, logw, u
+
+
+@pytest.mark.parametrize("b,s,h,k", WKV6_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_kernel_matches_plain(card, b, s, h, k, dtype):
+    r, kk, v, logw, u = _wkv6_inputs(10, b, s, h, k, dtype, card)
+    before = wkv.wkv6_bhsk.launches
+    got = ops.wkv6(r, kk, v, logw, u)
+    torch.cuda.synchronize()
+    assert wkv.wkv6_bhsk.launches == before + 1
+    assert got.shape == r.shape and got.dtype == r.dtype and got.is_contiguous()
+    tr = lambda a: a.permute(0, 2, 1, 3)
+    want = tr(wkv.wkv6_plain(tr(r), tr(kk), tr(v), tr(logw), u))
+    np.testing.assert_allclose(_np(got), _np(want),
+                               **_recurrence_tol(dtype, 2e-4))
+
+
+def test_wkv6_kernel_strong_decay_matches_sequential_ref(card):
+    """logw in (-3, -0.3): the reference's chunked forms overflow there; the
+    kernel stays finite and matches the sequential oracle."""
+    r, kk, v, logw, u = _wkv6_inputs(11, 1, 512, 2, 64, "float32", card,
+                                     (np.log(0.3), np.log(3.0)))
+    got = ops.wkv6(r, kk, v, logw, u)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(_np(got), _np(ref.wkv6_ref(r, kk, v, logw, u)),
+                               rtol=2e-4, atol=2e-4)
+
+
+def _ssd_inputs(seed, b, s, h, p, g, n, dtype, card, strong=False):
+    """tests/test_kernels.py's draws (dt = softplus(N(0,1) - 1), A =
+    -exp(0.3 N(0,1))), or with ``strong`` dt in (0.1, 0.5) and A in
+    (-16, -1), so dt A reaches -8 per token. dt, A and D stay fp32."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(card, dt)
+
+    x = t(rng.standard_normal((b, s, h, p)) * 0.5, DTYPES[dtype])
+    if strong:
+        dt = t(rng.uniform(0.1, 0.5, (b, s, h)))
+        A = t(-rng.uniform(1.0, 16.0, h))
+    else:
+        dt = t(np.log1p(np.exp(rng.standard_normal((b, s, h)) - 1.0)))
+        A = t(-np.exp(rng.standard_normal(h) * 0.3))
+    Bm = t(rng.standard_normal((b, s, g, n)) * 0.5, DTYPES[dtype])
+    Cm = t(rng.standard_normal((b, s, g, n)) * 0.5, DTYPES[dtype])
+    return x, dt, A, Bm, Cm, t(np.ones(h))
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain(card, b, s, h, p, g, n, dtype):
+    x, dt, A, Bm, Cm, D = _ssd_inputs(12, b, s, h, p, g, n, dtype, card)
+    before = ssd.ssd_bhsp.launches
+    got = ops.mamba2_ssd(x, dt, A, Bm, Cm, D)
+    torch.cuda.synchronize()
+    assert ssd.ssd_bhsp.launches == before + 1
+    assert got.shape == x.shape and got.dtype == x.dtype and got.is_contiguous()
+    tr = lambda a: a.permute(0, 2, 1, 3)
+    want = tr(ssd.ssd_plain(tr(x), dt.permute(0, 2, 1), A, tr(Bm), tr(Cm), D))
+    np.testing.assert_allclose(_np(got), _np(want),
+                               **_recurrence_tol(dtype, 5e-4))
+
+
+def test_ssd_kernel_strong_decay_matches_sequential_ref(card):
+    x, dt, A, Bm, Cm, D = _ssd_inputs(13, 1, 512, 4, 64, 1, 64, "float32",
+                                      card, strong=True)
+    got = ops.mamba2_ssd(x, dt, A, Bm, Cm, D)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(_np(got),
+                               _np(ref.ssd_ref(x, dt, A, Bm, Cm, D)),
+                               rtol=5e-4, atol=5e-4)
+
+
 def test_kernels_raise_instead_of_falling_back(card):
     q = torch.zeros(1, 8, 2, 8, dtype=torch.float16, device=card)
     with pytest.raises(TypeError):
@@ -97,9 +201,15 @@ def test_kernels_raise_instead_of_falling_back(card):
     with pytest.raises(TypeError):
         ops.decode_attention(q[:, :1], q, q,
                              torch.ones(1, dtype=torch.int32, device=card))
+    with pytest.raises(TypeError):
+        ops.wkv6(q, q, q, q, torch.zeros(2, 8, device=card))
+    h = torch.zeros(1, 8, 2, device=card)
+    with pytest.raises(TypeError):
+        ops.mamba2_ssd(q, h, h[0, 0], q, q, h[0, 0])
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b", "rwkv6-7b",
+                                  "zamba2-7b"])
 def test_reduced_model_on_card_matches_cpu(card, arch):
     cfg = get_arch(arch).reduced()
     cpu = M.init_params(cfg, 0, device="cpu")

@@ -15,7 +15,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_arch as port_arch  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
-ARCHS = ["olmo-1b", "qwen3-8b"]
+ARCHS = ["olmo-1b", "qwen3-8b", "rwkv6-7b", "zamba2-7b"]
 
 
 def _jax_params(arch):
@@ -82,3 +82,22 @@ def test_seeded_init_is_reproducible(arch):
     c = convert.flatten(M.init_params(cfg, 4, device="cpu"))
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["embed"], c["embed"])
+
+
+def test_zamba2_periodic_structure_and_shared_block():
+    """zamba2's params: inner layers stacked (periods, inner_n), trailing
+    layers stacked (max(trailing, 1),), and one unstacked shared attention
+    block used at every site, as in the reference."""
+    cfg = get_arch("zamba2-7b").reduced()
+    ref = _jax_params("zamba2-7b")
+    tensors = convert.flatten(convert.from_numpy(ref))
+    periods = cfg.n_layers // cfg.hybrid_attn_every
+    inner_n = cfg.hybrid_attn_every - 1
+    assert tensors["layers/inner/m/A_log"].shape[:2] == (periods, inner_n)
+    assert tensors["layers/trailing/m/A_log"].shape[0] == 1
+    assert tuple(tensors["shared_block/attn/wq"].shape) == (
+        cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
+    ours = M.init_params(port_arch("zamba2-7b").reduced(), 0, device="cpu")
+    assert set(ours) == {"embed", "final_norm", "layers", "lm_head",
+                         "shared_block"}
+    assert tuple(ours["shared_block"]["ln1"]["scale"].shape) == (cfg.d_model,)

@@ -45,7 +45,7 @@ def test_importing_every_module_pulls_in_no_jax_repro_or_triton():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
-    assert int(proc.stdout.split()[0]) >= 15
+    assert int(proc.stdout.split()[0]) >= 19
 
 
 def test_import_needs_no_nvcc(tmp_path):
@@ -89,6 +89,16 @@ ENTRY_POINTS = {
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_entry_points_refuse_cuda_without_a_card(no_card, name):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name]()
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_recurrent_entry_points_refuse_cuda_without_a_card(no_card, arch,
+                                                           name, monkeypatch):
+    """The same entry points with an rwkv and a zamba config."""
+    monkeypatch.setitem(globals(), "CFG", get_arch(arch).reduced())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()
 

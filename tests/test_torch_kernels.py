@@ -1,7 +1,9 @@
-"""The port's attention kernels against the JAX package: each plain version
-against ``repro.kernels.ref`` and against the Pallas kernel in interpret
-mode, on the shape sets of ``tests/test_kernels.py``. The CUDA kernels are
-held against their plain versions in ``test_torch_card.py``."""
+"""The port's kernels against the JAX package: each plain version against
+``repro.kernels.ref``, the Pallas kernel in interpret mode and (for WKV6 and
+SSD) the reference model's chunked jnp path, on the shape sets of
+``tests/test_kernels.py``; and where the reference breaks (strong decay,
+ragged lengths), against the port's own sequential oracles. The CUDA kernels
+are held against their plain versions in ``test_torch_card.py``."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -12,10 +14,14 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import blocks as JB  # noqa: E402
+from repro.models.mamba import ssd_chunked  # noqa: E402
+from repro.models.rwkv import wkv6_chunked  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import wkv6 as wkv  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -178,6 +184,140 @@ def test_port_decode_ref_matches_jax_ref():
 
 
 # ---------------------------------------------------------------------------
+# WKV6: plain version vs ref.py, the Pallas kernel and wkv6_chunked
+# ---------------------------------------------------------------------------
+
+WKV6_SHAPES = [(1, 128, 2, 32), (2, 256, 4, 64), (1, 64, 1, 16)]
+SSD_SHAPES = [(1, 128, 2, 32, 1, 16), (2, 256, 4, 64, 2, 32),
+              (1, 64, 2, 16, 1, 8)]
+
+
+def _wkv6_inputs(seed, b, s, h, k, logw=None):
+    """tests/test_kernels.py's distributions: r, k, v ~ 0.5 N(0, 1), u ~
+    0.3 N(0, 1), logw = -exp(U(-7, -0.7)) (RWKV's decay range) unless given.
+    Returns numpy arrays (fed to JAX) and tensors (fed to the port)."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((b, s, h, k)).astype(np.float32) * 0.5
+              for _ in range(3)]
+    if logw is None:
+        logw = -np.exp(rng.uniform(-7.0, -0.7, (b, s, h, k)))
+    arrays.append(np.broadcast_to(logw, (b, s, h, k)).astype(np.float32))
+    arrays.append((rng.standard_normal((h, k)) * 0.3).astype(np.float32))
+    return arrays, [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("b,s,h,k", WKV6_SHAPES)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_wkv6_plain_matches_ref_pallas_and_chunked(b, s, h, k, seed):
+    js, ts = _wkv6_inputs(seed, b, s, h, k)
+    got = ops.wkv6(*ts)
+    assert got.shape == (b, s, h, k) and got.dtype == torch.float32
+    tol = dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(_np(got), _np(jref.wkv6_ref(*js)), **tol)
+    np.testing.assert_allclose(
+        _np(got), _np(jops.wkv6(*js, chunk=64, interpret=True)), **tol)
+    np.testing.assert_allclose(_np(got), _np(wkv6_chunked(*js, chunk=32)),
+                               **tol)
+
+
+def test_port_wkv6_ref_matches_jax_ref():
+    js, ts = _wkv6_inputs(2, 2, 40, 2, 16)
+    np.testing.assert_allclose(_np(ref.wkv6_ref(*ts)), _np(jref.wkv6_ref(*js)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_wkv6_ragged_length():
+    """S = 601 at the model's chunk of 256: the reference's wkv6_chunked
+    cannot reshape it; the port's plain version (which takes any S) matches
+    the sequential oracle."""
+    js, ts = _wkv6_inputs(3, 1, 601, 2, 16)
+    with pytest.raises((TypeError, ValueError)):
+        wkv6_chunked(*js, chunk=256)
+    np.testing.assert_allclose(_np(ops.wkv6(*ts)), _np(ref.wkv6_ref(*ts)),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_wkv6_strong_decay_stays_finite():
+    """logw = -1 per token (a decay trained models do reach): the
+    reference's half-shifted factorisation overflows within a 256-token
+    chunk (exp(128) * exp(...)) and its mask multiplies inf by 0, so
+    wkv6_chunked is non-finite. The port's pairwise exp(cum_i - cum_j) of a
+    masked, non-positive difference stays finite and matches the sequential
+    oracle."""
+    js, ts = _wkv6_inputs(4, 1, 512, 2, 16, logw=-1.0)
+    assert not np.isfinite(np.asarray(wkv6_chunked(*js, chunk=256))).all()
+    got = ops.wkv6(*ts)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(_np(got), _np(ref.wkv6_ref(*ts)),
+                               rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD: plain version vs ref.py, the Pallas kernel and ssd_chunked
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(seed, b, s, h, p, g, n, dt=None, A=None):
+    """tests/test_kernels.py's distributions: x, B, C ~ 0.5 N(0, 1),
+    dt = softplus(N(0, 1) - 1), A = -exp(0.3 N(0, 1)), D = 1, unless dt or
+    A is given."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)) * 0.5
+    if dt is None:
+        dt = np.log1p(np.exp(rng.standard_normal((b, s, h)) - 1.0))
+    if A is None:
+        A = -np.exp(rng.standard_normal(h) * 0.3)
+    Bm = rng.standard_normal((b, s, g, n)) * 0.5
+    Cm = rng.standard_normal((b, s, g, n)) * 0.5
+    arrays = [np.ascontiguousarray(np.broadcast_to(a, shape), np.float32)
+              for a, shape in ((x, (b, s, h, p)), (dt, (b, s, h)), (A, (h,)),
+                               (Bm, (b, s, g, n)), (Cm, (b, s, g, n)),
+                               (np.ones(h), (h,)))]
+    return arrays, [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n", SSD_SHAPES)
+def test_ssd_plain_matches_ref_pallas_and_chunked(b, s, h, p, g, n):
+    js, ts = _ssd_inputs(0, b, s, h, p, g, n)
+    got = ops.mamba2_ssd(*ts)
+    assert got.shape == (b, s, h, p) and got.dtype == torch.float32
+    tol = dict(rtol=5e-4, atol=5e-4)
+    np.testing.assert_allclose(_np(got), _np(jref.ssd_ref(*js)), **tol)
+    np.testing.assert_allclose(
+        _np(got), _np(jops.mamba2_ssd(*js, chunk=64, interpret=True)), **tol)
+    np.testing.assert_allclose(_np(got), _np(ssd_chunked(*js, chunk=32)),
+                               **tol)
+
+
+def test_port_ssd_ref_matches_jax_ref():
+    js, ts = _ssd_inputs(5, 2, 40, 4, 16, 2, 8)
+    np.testing.assert_allclose(_np(ref.ssd_ref(*ts)), _np(jref.ssd_ref(*js)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_ragged_length():
+    js, ts = _ssd_inputs(6, 1, 601, 2, 16, 1, 8)
+    with pytest.raises((TypeError, ValueError)):
+        ssd_chunked(*js, chunk=256)
+    np.testing.assert_allclose(_np(ops.mamba2_ssd(*ts)), _np(ref.ssd_ref(*ts)),
+                               rtol=5e-4, atol=5e-4)
+
+
+def test_ssd_strong_decay_stays_finite():
+    """dt = 0.1 and A = -16 (zamba2-7b's init reaches A_log = log 16):
+    -1.6 per token, about -410 over a 256-token chunk, where the
+    reference's half-shifted factorisation overflows and ssd_chunked is
+    non-finite. The port's plain version stays finite and matches the
+    sequential oracle."""
+    js, ts = _ssd_inputs(7, 1, 512, 2, 16, 1, 8, dt=0.1, A=-16.0)
+    assert not np.isfinite(np.asarray(ssd_chunked(*js, chunk=256))).all()
+    got = ops.mamba2_ssd(*ts)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(_np(got), _np(ref.ssd_ref(*ts)),
+                               rtol=5e-4, atol=5e-4)
+
+
+# ---------------------------------------------------------------------------
 # wrappers: strided views, no fallback, launch counts
 # ---------------------------------------------------------------------------
 
@@ -213,6 +353,69 @@ def test_decode_adapter_passes_cache_views_not_copies(monkeypatch):
     assert seen["v"].data_ptr() == vc.data_ptr()
     assert seen["k"].shape == (2, 2, 32, 8)
     assert out.shape == (2, 1, 4, 8)
+
+
+def test_wkv6_adapter_passes_views_not_copies(monkeypatch):
+    seen = []
+
+    def spy(r, k, v, logw, u):
+        seen.extend([r, k, v, logw])
+        return wkv.wkv6_plain(r, k, v, logw, u)
+
+    monkeypatch.setattr(wkv, "wkv6_bhsk", spy)
+    ins = [torch.randn(2, 16, 3, 8) for _ in range(4)]
+    out = ops.wkv6(*ins, torch.randn(3, 8))
+    for got, t in zip(seen, ins):
+        assert got.data_ptr() == t.data_ptr() and got.shape == (2, 3, 16, 8)
+    assert out.shape == (2, 16, 3, 8)
+
+
+def test_ssd_adapter_passes_views_not_copies(monkeypatch):
+    """In the model B and C are slices of one (B, S, 2 G N) tensor: the
+    adapter hands the kernel those strided views as they are."""
+    seen = {}
+
+    def spy(x, dt, A, Bm, Cm, D):
+        seen.update(x=x, dt=dt, B=Bm, C=Cm)
+        return ssd.ssd_plain(x, dt, A, Bm, Cm, D)
+
+    monkeypatch.setattr(ssd, "ssd_bhsp", spy)
+    x, dt = torch.randn(2, 16, 4, 8), torch.rand(2, 16, 4)
+    bc = torch.randn(2, 16, 2 * 6)
+    Bm, Cm = bc[..., :6].reshape(2, 16, 1, 6), bc[..., 6:].reshape(2, 16, 1, 6)
+    out = ops.mamba2_ssd(x, dt, -torch.rand(4), Bm, Cm, torch.ones(4))
+    for name, t, shape in (("x", x, (2, 4, 16, 8)), ("dt", dt, (2, 4, 16)),
+                           ("B", Bm, (2, 1, 16, 6)), ("C", Cm, (2, 1, 16, 6))):
+        assert seen[name].data_ptr() == t.data_ptr(), name
+        assert seen[name].shape == shape, name
+    assert out.shape == x.shape
+
+
+def test_recurrence_wrappers_cpu_take_plain_without_counting():
+    before = (wkv.wkv6_bhsk.launches, ssd.ssd_bhsp.launches)
+    ops.wkv6(*(torch.randn(1, 8, 2, 8) for _ in range(4)), torch.randn(2, 8))
+    ops.mamba2_ssd(torch.randn(1, 8, 2, 8), torch.rand(1, 8, 2),
+                   -torch.rand(2), torch.randn(1, 8, 1, 4),
+                   torch.randn(1, 8, 1, 4), torch.ones(2))
+    assert (wkv.wkv6_bhsk.launches, ssd.ssd_bhsp.launches) == before
+
+
+def test_recurrence_wrappers_refuse_meta_and_bad_shapes():
+    m = torch.empty(1, 2, 8, 8, device="meta")
+    with pytest.raises(ValueError):
+        wkv.wkv6_bhsk(m, m, m, m, torch.empty(2, 8, device="meta"))
+    h = torch.empty(2, device="meta")
+    with pytest.raises(ValueError):
+        ssd.ssd_bhsp(m, torch.empty(1, 2, 8, device="meta"), h,
+                     torch.empty(1, 1, 8, 4, device="meta"),
+                     torch.empty(1, 1, 8, 4, device="meta"), h)
+    with pytest.raises(ValueError):
+        wkv.wkv6_bhsk(*(torch.randn(1, 2, 8, 8) for _ in range(4)),
+                      torch.randn(3, 8))
+    with pytest.raises(ValueError):
+        ssd.ssd_bhsp(torch.randn(1, 3, 8, 8), torch.rand(1, 3, 8),
+                     torch.rand(3), torch.randn(1, 2, 8, 4),
+                     torch.randn(1, 2, 8, 4), torch.ones(3))
 
 
 def test_cpu_tensors_take_plain_version_without_counting():

@@ -1,5 +1,6 @@
 """The port's blocks and model against ``repro.models`` on the same inputs and
-converted weights (reduced olmo-1b and qwen3-8b, on the CPU)."""
+converted weights (reduced olmo-1b, qwen3-8b, rwkv6-7b and zamba2-7b, on the
+CPU)."""
 import dataclasses
 
 import pytest
@@ -12,13 +13,23 @@ import numpy as np  # noqa: E402
 
 from repro.configs.base import get_arch  # noqa: E402
 from repro.models import blocks as JB  # noqa: E402
+from repro.models import mamba as JMa  # noqa: E402
 from repro.models import model as JM  # noqa: E402
+from repro.models import rwkv as JR  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_arch as port_arch  # noqa: E402
 from repro_torch.models import blocks as B  # noqa: E402
+from repro_torch.models import mamba as Ma  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import rwkv as R  # noqa: E402
 
 ARCHS = ["olmo-1b", "qwen3-8b"]
+# the recurrent families; "@7" runs zamba2 with 7 layers (2 periods of
+# 2 mamba + shared attention, then 1 trailing mamba layer)
+RECURRENT = ["rwkv6-7b", "zamba2-7b", "zamba2-7b@7"]
+# leaves the reference initialises to zero; the tests give them seeded
+# values in both packages, so that u and the decay and shift LoRAs matter
+ZERO_INIT = ("bonus_u", "shift_lora_b", "decay_lora_b")
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # elementwise blocks: fp32 agrees to rounding; bf16 to one or two ulps of
@@ -38,11 +49,25 @@ def _np(x):
         else np.asarray(x, np.float32)
 
 
+def _exercise(tree, rng):
+    return {k: _exercise(v, rng) if isinstance(v, dict)
+            else (rng.standard_normal(v.shape) * 0.1).astype(np.float32)
+            if k in ZERO_INIT else v for k, v in tree.items()}
+
+
 def _params(arch):
-    cfg = get_arch(arch).reduced()
-    jp = JM.init_params(cfg, jax.random.PRNGKey(0))
-    return cfg, port_arch(arch).reduced(), jp, \
-        convert.from_numpy(jax.tree.map(np.asarray, jp))
+    """Reduced config of ``arch`` ("name" or "name@n_layers") in both
+    packages, the reference's params with its zero-initialised leaves
+    seeded, and the same params converted for the port."""
+    name, _, layers = arch.partition("@")
+    cfg, tcfg = get_arch(name).reduced(), port_arch(name).reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=int(layers))
+        tcfg = dataclasses.replace(tcfg, n_layers=int(layers))
+    params = _exercise(jax.tree.map(np.asarray, JM.init_params(
+        cfg, jax.random.PRNGKey(0))), np.random.default_rng(9))
+    return cfg, tcfg, jax.tree.map(jnp.asarray, params), \
+        convert.from_numpy(params)
 
 
 # ---------------------------------------------------------------------------
@@ -222,13 +247,13 @@ def _forward_pair(arch, dtype):
     return _np(got), _np(want)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_forward_logits_fp32(arch):
     got, want = _forward_pair(arch, "float32")
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_forward_logits_bf16(arch):
     """bf16: both frameworks round activations to 8 bits of mantissa, at
     places that differ (XLA fuses elementwise chains in fp32; PyTorch rounds
@@ -239,10 +264,16 @@ def test_forward_logits_bf16(arch):
     5e-2 of the logits' range, and the port's bf16 error against JAX's fp32
     logits may be at most 1.5x JAX's own."""
     got, want = _forward_pair(arch, "bfloat16")
-    np.testing.assert_allclose(got, want, rtol=0,
-                               atol=5e-2 * np.abs(want).max())
     _, fp32 = _forward_pair(arch, "float32")
     assert np.abs(got - fp32).max() <= 1.5 * np.abs(want - fp32).max()
+    if arch == "rwkv6-7b":
+        # reduced RWKV-6 in bf16 is noisy in both packages: JAX's own bf16
+        # logits sit 1.43 from its fp32 ones (range 3.8), the port's 1.54,
+        # so two bf16 runs cannot agree within 5e-2 of the range; the bound
+        # above (at most 1.5x JAX's own bf16 error) is what holds
+        return
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=5e-2 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -252,3 +283,162 @@ def test_cast_params_keeps_norms_fp32(arch):
     for key, val in cast.items():
         norm = key.split("/")[0] == "final_norm" or "/ln" in key
         assert val.dtype == (torch.float32 if norm else torch.bfloat16), key
+
+
+def test_cast_params_keeps_fp32_read_leaves():
+    """The leaves the reference reads in fp32 stay fp32 at load: norms, the
+    RWKV bonus u, decay base and group-norm scale, the Mamba A_log, D,
+    dt_bias and gated-norm scale (the bonus and A_log would lose bits in
+    bf16). Everything else is cast."""
+    fp32 = {"bonus_u", "decay_base", "ln_x", "A_log", "D", "dt_bias",
+            "gate_norm", "scale", "_np"}
+    for arch in ARCHS + RECURRENT[:2]:
+        params = M.init_params(port_arch(arch).reduced(), 0, device="cpu")
+        params["final_norm"]["scale"] = torch.full((64,), 1.1)
+        for key, val in convert.flatten(M.cast_params(params,
+                                                      torch.bfloat16)).items():
+            leaf = key.split("/")[-1]
+            want = torch.float32 if leaf in fp32 else torch.bfloat16
+            assert val.dtype == want, (arch, key)
+            if leaf in fp32:
+                assert torch.equal(val, convert.flatten(params)[key]), key
+
+
+def test_rwkv_shift_lora_init_scale_follows_reference():
+    """The reference's _dense_init takes fan_in = shape[0], which is 5 for
+    shift_lora_a's (5, d, lora) shape: its scale is 1/sqrt(5), not
+    1/sqrt(d). The port copies that (ROADMAP C, quirk)."""
+    cfg = port_arch("rwkv6-7b").reduced()
+    tm = M.init_params(cfg, 0, device="cpu")["layers"]["tm"]
+    assert abs(tm["shift_lora_a"].std().item() * 5 ** 0.5 - 1) < 0.05
+    assert abs(tm["decay_lora_a"].std().item() * cfg.d_model ** 0.5 - 1) < 0.1
+    for key in ZERO_INIT:
+        assert not tm[key].any(), key
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 and Mamba-2 sub-blocks
+# ---------------------------------------------------------------------------
+
+
+def _rwkv_layer():
+    cfg, tcfg, jp, tp = _params("rwkv6-7b")
+    jl = jax.tree.map(lambda a: a[0], jp["layers"]["tm"])
+    tl = {k: v[0] for k, v in tp["layers"]["tm"].items()}
+    return cfg, tcfg, jl, tl
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv_ddlerp_decay_group_norm(dtype):
+    cfg, tcfg, jl, tl = _rwkv_layer()
+    rng = np.random.default_rng(10)
+    jx, tx = _pair(rng, (2, 5, cfg.d_model), dtype)
+    jxs, txs = _pair(rng, (2, 5, cfg.d_model), dtype)
+    for got, want in zip(R._ddlerp(tl, tx, txs), JR._ddlerp(jl, jx, jxs)):
+        np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    got = R._decay(tl, tx)
+    assert got.dtype == torch.float32 and bool((got <= 0).all())
+    np.testing.assert_allclose(_np(got), _np(JR._decay(jl, jx)), **TOL[dtype])
+    jy, ty = _pair(rng, (2, 5, cfg.d_model), dtype, scale=3.0)
+    np.testing.assert_allclose(
+        _np(R._group_norm_heads(ty, tl["ln_x"].float(), 4)),
+        _np(JR._group_norm_heads(jy, jl["ln_x"], 4)), **TOL[dtype])
+
+
+def test_rwkv_time_and_channel_mix_prefill_and_decode():
+    cfg, tcfg, jl, tl = _rwkv_layer()
+    rng = np.random.default_rng(11)
+    jx, tx = _pair(rng, (2, 20, cfg.d_model))
+    want, _ = JR.rwkv_time_mix(jl, jx, cfg)
+    got, state = R.rwkv_time_mix(tl, tx, tcfg)
+    assert state is None
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(R.rwkv_channel_mix(tl, tx)),
+                               _np(JR.rwkv_channel_mix(jl, jx)),
+                               rtol=1e-5, atol=1e-5)
+    # one decode token from a non-zero state and last token
+    h = cfg.d_model // cfg.rwkv.head_dim
+    jst, tst = _pair(rng, (2, h, 16, 16))
+    jlast, tlast = _pair(rng, (2, 1, cfg.d_model))
+    want, wst = JR.rwkv_time_mix(jl, jx[:, :1], cfg, state=jst, last_x=jlast)
+    got, gst = R.rwkv_time_mix(tl, tx[:, :1], tcfg, state=tst, last_x=tlast)
+    assert gst is tst                                   # updated in place
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(gst), _np(wst), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        _np(R.rwkv_channel_mix(tl, tx[:, :1], last_x=tlast)),
+        _np(JR.rwkv_channel_mix(jl, jx[:, :1], last_x=jlast)),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_conv(with_state, dtype):
+    rng = np.random.default_rng(12)
+    jx, tx = _pair(rng, (2, 1 if with_state else 9, 24), dtype)
+    jw, tw = _pair(rng, (4, 24), scale=0.3)
+    jb, tb = _pair(rng, (24,), scale=0.1)
+    js, ts = _pair(rng, (2, 3, 24), dtype) if with_state else (None, None)
+    want, wst = JMa._causal_conv(jx, jw, jb, js)
+    got, gst = Ma._causal_conv(tx, tw, tb, ts)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    np.testing.assert_array_equal(_np(gst), _np(wst))
+
+
+@pytest.mark.parametrize("s", [1, 2])
+def test_causal_conv_short_prefill(s):
+    """A prefill shorter than the conv's W - 1 = 3 taps. The reference pads
+    with zeros_like(x[:, :W-1]), only S rows: at S = 1 its output is empty,
+    at S = 2 the taps are misaligned. The port pads W - 1 rows, so its
+    prefill equals feeding the tokens one at a time from a zero state."""
+    rng = np.random.default_rng(15)
+    jx, tx = _pair(rng, (2, s, 24))
+    jw, tw = _pair(rng, (4, 24), scale=0.3)
+    jb, tb = _pair(rng, (24,), scale=0.1)
+    got, gst = Ma._causal_conv(tx, tw, tb)
+    state, steps = torch.zeros(2, 3, 24), []
+    for t in range(s):
+        y, state = Ma._causal_conv(tx[:, t:t + 1], tw, tb, state)
+        steps.append(y)
+    np.testing.assert_allclose(_np(got), _np(torch.cat(steps, 1)),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(_np(gst), _np(state))
+    want, _ = JMa._causal_conv(jx, jw, jb)
+    assert want.shape != got.shape or \
+        not np.allclose(_np(want), _np(got), rtol=1e-3, atol=1e-3)
+
+
+def _mamba_layer():
+    cfg, tcfg, jp, tp = _params("zamba2-7b")
+    jl = jax.tree.map(lambda a: a[0, 0], jp["layers"]["inner"]["m"])
+    tl = {k: v[0, 0] for k, v in tp["layers"]["inner"]["m"].items()}
+    return cfg, tcfg, jl, tl
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_block_prefill(dtype):
+    cfg, tcfg, jl, tl = _mamba_layer()
+    jx, tx = _pair(np.random.default_rng(13), (2, 40, cfg.d_model), dtype)
+    want, _ = JMa.mamba_block(jl, jx, cfg)
+    got, state = Ma.mamba_block(tl, tx, tcfg)
+    assert state is None and got.dtype == tx.dtype
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" \
+        else dict(rtol=0, atol=5e-2 * float(np.abs(_np(want)).max()))
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def test_mamba_block_decode_updates_states_in_place():
+    cfg, tcfg, jl, tl = _mamba_layer()
+    rng = np.random.default_rng(14)
+    mc = cfg.mamba
+    nh, di = mc.n_heads(cfg.d_model), mc.d_inner(cfg.d_model)
+    jx, tx = _pair(rng, (2, 1, cfg.d_model))
+    jssm, tssm = _pair(rng, (2, nh, mc.d_state, mc.head_dim))
+    jconv, tconv = _pair(rng, (2, mc.d_conv - 1, di + 2 * mc.d_state))
+    want, (wssm, wconv) = JMa.mamba_block(jl, jx, cfg, state=(jssm, jconv))
+    got, (gssm, gconv) = Ma.mamba_block(tl, tx, tcfg, state=(tssm, tconv))
+    assert gssm is tssm and gconv is tconv
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(gssm), _np(wssm), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(gconv), _np(wconv), rtol=1e-6, atol=1e-6)

@@ -22,21 +22,40 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import decode as D  # noqa: E402
 
 ARCHS = ["olmo-1b", "qwen3-8b"]
+RECURRENT = ["rwkv6-7b", "zamba2-7b"]
 CPU = "cpu"
+# leaves the reference initialises to zero; seeded here in both packages
+ZERO_INIT = ("bonus_u", "shift_lora_b", "decay_lora_b")
+
+
+def _exercise(tree, rng):
+    return {k: _exercise(v, rng) if isinstance(v, dict)
+            else (rng.standard_normal(v.shape) * 0.1).astype(np.float32)
+            if k in ZERO_INIT else v for k, v in tree.items()}
 
 
 def _params(arch):
     cfg = get_arch(arch).reduced()
-    jp = JM.init_params(cfg, jax.random.PRNGKey(0))
-    return cfg, port_arch(arch).reduced(), jp, \
-        convert.from_numpy(jax.tree.map(np.asarray, jp))
+    params = _exercise(jax.tree.map(np.asarray, JM.init_params(
+        cfg, jax.random.PRNGKey(0))), np.random.default_rng(9))
+    return cfg, port_arch(arch).reduced(), \
+        jax.tree.map(jnp.asarray, params), convert.from_numpy(params)
+
+
+def _leaves(tree):
+    """Leaves of a decode state (dicts in key order, tuples in order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def _tokens(seed, shape, vocab):
     return np.random.default_rng(seed).integers(0, vocab, shape)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_decode_matches_parallel_forward(arch):
     """Port of tests/test_serve.py's teacher-forcing parity, fp32."""
     cfg, tcfg, jp, tp = _params(arch)
@@ -59,7 +78,7 @@ def test_decode_matches_parallel_forward(arch):
                                rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_step_matches_jax(arch, dtype):
     cfg, tcfg, jp, tp = _params(arch)
@@ -71,12 +90,20 @@ def test_prefill_step_matches_jax(arch, dtype):
     got = D.make_prefill_step(tcfg, compute_dtype=td, device=CPU)(
         tp, {"tokens": torch.from_numpy(toks)})
     assert got.shape == (3, cfg.vocab_size) and got.dtype == td
-    # bf16: 5e-2 of the logits' range (see test_torch_model's bf16 test)
+    # bf16: 5e-2 of the logits' range (see test_torch_model's bf16 test),
+    # except reduced RWKV-6, whose bf16 logits are noisy in both packages:
+    # there the port's bf16 error may be at most 1.5x JAX's own
+    if dtype == "bfloat16" and arch == "rwkv6-7b":
+        fp32 = np.asarray(JD.make_prefill_step(cfg, compute_dtype=jnp.float32)(
+            jp, {"tokens": jnp.asarray(toks)}), np.float32)
+        assert np.abs(got.float().numpy() - fp32).max() <= \
+            1.5 * np.abs(want - fp32).max()
+        return
     atol = 1e-4 if dtype == "float32" else 5e-2 * np.abs(want).max()
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_serve_step_matches_jax(arch):
     """A few fp32 serve steps on per-slot cache lengths: logits, caches and
     next tokens agree with the reference's serve step."""
@@ -98,9 +125,15 @@ def test_serve_step_matches_jax(arch):
                                    atol=1e-4)
         np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
         lens = lens + 1
-    for jc, tc in zip(jst["layers"], tst["layers"]):
-        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-5,
-                                   atol=1e-5)
+    jleaves, tleaves = _leaves(jst), _leaves(tst)
+    assert len(jleaves) == len(tleaves)
+    # a KV cache holds one projection per token (1e-5); a recurrent state
+    # sums products of several tokens' projections, of magnitude up to ~4
+    # here, so it carries their rounding: 2e-4
+    tol = 1e-5 if arch in ARCHS else 2e-4
+    for jc, tc in zip(jleaves, tleaves):
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=tol,
+                                   atol=tol)
 
 
 def _jax_greedy_fp32(cfg, params, prompt, max_new):
@@ -124,7 +157,7 @@ def _jax_greedy_fp32(cfg, params, prompt, max_new):
     return np.asarray(jnp.concatenate(out, axis=1))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_greedy_generate_matches_jax_fp32(arch):
     cfg, tcfg, jp, tp = _params(arch)
     prompt = _tokens(4, (2, 5), cfg.vocab_size)
@@ -144,7 +177,7 @@ def test_greedy_generate_shapes():
     assert bool((out >= 0).all()) and bool((out < tcfg.vocab_size).all())
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_driver_outputs_equal_each_prompt_alone(arch):
     """Continuous batching (3 slots, 5 requests of different lengths, slots
     refilled as they finish) gives each request the tokens, and the logits
@@ -164,6 +197,45 @@ def test_driver_outputs_equal_each_prompt_alone(arch):
         last = pre(tp, {"tokens": torch.tensor([p])})[0]
         np.testing.assert_allclose(res.first_logits[r].numpy(), last.numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_driver_without_slot_reset_leaks_state(arch, monkeypatch):
+    """The control for the test above: the reference driver resets only a
+    refilled slot's cache_len. Without ``reset_slot`` a refilled slot starts
+    from the state its last request left, and its request's logits change."""
+    _, tcfg, _, tp = _params(arch)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, tcfg.vocab_size, n).tolist()
+               for n in (3, 7, 1, 5, 4)]
+    kw = dict(slots=3, buf=16, max_new=4, compute_dtype=torch.float32,
+              device=CPU)
+    good = L.serve(tcfg, tp, prompts, **kw)
+    monkeypatch.setattr(T, "reset_slot", lambda states, s: None)
+    stale = L.serve(tcfg, tp, prompts, **kw)
+    for r in range(3):                   # the first requests see fresh slots
+        assert torch.equal(stale.first_logits[r], good.first_logits[r])
+    assert max((stale.first_logits[r] - good.first_logits[r]).abs().max()
+               for r in range(3, 5)) > 1e-3
+
+
+def test_reset_slot_zeroes_only_that_slot_recurrent_state():
+    for arch in RECURRENT:
+        tcfg = port_arch(arch).reduced()
+        states = T.init_decode_state(tcfg, 3, 8, dtype=torch.float32)
+        for t in _leaves(states):
+            t.fill_(1.0)
+        T.reset_slot(states, 1)
+        if "layers" in states:
+            parts = [(states["layers"], 1, True)]
+        else:
+            parts = [(states["inner"], 2, True), (states["trailing"], 1, True),
+                     (states["single"], 1, False)]     # KV caches stay
+        for leaves, dim, zeroed in parts:
+            for t in leaves:
+                assert bool((t.select(dim, 1) == 0).all()) == zeroed, arch
+                assert bool((t.select(dim, 0) == 1).all()), arch
+                assert bool((t.select(dim, 2) == 1).all()), arch
 
 
 def test_driver_keeps_positions_inside_the_buffer():
