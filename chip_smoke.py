@@ -11,12 +11,16 @@ without printing a result:
    one process per source, all started together;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shape sets of tests/test_kernels.py and at the serving paths'
-   shapes, with the tolerances of tests/test_kernels.py; WKV6 and SSD also
-   at strong decays against the sequential oracles of kernels/ref.py; the
-   times of each kernel, its plain version and, where one PyTorch call
-   computes the same function (SDPA for the attention kernels, which the port
-   never calls; none for WKV6 or SSD), that call, at the serving paths'
-   shapes, beside the card's bound;
+   shapes, with the tolerances of tests/test_kernels.py; the bf16 flash
+   kernel also at ragged S, head dims 16, 80 and 112, GQA 4:1, non-causal
+   and on views of one fused (B, S, 3, H, D) buffer, and decode attention
+   at cache_len 1, 0 and the whole buffer; WKV6 and SSD also at strong
+   decays against the sequential oracles of kernels/ref.py; that one decode
+   attention call runs one CUDA kernel; the times of each kernel, its plain
+   version and, where one PyTorch call computes the same function (SDPA for
+   the attention kernels, which the port never calls; none for WKV6 or
+   SSD), that call, at the serving paths' shapes (flash also at zamba2-7b's
+   prefill shape), beside the card's bound;
 4. reference: reduced olmo-1b, qwen3-8b, rwkv6-7b and zamba2-7b on the card
    (kernels) against the CPU (plain versions), fp32, prefill and decode
    logits; then olmo-1b, rwkv6-7b and zamba2-7b at full width but reduced
@@ -44,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -69,16 +74,26 @@ FLASH_CASES = [  # (b, s, h, kv, d, causal, dtype)
     *[(*shape, causal, "float32")
       for shape in [(1, 192, 2, 2, 80), (2, 320, 4, 2, 96), (1, 100, 2, 1, 64)]
       for causal in (True, False)],
+    # the bf16 kernel's edges: ragged S, head dims 16, 80 and 112 below its
+    # 64/112/128 tile widths, GQA 4:1, causal and not
+    *[(*shape, causal, "bfloat16")
+      for shape in [(1, 100, 2, 1, 64), (2, 601, 8, 2, 80), (1, 601, 4, 1, 16),
+                    (2, 300, 8, 2, 112)]
+      for causal in (True, False)],
     # zamba2-7b's shared attention block: head dim 112, and its prefill shape
     (2, 200, 4, 4, 112, True, "float32"), (1, 256, 4, 4, 112, True, "bfloat16"),
     (4, 2048, 32, 32, 112, True, "bfloat16"),
 ]
-DECODE_CASES = [  # (b, s, h, kv, d, dtype)
+DECODE_CASES = [  # (b, s, h, kv, d, dtype), seeded random cache_len
     *[(*shape, dt) for shape in [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 32)]
       for dt in ("float32", "bfloat16")],
     (3, 300, 4, 2, 128, "float32"),
     (2, 300, 4, 4, 112, "float32"), (4, 512, 32, 32, 112, "bfloat16"),
 ]
+# cache_len 1, the whole buffer, 0 (zeros) and s // 2 + 3; GQA 4:1, D = 112
+DECODE_EDGE_CASES = [(*shape, dt) for shape in [
+    (4, 1024, 16, 16, 128), (3, 512, 8, 2, 128), (3, 300, 16, 4, 112)]
+    for dt in ("float32", "bfloat16")]
 WKV6_CASES = [  # (b, s, h, k, dtype of r, k, v); logw and u are fp32
     (b, s, h, k, dt) for b, s, h, k in [(1, 128, 2, 32), (2, 256, 4, 64),
                                         (1, 64, 1, 16), (1, 601, 2, 64)]
@@ -142,13 +157,20 @@ def main() -> int:
     log(f"build: {len(logs)} kernel source(s) in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:   # the kernel and its template
+                found = re.search(r"([A-Za-z_]+_kernel)(I\w+?E)?E", line)
+                entry = found.group(1) + (found.group(2) or "") if found else ""
+            elif "registers" in line or "spill" in line or "error" in line:
+                log(f"  {name} {entry}: {line.strip()}")
 
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
+    flush = torch.zeros(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
+
+    def time_ms(fn, iters):
+        return flushed_ms(fn, iters, flush)
 
     def randn(shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
@@ -169,16 +191,6 @@ def main() -> int:
             raise AssertionError(f"{name} disagrees with its plain version")
         return err
 
-    def time_ms(fn, iters):
-        """Mean device time of fn's kernels per call, each call after
-        flushing the L2 cache (the serving path finds its inputs cold).
-        Kernel durations come from the profiler, less the flush's own, so
-        the host's time to enqueue a short kernel is not counted."""
-        fn()
-        torch.cuda.synchronize()
-        flushed_us = kernel_us(lambda: (flush.zero_(), fn()), iters)
-        return (flushed_us - kernel_us(flush.zero_, iters)) / iters / 1e3
-
     def bound(flops, nbytes, dtype):
         t_ops = flops / PEAK_FLOPS[dtype]
         t_bytes = nbytes / HBM_BYTES_PER_S
@@ -187,6 +199,25 @@ def main() -> int:
 
     def bshd_to_bhsd(*ts):
         return [t.permute(0, 2, 1, 3) for t in ts]
+
+    def flash_times(q, k, v):
+        """The kernel, its plain version and SDPA on (B, S, H, D) inputs,
+        causal, beside the bound: query i sees i + 1 keys; q, k, v read
+        once and o written once."""
+        (b, s, h, d), kv = q.shape, k.shape[2]
+        qh, kh, vh = bshd_to_bhsd(q, k, v)
+        row = {
+            "ms": time_ms(lambda: ops.flash_attention(q, k, v), 10),
+            "plain_ms": time_ms(lambda: fa.flash_attention_plain(qh, kh, vh),
+                                10),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True), 10),
+        }
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * d * b * h * (s * (s + 1) // 2),
+            (2 * b * s * h * d + 2 * b * s * kv * d) * q.element_size(),
+            "bfloat16")
+        return row
 
     log("kernels: flash attention against its plain version")
     for b, s, h, kv, d, causal, dt in FLASH_CASES + [
@@ -197,28 +228,41 @@ def main() -> int:
         want = fa.flash_attention_plain(*bshd_to_bhsd(q, k, v), causal=causal)
         flash_err = compare(f"b={b} s={s} h={h} kv={kv} d={d} causal={causal} "
                             f"{dt}", got, want.permute(0, 2, 1, 3), dt)
+        if (b, s, h, d) == (PREFILL_BATCH, PREFILL_LEN, 32, 112):
+            zamba_flash = flash_times(q, k, v)        # zamba2-7b's prefill shape
         del got, want
+    for causal in (True, False):      # views of one (B, S, 3, H, D) buffer
+        fused = randn((2, 300, 3, 4, 64), torch.bfloat16).unbind(2)
+        want = fa.flash_attention_plain(
+            *bshd_to_bhsd(*(t.contiguous() for t in fused)), causal=causal)
+        compare(f"fused (B, S, 3, H, D) views b=2 s=300 h=4 d=64 "
+                f"causal={causal} bfloat16",
+                ops.flash_attention(*fused, causal=causal),
+                want.permute(0, 2, 1, 3), "bfloat16")
     # the last case is olmo-1b's prefill shape: time it there
-    qh, kh, vh = bshd_to_bhsd(q, k, v)
     flash_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
         "max_abs_err": flash_err, "tol": TOL["bfloat16"][1],
-        "ms": time_ms(lambda: ops.flash_attention(q, k, v), 10),
-        "plain_ms": time_ms(lambda: fa.flash_attention_plain(qh, kh, vh), 10),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), 10),
+        **flash_times(q, k, v),
+        "at_zamba2_7b": {"shape": [PREFILL_BATCH, PREFILL_LEN, 32, 32, 112],
+                         **zamba_flash},
     }
-    # causal: query i sees i + 1 keys; q, k, v read once and o written once
-    flash_row["bound_ms"], flash_row["bound_by"] = bound(
-        4 * d * b * h * (s * (s + 1) // 2),
-        (2 * b * s * h * d + 2 * b * s * kv * d) * q.element_size(), dt)
 
     log("kernels: decode attention against its plain version")
-    slots, buf = SLICES["olmo-1b"][:2]
+    for b, s, h, kv, d, dt in DECODE_EDGE_CASES:
+        q = randn((b, 1, h, d), dtypes[dt])
+        kc, vc = randn((b, s, kv, d), dtypes[dt]), randn((b, s, kv, d), dtypes[dt])
+        lens = torch.tensor([1, s, 0, s // 2 + 3][:b], dtype=torch.int32,
+                            device=dev)
+        compare(f"b={b} s={s} h={h} kv={kv} d={d} {dt} "
+                f"cache_len={lens.tolist()}",
+                ops.decode_attention(q, kc, vc, lens)[:, 0],
+                dec.decode_attention_plain(q[:, 0], *bshd_to_bhsd(kc, vc),
+                                           lens), dt)
     for b, s, h, kv, d, dt in DECODE_CASES + [
-            (slots, buf, 16, 16, 128, "bfloat16")]:
+            (*SLICES["olmo-1b"][:2], 16, 16, 128, "bfloat16")]:
         q = randn((b, 1, h, d), dtypes[dt])
         kc, vc = randn((b, s, kv, d), dtypes[dt]), randn((b, s, kv, d), dtypes[dt])
         lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
@@ -227,6 +271,11 @@ def main() -> int:
         want = dec.decode_attention_plain(q[:, 0], *bshd_to_bhsd(kc, vc), lens)
         decode_err = compare(f"b={b} s={s} h={h} kv={kv} d={d} {dt} "
                              f"cache_len={lens.tolist()}", got[:, 0], want, dt)
+    # the last case is olmo-1b's serving shape: one call is one kernel
+    if kernel_count(lambda: ops.decode_attention(q, kc, vc, lens)) != 1:
+        raise AssertionError("a decode attention call ran more than one "
+                             "CUDA kernel")
+    log("  one decode attention call: one CUDA kernel (profiler)")
     kh, vh = bshd_to_bhsd(kc, vc)
     qh = q.permute(0, 2, 1, 3)                                  # (B, H, 1, D)
     mask = (torch.arange(s, device=dev)[None, :] < lens[:, None].long()
@@ -345,10 +394,11 @@ def main() -> int:
             ref.ssd_ref(*args), "float32", TOL_SSD)
     del x, dtv, A, Bm, Cm, Dv, args
     rows = (flash_row, decode_row, wkv_row, ssd_row)
-    for row in rows:
+    for name, row in [(r["name"], r) for r in rows] + [
+            ("flash_attention at zamba2-7b's shape", zamba_flash)]:
         lib = "null" if row["library_ms"] is None \
             else f"{row['library_ms']:.4f} ms"
-        log(f"  {row['name']}: {row['ms']:.4f} ms, plain "
+        log(f"  {name}: {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {lib}, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
     del flush
@@ -448,7 +498,9 @@ def main() -> int:
         row["launches"] = totals[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
+    print(json.dumps({"kernels": [
+        {k: row[k] for k in keys + tuple(sorted(set(row) - set(keys)))}
+        for row in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -623,15 +675,54 @@ def _kernel_rows(prof, calls: int) -> list:
     return sorted(rows, reverse=True)
 
 
-def kernel_us(fn, iters: int) -> float:
-    """Summed device time (us) of the kernels that iters calls of fn run."""
+def _profiled(fn, iters: int = 1) -> list:
+    """_kernel_rows, in totals, of iters calls of fn."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(r[0] for r in _kernel_rows(prof, 1))
+    return _kernel_rows(prof, 1)
+
+
+def kernel_count(fn) -> int:
+    """CUDA kernels that one call of fn runs, from the profiler."""
+    return round(sum(n for _, n, _ in _profiled(fn)))
+
+
+def flushed_ms(fn, iters: int, flush) -> float:
+    """Mean device time (ms) of fn's kernels per call, each call after
+    flushing the L2 cache with ``flush.bitwise_xor_(1)`` on a tensor larger
+    than the L2 (the serving path finds its inputs cold). Kernel durations
+    come from the profiler, so the host's time to enqueue a short kernel is
+    not counted; the flush's kernels, named by profiling the flush alone,
+    are left out, and fn must run none of them. The profiler now and then
+    drops kernel records, so a window counts only if it holds exactly iters
+    flushes and iters times the kernels of one call of fn; any other window
+    is measured again, and a second one raises."""
+    def flush_l2():
+        flush.bitwise_xor_(1)
+
+    fn()                                                        # warm-up
+    for _ in range(2):
+        flush_one = _profiled(flush_l2)
+        flush_names = {name for _, _, name in flush_one}
+        one = _profiled(fn)
+        if flush_names & {name for _, _, name in one}:
+            raise AssertionError("a timed function runs the L2 flush's "
+                                 "kernel, so its time cannot be told apart")
+        rows = _profiled(lambda: (flush_l2(), fn()), iters)
+        flushes = sum(n for _, n, name in rows if name in flush_names)
+        kernels = [(us, n) for us, n, name in rows if name not in flush_names]
+        us = sum(us for us, _ in kernels)
+        if flush_one and flushes == iters * sum(n for _, n, _ in flush_one) \
+                and us > 0 and sum(n for _, n in kernels) == \
+                iters * sum(n for _, n, _ in one):
+            return us / iters / 1e3
+    raise AssertionError("the profiler's timed windows lost kernel records "
+                         "twice")
 
 
 def profile_ticks(cfg, params, card, slots, buf, ticks: int = 20) -> dict:

@@ -3,18 +3,20 @@
 
 Replaces the Pallas TPU kernel ``_decode_kernel`` / ``decode_attention_bhd``
 with the hand-written split-KV CUDA kernel in ``csrc/decode_attention.cu``
-(sm_90a): a first pass over sequence splits in parallel, a second that merges
-their log-sum-exps.
+(sm_90a), one launch per call: CTAs over (sequence split, batch row, kv
+head) in parallel, and the last CTA of each row and kv head merges the
+splits' log-sum-exps.
 
 Bound on the H100: bytes. Each valid cache position is read once per kv
 head; for B=4, 1024 valid positions, KV=16, D=128 in bf16 that is 33.5 MB,
 about 10 us at 3.35 TB/s. The kernel reads only positions below
 ``cache_len[b]`` and reads the model's (B, S, KV, D) cache in place through
-its strides, with no transposed copy.
+its strides, with no transposed copy, in 16-byte copies (so the caches'
+base and strides must be 16-byte aligned).
 
 ``decode_attention_bhd`` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors. ``decode_attention_bhd.launches`` counts
-kernel launches (one per call; each call runs both passes).
+kernel launches (one per call).
 """
 from __future__ import annotations
 
@@ -29,11 +31,44 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "decode_attention_fwd": (
-        [_P] * 7 + [_I] * 6 + [_L] * 10 + [ctypes.c_float, _I, _P], _I),
-    "decode_attention_nsplit": ([_I], _I),
+        [_P] * 8 + [_I] * 7 + [_L] * 10 + [ctypes.c_float, _I, _P], _I),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+MAX_GROUP = 32                  # query heads per kv head
+V_BYTES = 32 * 1024             # V a CTA holds in registers at head dim 128
+_tickets: dict = {}             # device -> int32 zeros the kernel leaves zero
+
+
+def split_size(s: int, rows: int, elem_size: int, sms: int) -> int:
+    """Cache positions per CTA for a buffer of ``s`` positions and ``rows``
+    = B * KV (batch row, kv head) pairs on a card of ``sms`` streaming
+    multiprocessors: the largest power of two from ``V_BYTES / (128 *
+    elem_size)`` (128 in bf16, 64 in fp32: the V rows a CTA's registers
+    hold) down to 32 whose split count still launches at least two CTAs per
+    SM. At the serving shapes on an H100 SXM (132 SMs), 4 x 16 rows of a
+    1024 buffer and 4 x 32 rows of a 512 buffer, that is 128 positions and
+    512 CTAs."""
+    split = V_BYTES // (MAX_HEAD_DIM * elem_size)
+    while split > 32 and -(-s // split) * rows < 2 * sms:
+        split //= 2
+    return split
+
+
+def check_cache_layout(name, t):
+    """Raise ValueError unless the kernel's 16-byte copies can read the
+    (B, KV, S, D) cache view t in place: a contiguous head dim of a multiple
+    of 16 bytes, and a 16-byte aligned base and batch, head and position
+    strides."""
+    size = t.element_size()
+    if t.stride(3) != 1:
+        raise ValueError(f"{name}'s head dim must be contiguous")
+    if t.data_ptr() % 16 or (t.shape[3] * size) % 16 or any(
+            t.shape[dim] > 1 and (t.stride(dim) * size) % 16
+            for dim in range(3)):
+        raise ValueError(f"{name}: the kernel copies 16-byte pieces, so the "
+                         f"base, the strides {t.stride()} and the head dim "
+                         f"{t.shape[3]} must come to multiples of 16 bytes")
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len):
@@ -59,7 +94,9 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len):
 def decode_attention_bhd(q, k_cache, v_cache, cache_len):
     """q: (B, H, D); caches (B, KV, S, D); cache_len (B,) -> (B, H, D).
 
-    Any strides are accepted as long as the head dim is contiguous."""
+    Any strides are accepted as long as the head dim is contiguous; on the
+    card the caches' base and strides must also be 16-byte aligned
+    (``check_cache_layout``)."""
     b, h, d = q.shape
     if k_cache.shape != v_cache.shape or k_cache.shape[0] != b \
             or k_cache.shape[3] != d or h % k_cache.shape[1] \
@@ -89,23 +126,29 @@ def _launch(q, k_cache, v_cache, cache_len):
         raise ValueError("q, caches and cache_len must be on one device")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
+    if h // kv > MAX_GROUP:
+        raise ValueError(f"{h // kv} query heads per kv head > {MAX_GROUP}")
     lens = cache_len.to(torch.int32).contiguous()
     o = torch.empty_like(q)
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("o", o)):
+    for name, t in (("q", q), ("o", o)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
-    lib = _build.load("decode_attention", _SIGNATURES)
-    nsplit = lib.decode_attention_nsplit(s)
+    check_cache_layout("k_cache", k_cache)
+    check_cache_layout("v_cache", v_cache)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    split = split_size(s, b * kv, q.element_size(), sms)
+    nsplit = -(-s // split)
     part_acc = torch.empty(b * h * nsplit * d, dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty(b * h * nsplit * 2, dtype=torch.float32,
                           device=q.device)
+    lib = _build.load("decode_attention", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
         o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        _DTYPES[q.dtype], b, s, h, kv, d,
+        _ticket_buffer(q.device, b * kv).data_ptr(),
+        _DTYPES[q.dtype], b, s, h, kv, d, split,
         q.stride(0), q.stride(1),
         k_cache.stride(0), k_cache.stride(2), k_cache.stride(1),
         v_cache.stride(0), v_cache.stride(2), v_cache.stride(1),
@@ -116,3 +159,15 @@ def _launch(q, k_cache, v_cache, cache_len):
                            f"cudaError {rc}")
     decode_attention_bhd.launches += 1
     return o
+
+
+def _ticket_buffer(device, n: int):
+    """The per-device int32 tickets, one per (batch row, kv head), zeroed
+    once (one fill kernel when the buffer first grows) and left zero by
+    every launch, so a call enqueues no kernel but the decode kernel. Calls
+    on one device must not run concurrently on two streams."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf

@@ -5,10 +5,13 @@ with the hand-written CUDA kernel in ``csrc/flash_attention.cu`` (sm_90a).
 
 Bound on the H100: at the prefill shape (B=4, S=2048, H=16, D=128, causal,
 bf16) it does 6.9e10 FLOP on 134 MB, so it is bound by operations (about
-69 us at 989 TFLOP/s). The kernel keeps scores and probabilities on chip,
-skips key tiles above the diagonal and reads q, k, v and writes o through
-their strides, so the model's (B, S, H, D) activations are never transposed
-or GQA-expanded; its products are scalar fp32 FMA for now, not tensor cores.
+69 us at 989 TFLOP/s). For bf16 the kernel runs both products on the tensor
+cores (wgmma) over tiles that TMA streams into shared memory, keeps scores
+and probabilities on chip and skips key tiles above the diagonal. It reads
+q, k, v and writes o in place through 4-D tensor maps over their strides, so
+the model's (B, S, H, D) activations are never transposed or GQA-expanded;
+TMA needs 16-byte aligned bases and strides (``check_tma_layout``). fp32
+inputs take a scalar fp32 kernel.
 
 ``flash_attention_bhsd`` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors. ``flash_attention_bhsd.launches`` counts
@@ -50,6 +53,32 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
     return o.reshape(b, h, s, d).to(q.dtype)
 
 
+def check_tma_layout(name, t):
+    """Raise ValueError unless TMA can read or write the (B, H, S, D) bf16
+    view t in place: a contiguous head dim, and a 16-byte aligned base and
+    batch, head and sequence strides (a stride of a dim of size 1 is never
+    used and may be anything)."""
+    size = t.element_size()
+    if t.stride(3) != 1:
+        raise ValueError(f"{name}'s head dim must be contiguous")
+    if t.data_ptr() % 16 or (t.shape[3] * size) % 16:
+        raise ValueError(f"{name}: TMA needs a 16-byte aligned base and rows "
+                         f"of a multiple of 16 bytes (head dim {t.shape[3]})")
+    for dim in range(3):
+        if t.shape[dim] > 1 and (t.stride(dim) * size) % 16:
+            raise ValueError(f"{name}: stride {t.stride(dim)} of dim {dim} "
+                             f"is not a multiple of 16 bytes, which TMA "
+                             f"needs")
+
+
+def _map_strides(t):
+    """(batch, sequence, head) element strides for the kernel's tensor maps:
+    a dim of size 1 gets the head dim rounded up to 16 bytes, which TMA
+    accepts and which is never stepped over."""
+    pad = -(-t.shape[3] * t.element_size() // 16) * 16 // t.element_size()
+    return [t.stride(dim) if t.shape[dim] > 1 else pad for dim in (0, 2, 1)]
+
+
 def flash_attention_bhsd(q, k, v, *, causal: bool = True):
     """q: (B, H, S, D); k, v: (B, KV, S, D) with H % KV == 0 -> (B, H, S, D).
 
@@ -81,18 +110,18 @@ def _launch(q, k, v, causal):
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
     o = torch.empty_like(q)          # keeps q's layout, e.g. a (B, S, H, D) view
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
-        if t.stride(3) != 1:
+    tensors = (("q", q), ("k", k), ("v", v), ("o", o))
+    for name, t in tensors:
+        if q.dtype == torch.bfloat16:
+            check_tma_layout(name, t)
+        elif t.stride(3) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
+    strides = [x for _, t in tensors for x in _map_strides(t)]
     lib = _build.load("flash_attention", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        _DTYPES[q.dtype], b, s, h, kv, d,
-        q.stride(0), q.stride(2), q.stride(1),
-        k.stride(0), k.stride(2), k.stride(1),
-        v.stride(0), v.stride(2), v.stride(1),
-        o.stride(0), o.stride(2), o.stride(1),
+        _DTYPES[q.dtype], b, s, h, kv, d, *strides,
         int(causal), d ** -0.5, q.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel failed to launch: "

@@ -35,9 +35,18 @@ FLASH_CASES = [
       for causal in (True, False)],
     # zamba2-7b's shared attention block: head dim 112
     (2, 200, 4, 4, 112, True, "float32"), (1, 256, 4, 4, 112, True, "bfloat16"),
+    # the bf16 kernel's edges: ragged S, head dims 16, 80 and 112 below its
+    # 64/112/128 tile widths, GQA 4:1, causal and not
+    *[(*shape, causal, "bfloat16")
+      for shape in [(1, 100, 2, 1, 64), (2, 601, 8, 2, 80), (1, 601, 4, 1, 16),
+                    (2, 300, 8, 2, 112)]
+      for causal in (True, False)],
 ]
 DECODE_SHAPES = [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 32), (3, 300, 4, 2, 128),
                  (2, 300, 4, 4, 112)]
+# cache_len of 1, of the whole buffer and of 0 (zeros), GQA 4:1, head dim 112
+DECODE_EDGE_SHAPES = [(4, 1024, 16, 16, 128), (3, 512, 8, 2, 128),
+                      (3, 300, 16, 4, 112), (2, 64, 4, 1, 64)]
 # tests/test_kernels.py's shapes, and a length no chunk divides
 WKV6_SHAPES = [(1, 128, 2, 32), (2, 256, 4, 64), (1, 64, 1, 16),
                (1, 601, 2, 64)]
@@ -99,6 +108,77 @@ def test_decode_kernel_matches_plain(card, b, s, h, kv, d, dtype):
     want = dec.decode_attention_plain(q[:, 0], kc.permute(0, 2, 1, 3),
                                       vc.permute(0, 2, 1, 3), lens)
     np.testing.assert_allclose(_np(got[:, 0]), _np(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_reads_fused_qkv_views(card, causal):
+    """q, k and v as strided views of one (B, S, 3, H, D) projection."""
+    b, s, h, d = 2, 300, 4, 64
+    (qkv,) = _randn(15, [(b, s, 3, h, d)], "bfloat16", card)
+    q, k, v = qkv.unbind(2)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(
+        *(t.contiguous().permute(0, 2, 1, 3) for t in (q, k, v)),
+        causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want.permute(0, 2, 1, 3)),
+                               **_tol("bfloat16"))
+
+
+def test_flash_kernel_takes_contiguous_bhsd(card):
+    """(B, H, S, D) tensors, whose head stride exceeds their sequence
+    stride, as flash_attention_bhsd's own callers may pass them."""
+    q, k, v = _randn(16, [(2, 4, 300, 64), (2, 2, 300, 64), (2, 2, 300, 64)],
+                     "bfloat16", card)
+    got = fa.flash_attention_bhsd(q, k, v)
+    np.testing.assert_allclose(_np(got), _np(fa.flash_attention_plain(q, k, v)),
+                               **_tol("bfloat16"))
+
+
+def test_flash_kernel_refuses_layouts_tma_cannot_take(card):
+    buf = torch.zeros(1, 64, 2, 72, dtype=torch.bfloat16, device=card)
+    shifted = buf[..., 1:65]                # base 2 bytes past 16-byte alignment
+    ragged = torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16,
+                         device=card)[..., :64]      # head stride of 136 bytes
+    before = fa.flash_attention_bhsd.launches
+    for t in (shifted, ragged):
+        with pytest.raises(ValueError):
+            ops.flash_attention(t, t, t)
+    assert fa.flash_attention_bhsd.launches == before
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", DECODE_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_cache_len_edges(card, b, s, h, kv, d, dtype):
+    q, kc, vc = _randn(16, [(b, 1, h, d), (b, s, kv, d), (b, s, kv, d)],
+                       dtype, card)
+    lens = torch.tensor([1, s, 0, s // 2 + 3][:b], dtype=torch.int32,
+                        device=card)
+    got = ops.decode_attention(q, kc, vc, lens)
+    want = dec.decode_attention_plain(q[:, 0], kc.permute(0, 2, 1, 3),
+                                      vc.permute(0, 2, 1, 3), lens)
+    np.testing.assert_allclose(_np(got[:, 0]), _np(want), **_tol(dtype))
+    if b > 2:
+        assert not bool(got[2].any())           # the empty row gives zeros
+
+
+def test_decode_call_is_one_kernel_launch(card):
+    """One call adds one to the counter and enqueues exactly one CUDA
+    kernel, the merge of the splits included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q, kc, vc = _randn(17, [(4, 1, 16, 128), (4, 1024, 16, 128),
+                            (4, 1024, 16, 128)], "bfloat16", card)
+    lens = torch.tensor([700, 1024, 33, 512], dtype=torch.int32, device=card)
+    ops.decode_attention(q, kc, vc, lens)       # builds; tickets allocated
+    torch.cuda.synchronize()
+    before = dec.decode_attention_bhd.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.decode_attention(q, kc, vc, lens)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    assert dec.decode_attention_bhd.launches == before + 1
+    assert kernels == 1
 
 
 def _recurrence_tol(dtype, f32):

@@ -444,3 +444,58 @@ def test_wrappers_check_shapes():
     with pytest.raises(ValueError):
         dec.decode_attention_bhd(torch.randn(1, 2, 8), torch.randn(1, 1, 8, 4),
                                  torch.randn(1, 1, 8, 4), torch.tensor([3]))
+
+
+@pytest.mark.parametrize("s,rows,elem", [
+    (1024, 64, 2),      # olmo-1b serving: 4 slots x 16 kv heads
+    (512, 128, 2),      # zamba2-7b serving: 4 slots x 32 kv heads
+    (1024, 64, 4), (512, 4, 2), (300, 6, 4), (64, 2, 4), (40000, 8, 2),
+    (1, 1, 2)])
+def test_decode_split_size(s, rows, elem):
+    """A power of two from 32 up to the V rows a CTA's registers hold (128
+    in bf16, 64 in fp32), the largest that still launches two CTAs per SM
+    (or 32 where none does), on an H100 SXM's 132 SMs."""
+    sms = 132
+    split = dec.split_size(s, rows, elem, sms)
+    top = dec.V_BYTES // (dec.MAX_HEAD_DIM * elem)
+    assert top == {2: 128, 4: 64}[elem]
+    assert split in (32, 64, 128) and split <= top
+    ctas = -(-s // split) * rows
+    assert split == 32 or ctas >= 2 * sms
+    assert 2 * split > top or -(-s // (2 * split)) * rows < 2 * sms
+    if (s, rows, elem) in ((1024, 64, 2), (512, 128, 2)):
+        assert split == 128 and ctas == 512
+
+
+def test_flash_tma_layout_checks():
+    """What the bf16 flash kernel's tensor maps accept, on CPU tensors."""
+    bf = torch.bfloat16
+    q = torch.zeros(2, 64, 4, 64, dtype=bf)
+    fa.check_tma_layout("q", q.permute(0, 2, 1, 3))           # the model's view
+    for t in torch.zeros(2, 64, 3, 4, 64, dtype=bf).unbind(2):  # fused q, k, v
+        fa.check_tma_layout("q", t.permute(0, 2, 1, 3))
+    fa.check_tma_layout("q", torch.zeros(1, 1, 1, 16, dtype=bf)
+                        .as_strided((1, 1, 1, 16), (3, 5, 7, 1)))  # size-1 dims
+    bad = [torch.zeros(1, 64, 2, 72, dtype=bf)[..., 1:65],      # base + 2 bytes
+           torch.zeros(1, 64, 2, 68, dtype=bf)[..., :64],       # 136-byte stride
+           torch.zeros(1, 64, 2, 64, dtype=bf).transpose(2, 3),  # strided head dim
+           torch.zeros(1, 64, 2, 12, dtype=bf)]                  # 24-byte rows
+    for t in bad:
+        with pytest.raises(ValueError):
+            fa.check_tma_layout("q", t.permute(0, 2, 1, 3))
+    strides = fa._map_strides(torch.zeros(1, 5, 1, 36, dtype=bf)
+                              .as_strided((1, 5, 1, 36), (7, 36, 9, 1)))
+    assert strides == [40, 40, 36]      # size-1 dims: 36 rounded to 16 bytes
+
+
+def test_decode_cache_layout_checks():
+    cache = torch.zeros(2, 32, 4, 112, dtype=torch.bfloat16)
+    dec.check_cache_layout("k_cache", cache.permute(0, 2, 1, 3))
+    dec.check_cache_layout("k_cache", torch.zeros(2, 32, 4, 16)
+                           .permute(0, 2, 1, 3))           # fp32, 64-byte rows
+    bad = [torch.zeros(2, 32, 4, 120, dtype=torch.bfloat16)[..., 4:116],
+           torch.zeros(2, 32, 4, 12, dtype=torch.bfloat16),
+           torch.zeros(2, 32, 4, 8).transpose(2, 3)]
+    for t in bad:
+        with pytest.raises(ValueError):
+            dec.check_cache_layout("k_cache", t.permute(0, 2, 1, 3))

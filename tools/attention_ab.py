@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Time the port's attention kernels of one or more checkouts, in turns, on
+one card.
+
+    python3 tools/attention_ab.py [ROOT ...]
+
+Each ROOT is a checkout of this repository (default: this one). Every root
+runs in a subprocess of its own (the checkouts share module names), in the
+order given, so ``A B B A`` compares two versions on one card in turns. For
+each it times, in bf16, flash attention at olmo-1b's prefill shape (4, 2048,
+16 heads of 128, causal) and at zamba2-7b's (4, 2048, 32 heads of 112), and
+decode attention at olmo-1b's serving shape (4 slots, a buffer of 1024, 16
+heads of 128, seeded cache lengths), each beside SDPA on the same inputs,
+and the decode kernel alone with every slot at a cache length of 1, 128,
+512 and 1024. Every time comes from chip_smoke.py's ``flushed_ms`` (the
+kernels' device time per call from torch.profiler, the L2 cache flushed
+before each call), the one timing of the repo. Prints one JSON line per
+root, then the card's name and power limit.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def measure(root: Path) -> dict:
+    sys.path[:0] = [str(root / "src"), str(REPO)]
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import flushed_ms
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.zeros(64 * 2**20, dtype=torch.int32, device=dev)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def time_ms(fn, iters):
+        return flushed_ms(fn, iters, flush)
+
+    out = {"root": str(root)}
+    for name, h, d in (("flash_olmo-1b", 16, 128), ("flash_zamba2-7b", 32, 112)):
+        q, k, v = (randn((4, 2048, h, d)) for _ in range(3))
+        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        out[name] = {
+            "ms": time_ms(lambda: ops.flash_attention(q, k, v), 10),
+            "sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True), 10)}
+        del q, k, v, qh, kh, vh
+    q = randn((4, 1, 16, 128))
+    kc, vc = randn((4, 1024, 16, 128)), randn((4, 1024, 16, 128))
+    lens = torch.randint(1, 1025, (4,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    qh, kh, vh = q.permute(0, 2, 1, 3), kc.permute(0, 2, 1, 3), \
+        vc.permute(0, 2, 1, 3)
+    mask = (torch.arange(1024, device=dev)[None, :] < lens[:, None].long()
+            )[:, None, None, :]
+    out["decode_olmo-1b"] = {
+        "cache_len": lens.tolist(),
+        "ms": time_ms(lambda: ops.decode_attention(q, kc, vc, lens), 50),
+        "sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), 50)}
+    # the same shape with every slot at one cache length: what a call costs
+    # with almost no data (1), within one split (128) and at the full buffer
+    out["decode_by_cache_len_ms"] = {
+        n: time_ms(lambda: ops.decode_attention(
+            q, kc, vc, torch.full((4,), n, dtype=torch.int32, device=dev)), 50)
+        for n in (1, 128, 512, 1024)}
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        print(json.dumps(measure(Path(sys.argv[2]).resolve())), flush=True)
+        return 0
+    roots = sys.argv[1:] or [str(REPO)]
+    for root in roots:
+        subprocess.run([sys.executable, __file__, "--one", root], check=True,
+                       timeout=900)
+    print(subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
