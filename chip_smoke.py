@@ -15,12 +15,15 @@ without printing a result:
    kernel also at ragged S, head dims 16, 80 and 112, GQA 4:1, non-causal
    and on views of one fused (B, S, 3, H, D) buffer, and decode attention
    at cache_len 1, 0 and the whole buffer; WKV6 and SSD also at strong
-   decays against the sequential oracles of kernels/ref.py; that one decode
-   attention call runs one CUDA kernel; the times of each kernel, its plain
-   version and, where one PyTorch call computes the same function (SDPA for
-   the attention kernels, which the port never calls; none for WKV6 or
-   SSD), that call, at the serving paths' shapes (flash also at zamba2-7b's
-   prefill shape), beside the card's bound;
+   decays against the sequential oracles of kernels/ref.py (SSD in fp32,
+   which takes the scalar kernel, and in bf16, which takes the chunked
+   tensor-core kernel; bf16 SSD also at S of 1, 63, 64, 65 and 601, P of
+   16, 32 and 128, N of 8 and 64, two groups); that one decode attention
+   call and one bf16 SSD call each run one CUDA kernel; the times of each
+   kernel, its plain version and, where one PyTorch call computes the same
+   function (SDPA for the attention kernels, which the port never calls;
+   none for WKV6 or SSD), that call, at the serving paths' shapes (flash
+   also at zamba2-7b's prefill shape), beside the card's bound;
 4. reference: reduced olmo-1b, qwen3-8b, rwkv6-7b and zamba2-7b on the card
    (kernels) against the CPU (plain versions), fp32, prefill and decode
    logits; then olmo-1b, rwkv6-7b and zamba2-7b at full width but reduced
@@ -64,6 +67,10 @@ TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-5)}   # tests/test_kernels
 # tests/test_kernels.py's fp32 tolerances for the recurrences
 TOL_WKV6 = {"bfloat16": (2e-2, 2e-2), "float32": (2e-4, 2e-4)}
 TOL_SSD = {"bfloat16": (2e-2, 2e-2), "float32": (5e-4, 5e-4)}
+# the spin kernels at both ends of every profiled window (see _profiled),
+# and the calls profiled to count a function's kernels (kernel_count)
+GUARD_CYCLES, GUARD_KERNEL = 20_000_000, "spin_kernel"
+REF_CALLS = 5
 
 FLASH_CASES = [  # (b, s, h, kv, d, causal, dtype)
     *[(*shape, True, dt)
@@ -99,9 +106,14 @@ WKV6_CASES = [  # (b, s, h, k, dtype of r, k, v); logw and u are fp32
                                         (1, 64, 1, 16), (1, 601, 2, 64)]
     for dt in ("float32", "bfloat16")]
 SSD_CASES = [  # (b, s, h, p, g, n, dtype of x, B, C); dt, A and D are fp32
-    (*shape, dt) for shape in [(1, 128, 2, 32, 1, 16), (2, 256, 4, 64, 2, 32),
-                               (1, 64, 2, 16, 1, 8), (1, 601, 4, 64, 1, 64)]
-    for dt in ("float32", "bfloat16")]
+    *[(*shape, dt) for shape in [(1, 128, 2, 32, 1, 16), (2, 256, 4, 64, 2, 32),
+                                 (1, 64, 2, 16, 1, 8), (1, 601, 4, 64, 1, 64)]
+      for dt in ("float32", "bfloat16")],
+    # the bf16 chunked kernel's edges: S around its 64-token chunk and a
+    # ragged tail, P below, at and above its 64-column tile, N of 8 and 64
+    *[(2, s, 4, p, 2, n, "bfloat16") for s in (1, 63, 64, 65, 601)
+      for p, n in ((16, 8), (32, 64), (128, 64), (128, 8))],
+]
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 # per model: slots, cache buffer, requests, new tokens each, prompt lengths
 SLICES = {"olmo-1b": (4, 1024, 8, 32, (128, 512)),
@@ -169,8 +181,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.zeros(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
 
-    def time_ms(fn, iters):
-        return flushed_ms(fn, iters, flush)
+    def time_ms(fn, iters, per_call=None):
+        return flushed_ms(fn, iters, flush, per_call)
 
     def randn(shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
@@ -378,20 +390,22 @@ def main() -> int:
         "source": "src/repro_torch/csrc/mamba2_ssd.cu",
         "replaces": "src/repro/kernels/mamba2_ssd.py:24",
         "max_abs_err": ssd_err, "tol": TOL_SSD["bfloat16"][1],
-        "ms": time_ms(lambda: ops.mamba2_ssd(*args), 10),
+        "ms": time_ms(lambda: ops.mamba2_ssd(*args), 10, per_call=1),
         "plain_ms": time_ms(lambda: ssd_plain_bshd(*args), 3),
         "library_ms": None,     # no single PyTorch call computes the SSD scan
     }
+    log("  one bf16 SSD call: one CUDA kernel (profiler, in its timing)")
     # x read and y written in bf16, dt in fp32, B and C once per group,
     # A and D once; 4 N P FLOP per token and head (state update and y)
     ssd_row["bound_ms"], ssd_row["bound_by"] = bound(
         4 * n * p * b * s * h,
         2 * x.numel() * x.element_size() + dtv.numel() * dtv.element_size()
         + 2 * Bm.numel() * Bm.element_size() + 2 * 4 * h, dt)
-    args = ssd_inputs(1, 512, 4, 64, 1, 64, "float32", strong=True)
-    compare("strong decay, dt A in (-8, -0.1), b=1 s=512 h=4 p=64 n=64 "
-            "float32, against the sequential ssd_ref", ops.mamba2_ssd(*args),
-            ref.ssd_ref(*args), "float32", TOL_SSD)
+    for dt in ("float32", "bfloat16"):       # the scalar and chunked kernels
+        args = ssd_inputs(1, 512, 4, 64, 1, 64, dt, strong=True)
+        compare(f"strong decay, dt A in (-8, -0.1), b=1 s=512 h=4 p=64 n=64 "
+                f"{dt}, against the sequential ssd_ref",
+                ops.mamba2_ssd(*args), ref.ssd_ref(*args), dt, TOL_SSD)
     del x, dtv, A, Bm, Cm, Dv, args
     rows = (flash_row, decode_row, wkv_row, ssd_row)
     for name, row in [(r["name"], r) for r in rows] + [
@@ -676,53 +690,86 @@ def _kernel_rows(prof, calls: int) -> list:
 
 
 def _profiled(fn, iters: int = 1) -> list:
-    """_kernel_rows, in totals, of iters calls of fn."""
+    """_kernel_rows, in totals, of iters calls of fn, between two spin
+    kernels of about 10 ms each (``torch.cuda._sleep``), which are left out
+    of the rows. On some cards the profiler dropped the first or the last
+    kernel records of a window (a whole one-call window, or one flush of a
+    timed one); the spins take the window's edges."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(GUARD_CYCLES)
         for _ in range(iters):
             fn()
+        torch.cuda._sleep(GUARD_CYCLES)
         torch.cuda.synchronize()
-    return _kernel_rows(prof, 1)
+    return [row for row in _kernel_rows(prof, 1) if GUARD_KERNEL not in row[2]]
+
+
+def launches_of(rows, calls: int) -> dict:
+    """{kernel name: launches per call} from the _kernel_rows totals of
+    ``calls`` calls. The profiler may have dropped one record of a kernel;
+    a kernel whose records are not whole launches per call, short of at
+    most one, raises, so a kernel that ran on only some of the calls is
+    never rounded away."""
+    out = {}
+    for _, n, name in rows:
+        n = round(n)
+        per = -(-n // calls)
+        if n < per * calls - 1:
+            raise AssertionError(f"{name} ran {n} times in {calls} calls")
+        out[name] = per
+    return out
 
 
 def kernel_count(fn) -> int:
-    """CUDA kernels that one call of fn runs, from the profiler."""
-    return round(sum(n for _, n, _ in _profiled(fn)))
+    """CUDA kernels that one call of fn runs, from the profiler over
+    REF_CALLS calls."""
+    return sum(launches_of(_profiled(fn, REF_CALLS), REF_CALLS).values())
 
 
-def flushed_ms(fn, iters: int, flush) -> float:
+def flushed_ms(fn, iters: int, flush, per_call: int | None = None) -> float:
     """Mean device time (ms) of fn's kernels per call, each call after
     flushing the L2 cache with ``flush.bitwise_xor_(1)`` on a tensor larger
     than the L2 (the serving path finds its inputs cold). Kernel durations
     come from the profiler, so the host's time to enqueue a short kernel is
     not counted; the flush's kernels, named by profiling the flush alone,
-    are left out, and fn must run none of them. The profiler now and then
-    drops kernel records, so a window counts only if it holds exactly iters
-    flushes and iters times the kernels of one call of fn; any other window
-    is measured again, and a second one raises."""
+    are left out, and fn must run none of them. With ``per_call``, one call
+    of fn must run exactly that many kernels. A window counts only if it
+    holds exactly iters flushes and iters times fn's kernels per call (the
+    profiler drops records now and then); the time is the median of three
+    windows that count (one window in some tens read 36% slow), out of at
+    most six, or of those that count if fewer do; none raises."""
     def flush_l2():
         flush.bitwise_xor_(1)
 
     fn()                                                        # warm-up
-    for _ in range(2):
-        flush_one = _profiled(flush_l2)
-        flush_names = {name for _, _, name in flush_one}
-        one = _profiled(fn)
-        if flush_names & {name for _, _, name in one}:
-            raise AssertionError("a timed function runs the L2 flush's "
-                                 "kernel, so its time cannot be told apart")
+    launches = launches_of(_profiled(fn, REF_CALLS), REF_CALLS)
+    if per_call is not None and sum(launches.values()) != per_call:
+        raise AssertionError(f"one call runs {sum(launches.values())} CUDA "
+                             f"kernels, not {per_call}")
+    for _ in range(3):
+        flush_names = {name for _, _, name in _profiled(flush_l2)}
+        if flush_names:
+            break
+    if flush_names & set(launches):
+        raise AssertionError("a timed function runs the L2 flush's kernel, "
+                             "so its time cannot be told apart")
+    times = []
+    for _ in range(6):
         rows = _profiled(lambda: (flush_l2(), fn()), iters)
         flushes = sum(n for _, n, name in rows if name in flush_names)
         kernels = [(us, n) for us, n, name in rows if name not in flush_names]
-        us = sum(us for us, _ in kernels)
-        if flush_one and flushes == iters * sum(n for _, n, _ in flush_one) \
-                and us > 0 and sum(n for _, n in kernels) == \
-                iters * sum(n for _, n, _ in one):
-            return us / iters / 1e3
-    raise AssertionError("the profiler's timed windows lost kernel records "
-                         "twice")
+        if flush_names and flushes == iters * len(flush_names) and \
+                sum(n for _, n in kernels) == iters * sum(launches.values()):
+            times.append(sum(us for us, _ in kernels) / iters / 1e3)
+            if len(times) == 3:
+                break
+    if not times:
+        raise AssertionError("the profiler's timed windows lost kernel "
+                             "records six times")
+    return sorted(times)[len(times) // 2]
 
 
 def profile_ticks(cfg, params, card, slots, buf, ticks: int = 20) -> dict:

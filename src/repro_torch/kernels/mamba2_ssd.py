@@ -1,26 +1,32 @@
 """Mamba-2 SSD scan: the port of ``repro/kernels/mamba2_ssd.py``.
 
 Replaces the Pallas TPU kernel ``_ssd_kernel`` / ``ssd_bhsp`` with the
-hand-written CUDA kernel in ``csrc/mamba2_ssd.cu`` (sm_90a): one block per
-(b, h) walks the recurrence in time order, each thread holding one column
-of the (N x P) fp32 state in registers.
+hand-written CUDA kernels in ``csrc/mamba2_ssd.cu`` (sm_90a), one launch per
+call. bf16 takes the chunked tensor-core kernel: one CTA per (b, h, tile of
+64 state columns) walks chunks of 64 tokens in order, computing each chunk's
+C Bᵀ, its masked decay, y and the state update with ``mma.sync`` while the
+next chunk's loads are in flight; the fp32 state is the warps' mma
+accumulator. fp32 takes the scalar kernel: one block per (b, h) walks the
+recurrence token by token, each thread holding one column of the (N x P)
+fp32 state in registers.
 
 Bound on the H100: bytes. At the zamba2-7b prefill shape (B=4, S=2048,
 H=112, P=64, G=1, N=64; bf16 x, B, C and y, fp32 dt) it must move about
-240 MB, about 0.072 ms at 3.35 TB/s; its 1.5e10 FLOP take about 15 us at the
-bf16 tensor-core rate. The kernel reads x and dt once and writes y once
-through the model's (B, S, H, P) strides and keeps the state on chip, but
-its sequential walk over tokens keeps it well above that bound for now.
+240 MB, about 0.072 ms at 3.35 TB/s; the chunked form's 3e10 FLOP take about
+30 us at the bf16 tensor-core rate. Both kernels read x and dt once and
+write y once through the model's (B, S, H, P) strides and keep the state on
+chip. The bf16 kernel's 16-byte copies need P and N multiples of 8 and
+16-byte aligned bases and strides (``check_layout``); other layouts raise.
 
 The Pallas kernel (and the reference model's ``ssd_chunked``) factor the
 intra-chunk decay into two half-shifted exponentials that overflow fp32 once
 a chunk's summed log-decay passes about -176, and assert
-``S % chunk == 0``. Here no exponent is ever positive: the kernel applies one
-``exp(dt_t A) <= 1`` per token, and the plain version forms each pairwise
-decay as ``exp(cum_t - cum_j)`` of a masked, non-positive difference. Both
-take any S >= 1.
+``S % chunk == 0``. Here no exponent is ever positive: the scalar kernel
+applies one ``exp(dt_t A) <= 1`` per token, and the chunked kernel and the
+plain version form each decay as ``exp(cum_t - cum_j)`` of a masked,
+non-positive difference. All take any S >= 1.
 
-``ssd_bhsp`` launches the kernel for CUDA tensors and takes the plain version
+``ssd_bhsp`` launches a kernel for CUDA tensors and takes the plain version
 only for CPU tensors. ``ssd_bhsp.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -77,6 +83,26 @@ def ssd_plain(x, dt, A, Bm, Cm, D):
     return y.to(x.dtype)
 
 
+def check_layout(name, t):
+    """Raise ValueError unless the bf16 kernel's 16-byte copies can read or
+    write the (B, H or G, S, P or N) view t in place: a contiguous last dim
+    of a multiple of 8 elements, and a 16-byte aligned base and batch,
+    head and sequence strides (a stride of a dim of size 1 is never used
+    and may be anything)."""
+    size = t.element_size()
+    if t.stride(3) != 1:
+        raise ValueError(f"{name}'s last dim must be contiguous")
+    if t.data_ptr() % 16 or (t.shape[3] * size) % 16:
+        raise ValueError(f"{name}: the bf16 SSD kernel needs a 16-byte "
+                         f"aligned base and rows of a multiple of 16 bytes "
+                         f"(last dim {t.shape[3]})")
+    for dim in range(3):
+        if t.shape[dim] > 1 and (t.stride(dim) * size) % 16:
+            raise ValueError(f"{name}: stride {t.stride(dim)} of dim {dim} "
+                             f"is not a multiple of 16 bytes, which the "
+                             f"bf16 SSD kernel needs")
+
+
 def ssd_bhsp(x, dt, A, Bm, Cm, D):
     """x: (B, H, S, P); dt: (B, H, S); A, D: (H,); Bm, Cm: (B, G, S, N) ->
     y (B, H, S, P) in x's dtype.
@@ -117,7 +143,9 @@ def _launch(x, dt, A, Bm, Cm, D):
                          f"{MAX_STATE}")
     y = torch.empty_like(x)          # keeps x's layout, e.g. a (B, S, H, P) view
     for name, t in (("x", x), ("B", Bm), ("C", Cm), ("y", y)):
-        if t.stride(3) != 1:
+        if x.dtype == torch.bfloat16:
+            check_layout(name, t)
+        elif t.stride(3) != 1:
             raise ValueError(f"{name}'s last dim must be contiguous")
     Af, Df = A.float().contiguous(), D.float().contiguous()   # (H,) each
     lib = _build.load("mamba2_ssd", _SIGNATURES)

@@ -317,6 +317,97 @@ def test_ssd_strong_decay_stays_finite():
                                rtol=5e-4, atol=5e-4)
 
 
+def _chunked_bf16_mirror(x, dt, A, Bm, Cm, D, chunk=64):
+    """The bf16 SSD kernel's arithmetic (csrc/mamba2_ssd.cu,
+    ``ssd_chunk_kernel``) in plain torch: per chunk, G = C Bᵀ of the bf16
+    inputs in fp32; L = G exp(cum_t - cum_j), masked, rounded to bf16;
+    xd = dt x and xw = dt exp(tot - cum_j) x rounded to bf16; y =
+    exp(cum_t) (C bf16(S)) + L xd + D x in fp32, rounded once to bf16;
+    S = exp(tot) S + Bᵀ xw in fp32. x, dt: (B, S, H, P), (B, S, H)."""
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+
+    b, s, h, p = x.shape
+    reps = h // Bm.shape[2]
+    xf, dtf = x.float().permute(0, 2, 1, 3), dt.float().permute(0, 2, 1)
+    Bh, Ch = (m.float().repeat_interleave(reps, 2).permute(0, 2, 1, 3)
+              for m in (Bm, Cm))
+    state = torch.zeros(b, h, Bm.shape[3], p)
+    ys = []
+    for c0 in range(0, s, chunk):
+        xc, dc = xf[:, :, c0:c0 + chunk], dtf[:, :, c0:c0 + chunk]
+        bc, cc = Bh[:, :, c0:c0 + chunk], Ch[:, :, c0:c0 + chunk]
+        cum = (dc * A.float()[None, :, None]).cumsum(-1)
+        tot = cum[..., -1:]
+        n = cum.shape[-1]
+        lower = torch.ones(n, n, dtype=torch.bool).tril()
+        diff = cum[..., :, None] - cum[..., None, :]
+        dec = torch.exp(torch.where(lower, diff.clamp(max=0.0),
+                                    torch.full_like(diff, -float("inf"))))
+        L = bf((cc @ bc.transpose(-1, -2)) * dec)
+        xd = bf(xc * dc[..., None])
+        ys.append(torch.exp(cum)[..., None] * (cc @ bf(state)) + L @ xd
+                  + xc * D.float()[None, :, None, None])
+        xw = bf(xc * (dc * torch.exp((tot - cum).clamp(max=0.0)))[..., None])
+        state = torch.exp(tot)[..., None] * state + bc.transpose(-1, -2) @ xw
+    return torch.cat(ys, 2).permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _card_ssd_draws(seed, b, s, h, p, g, n, strong):
+    """test_torch_card.py's draws in bf16: x, B, C ~ 0.5 N(0, 1) rounded to
+    bf16; dt = softplus(N(0, 1) - 1) and A = -exp(0.3 N(0, 1)), or with
+    ``strong`` dt in (0.1, 0.5) and A in (-16, -1), dt A down to -8."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+    x = t(rng.standard_normal((b, s, h, p)) * 0.5, torch.bfloat16)
+    if strong:
+        dt = t(rng.uniform(0.1, 0.5, (b, s, h)))
+        A = t(-rng.uniform(1.0, 16.0, h))
+    else:
+        dt = t(np.log1p(np.exp(rng.standard_normal((b, s, h)) - 1.0)))
+        A = t(-np.exp(rng.standard_normal(h) * 0.3))
+    Bm = t(rng.standard_normal((b, s, g, n)) * 0.5, torch.bfloat16)
+    Cm = t(rng.standard_normal((b, s, g, n)) * 0.5, torch.bfloat16)
+    return x, dt, A, Bm, Cm, t(np.ones(h))
+
+
+@pytest.mark.parametrize("strong", [False, True])
+def test_ssd_bf16_kernel_arithmetic_holds_tolerance(strong):
+    """The bf16 kernel rounds L, xd, xw and the state copy to bf16 for the
+    tensor cores. Mirrored on the CPU at S = 2048, H = 2, P = N = 64, it
+    stays within the bf16 tolerance (2e-2) of the fp32 plain version on the
+    same bf16 inputs, at the card tests' normal and strong decays."""
+    x, dt, A, Bm, Cm, D = _card_ssd_draws(12, 1, 2048, 2, 64, 1, 64, strong)
+    got = _chunked_bf16_mirror(x, dt, A, Bm, Cm, D)
+    tr = lambda a: a.float().permute(0, 2, 1, 3)
+    want = tr(ssd.ssd_plain(tr(x), dt.permute(0, 2, 1), A, tr(Bm), tr(Cm),
+                            D))
+    assert bool(torch.isfinite(got.float()).all())
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+
+
+def test_ssd_bf16_layout_checks():
+    """What the bf16 SSD kernel's 16-byte copies accept, on CPU tensors."""
+    bf = torch.bfloat16
+    x = torch.zeros(2, 64, 4, 64, dtype=bf)
+    ssd.check_layout("x", x.permute(0, 2, 1, 3))             # the model's view
+    bc = torch.zeros(2, 64, 2 * 64, dtype=bf)                 # B and C halves
+    for half in (bc[..., :64], bc[..., 64:]):
+        ssd.check_layout("B", half.unflatten(-1, (1, 64)).permute(0, 2, 1, 3))
+    ssd.check_layout("x", torch.zeros(1, 1, 1, 8, dtype=bf)
+                     .as_strided((1, 1, 1, 8), (3, 5, 7, 1)))  # size-1 dims
+    bad = [torch.zeros(1, 64, 2, 72, dtype=bf)[..., 1:65],     # base + 2 bytes
+           torch.zeros(1, 64, 2, 68, dtype=bf)[..., :64],      # 136-byte stride
+           torch.zeros(1, 64, 2, 64, dtype=bf).transpose(2, 3),  # strided P
+           torch.zeros(1, 64, 2, 12, dtype=bf)]                 # 24-byte rows
+    for t in bad:
+        with pytest.raises(ValueError):
+            ssd.check_layout("x", t.permute(0, 2, 1, 3))
+
+
 # ---------------------------------------------------------------------------
 # wrappers: strided views, no fallback, launch counts
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels of one or more checkouts, in turns, on
-one card.
+"""Time the port's attention kernels and its bf16 Mamba-2 SSD kernel of one
+or more checkouts, in turns, on one card.
 
     python3 tools/attention_ab.py [ROOT ...]
 
@@ -8,13 +8,16 @@ Each ROOT is a checkout of this repository (default: this one). Every root
 runs in a subprocess of its own (the checkouts share module names), in the
 order given, so ``A B B A`` compares two versions on one card in turns. For
 each it times, in bf16, flash attention at olmo-1b's prefill shape (4, 2048,
-16 heads of 128, causal) and at zamba2-7b's (4, 2048, 32 heads of 112), and
+16 heads of 128, causal) and at zamba2-7b's (4, 2048, 32 heads of 112),
 decode attention at olmo-1b's serving shape (4 slots, a buffer of 1024, 16
 heads of 128, seeded cache lengths), each beside SDPA on the same inputs,
-and the decode kernel alone with every slot at a cache length of 1, 128,
-512 and 1024. Every time comes from chip_smoke.py's ``flushed_ms`` (the
-kernels' device time per call from torch.profiler, the L2 cache flushed
-before each call), the one timing of the repo. Prints one JSON line per
+the decode kernel alone with every slot at a cache length of 1, 128, 512
+and 1024, and the SSD scan at zamba2-7b's prefill shape (B=4, S=2048, 112
+heads of 64, G=1, N=64) on the model's views (B and C the two halves of one
+projection), one CUDA kernel per call. Every time comes from
+chip_smoke.py's ``flushed_ms`` (the kernels' device time per call from
+torch.profiler, the L2 cache flushed before each call), the one timing of
+the repo. Prints one JSON line per
 root, then the card's name and power limit.
 """
 from __future__ import annotations
@@ -74,6 +77,17 @@ def measure(root: Path) -> dict:
         n: time_ms(lambda: ops.decode_attention(
             q, kc, vc, torch.full((4,), n, dtype=torch.int32, device=dev)), 50)
         for n in (1, 128, 512, 1024)}
+    del q, kc, vc, qh, kh, vh
+    b, s, h, p, n = 4, 2048, 112, 64, 64
+    x = randn((b, s, h, p)) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev) - 1.0)
+    A = -torch.exp(0.3 * torch.randn((h,), generator=gen, device=dev))
+    bc = randn((b, s, 2 * n)) * 0.5
+    Bm, Cm = bc[..., :n].unflatten(-1, (1, n)), bc[..., n:].unflatten(-1, (1, n))
+    D = torch.ones(h, device=dev)
+    out["ssd_zamba2-7b"] = {"ms": flushed_ms(
+        lambda: ops.mamba2_ssd(x, dt, A, Bm, Cm, D), 10, flush, per_call=1)}
     return out
 
 
