@@ -15,11 +15,14 @@ without printing a result:
    kernel also at ragged S, head dims 16, 80 and 112, GQA 4:1, non-causal
    and on views of one fused (B, S, 3, H, D) buffer, and decode attention
    at cache_len 1, 0 and the whole buffer; WKV6 and SSD also at strong
-   decays against the sequential oracles of kernels/ref.py (SSD in fp32,
-   which takes the scalar kernel, and in bf16, which takes the chunked
+   decays against the sequential oracles of kernels/ref.py (each in fp32,
+   which takes its scalar kernel, and in bf16, which takes its chunked
    tensor-core kernel; bf16 SSD also at S of 1, 63, 64, 65 and 601, P of
-   16, 32 and 128, N of 8 and 64, two groups); that one decode attention
-   call and one bf16 SSD call each run one CUDA kernel; the times of each
+   16, 32 and 128, N of 8 and 64, two groups; bf16 WKV6 also at S of 1, 63,
+   64, 65 and 601 and K of 16, 32 and 64 on strided views of one
+   projection, and a misaligned view must raise); that one decode attention
+   call, one bf16 SSD call and one bf16 WKV6 call each run one CUDA kernel;
+   the times of each
    kernel, its plain version and, where one PyTorch call computes the same
    function (SDPA for the attention kernels, which the port never calls;
    none for WKV6 or SSD), that call, at the serving paths' shapes (flash
@@ -105,6 +108,10 @@ WKV6_CASES = [  # (b, s, h, k, dtype of r, k, v); logw and u are fp32
     (b, s, h, k, dt) for b, s, h, k in [(1, 128, 2, 32), (2, 256, 4, 64),
                                         (1, 64, 1, 16), (1, 601, 2, 64)]
     for dt in ("float32", "bfloat16")]
+# the bf16 chunked kernel's edges, on strided views of one projection: S
+# around its 64-token chunk and a ragged tail, K below and at its tile
+WKV6_EDGE_CASES = [(2, s, 4, k) for s in (1, 63, 64, 65, 601)
+                   for k in (16, 32, 64)]
 SSD_CASES = [  # (b, s, h, p, g, n, dtype of x, B, C); dt, A and D are fp32
     *[(*shape, dt) for shape in [(1, 128, 2, 32, 1, 16), (2, 256, 4, 64, 2, 32),
                                  (1, 64, 2, 16, 1, 8), (1, 601, 4, 64, 1, 64)]
@@ -311,35 +318,60 @@ def main() -> int:
         + 4 * lens.numel(), dt)
     del q, k, v, kc, vc, qh, kh, vh, got, want
 
-    def wkv6_inputs(b, s, h, k, dt, logw_lo=-7.0, logw_hi=-0.7):
+    def wkv6_inputs(b, s, h, k, dt, logw_lo=-7.0, logw_hi=-0.7, views=False):
         """tests/test_kernels.py's draws: r, k, v ~ 0.5 N(0, 1), logw =
-        -exp(U(lo, hi)), u ~ 0.3 N(0, 1); logw and u fp32, as in the model."""
-        r, kk, v = (randn((b, s, h, k), dtypes[dt], 0.5) for _ in range(3))
-        logw = -torch.exp(uniform((b, s, h, k), logw_lo, logw_hi))
+        -exp(U(lo, hi)), u ~ 0.3 N(0, 1); logw and u fp32, as in the model.
+        With ``views``, r, k and v are (B, S, H, K) views of one wider
+        projection and logw a view of a wider buffer."""
+        if views:
+            wide = randn((b, s, 3 * h * k + 64), dtypes[dt], 0.5)
+            r, kk, v = (wide[..., i * h * k:(i + 1) * h * k].unflatten(
+                -1, (h, k)) for i in range(3))
+            logw = -torch.exp(uniform((b, s, h * k + 8), logw_lo, logw_hi))
+            logw = logw[..., :h * k].unflatten(-1, (h, k))
+        else:
+            r, kk, v = (randn((b, s, h, k), dtypes[dt], 0.5) for _ in range(3))
+            logw = -torch.exp(uniform((b, s, h, k), logw_lo, logw_hi))
         return r, kk, v, logw, randn((h, k), torch.float32, 0.3)
 
     def bhsk(*ts):
         return [t.permute(0, 2, 1, 3) for t in ts]
 
+    def wkv6_plain_bshk(r, kk, v, logw, u):
+        return wkv.wkv6_plain(*bhsk(r, kk, v, logw), u).permute(0, 2, 1, 3)
+
     log("kernels: WKV6 against its plain version")
     rwkv = get_arch("rwkv6-7b")
     wkv_shape = (PREFILL_BATCH, PREFILL_LEN, rwkv.n_heads, rwkv.rwkv.head_dim)
+    for b, s, h, k in WKV6_EDGE_CASES:
+        args = wkv6_inputs(b, s, h, k, "bfloat16", views=True)
+        compare(f"views b={b} s={s} h={h} k={k} bfloat16", ops.wkv6(*args),
+                wkv6_plain_bshk(*args), "bfloat16", TOL_WKV6)
+    args = wkv6_inputs(1, 64, 2, 64, "bfloat16")
+    shifted = torch.zeros((1, 64, 2, 72), dtype=torch.bfloat16,
+                          device=dev)[..., 1:65]      # base 2 bytes off 16
+    try:
+        ops.wkv6(shifted, *args[1:])
+    except ValueError as err:
+        log(f"  a misaligned bf16 view raises: {err}")
+    else:
+        raise AssertionError("the bf16 WKV6 kernel took a misaligned view")
     for b, s, h, k, dt in WKV6_CASES + [(*wkv_shape, "bfloat16")]:
         r, kk, v, logw, u = wkv6_inputs(b, s, h, k, dt)
         got = ops.wkv6(r, kk, v, logw, u)
-        want = wkv.wkv6_plain(*bhsk(r, kk, v, logw), u).permute(0, 2, 1, 3)
-        wkv_err = compare(f"b={b} s={s} h={h} k={k} {dt}", got, want, dt,
-                          TOL_WKV6)
-        del got, want
+        wkv_err = compare(f"b={b} s={s} h={h} k={k} {dt}", got,
+                          wkv6_plain_bshk(r, kk, v, logw, u), dt, TOL_WKV6)
+        del got
     rh, kh, vh, wh = bhsk(r, kk, v, logw)
     wkv_row = {
         "name": "wkv6", "route": "cuda", "source": "src/repro_torch/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6.py:24",
         "max_abs_err": wkv_err, "tol": TOL_WKV6["bfloat16"][1],
-        "ms": time_ms(lambda: ops.wkv6(r, kk, v, logw, u), 10),
+        "ms": time_ms(lambda: ops.wkv6(r, kk, v, logw, u), 10, per_call=1),
         "plain_ms": time_ms(lambda: wkv.wkv6_plain(rh, kh, vh, wh, u), 3),
         "library_ms": None,     # no single PyTorch call computes WKV6
     }
+    log("  one bf16 WKV6 call: one CUDA kernel (profiler, in its timing)")
     # r, k, v read and y written in bf16, logw read in fp32, u once;
     # 4 K^2 FLOP per token and head (y and the state update)
     n_el = b * s * h * k
@@ -347,12 +379,13 @@ def main() -> int:
         4 * k * k * b * s * h,
         n_el * (4 * r.element_size() + logw.element_size())
         + u.numel() * u.element_size(), dt)
-    r, kk, v, logw, u = wkv6_inputs(1, 512, 2, 64, "float32",
-                                    float(np.log(0.3)), float(np.log(3.0)))
-    compare("strong decay, logw in (-3, -0.3), b=1 s=512 h=2 k=64 float32, "
-            "against the sequential wkv6_ref", ops.wkv6(r, kk, v, logw, u),
-            ref.wkv6_ref(r, kk, v, logw, u), "float32", TOL_WKV6)
-    del r, kk, v, logw, u, rh, kh, vh, wh
+    for dt in ("float32", "bfloat16"):       # the scalar and chunked kernels
+        r, kk, v, logw, u = wkv6_inputs(1, 512, 2, 64, dt,
+                                        float(np.log(0.3)), float(np.log(3.0)))
+        compare(f"strong decay, logw in (-3, -0.3), b=1 s=512 h=2 k=64 {dt}, "
+                f"against the sequential wkv6_ref", ops.wkv6(r, kk, v, logw, u),
+                ref.wkv6_ref(r, kk, v, logw, u), dt, TOL_WKV6)
+    del r, kk, v, logw, u, rh, kh, vh, wh, args, shifted
 
     def ssd_inputs(b, s, h, p, g, n, dt, strong=False):
         """tests/test_kernels.py's draws (dt = softplus(N(0,1) - 1), A =

@@ -84,23 +84,24 @@ def ssd_plain(x, dt, A, Bm, Cm, D):
 
 
 def check_layout(name, t):
-    """Raise ValueError unless the bf16 kernel's 16-byte copies can read or
-    write the (B, H or G, S, P or N) view t in place: a contiguous last dim
-    of a multiple of 8 elements, and a 16-byte aligned base and batch,
-    head and sequence strides (a stride of a dim of size 1 is never used
-    and may be anything)."""
+    """Raise ValueError unless a bf16 chunked kernel's 16-byte copies (the
+    SSD kernel's and the WKV6 kernel's) can read or write the 4-d view t in
+    place, (B, H or G, S, last) with the last dim P, N or K: a contiguous
+    last dim of a multiple of 16 bytes, and a 16-byte aligned base and
+    batch, head and sequence strides (a stride of a dim of size 1 is never
+    used and may be anything)."""
     size = t.element_size()
     if t.stride(3) != 1:
         raise ValueError(f"{name}'s last dim must be contiguous")
     if t.data_ptr() % 16 or (t.shape[3] * size) % 16:
-        raise ValueError(f"{name}: the bf16 SSD kernel needs a 16-byte "
-                         f"aligned base and rows of a multiple of 16 bytes "
-                         f"(last dim {t.shape[3]})")
+        raise ValueError(f"{name}: the bf16 kernel needs a 16-byte aligned "
+                         f"base and rows of a multiple of 16 bytes (last dim "
+                         f"{t.shape[3]})")
     for dim in range(3):
         if t.shape[dim] > 1 and (t.stride(dim) * size) % 16:
             raise ValueError(f"{name}: stride {t.stride(dim)} of dim {dim} "
                              f"is not a multiple of 16 bytes, which the "
-                             f"bf16 SSD kernel needs")
+                             f"bf16 kernel needs")
 
 
 def ssd_bhsp(x, dt, A, Bm, Cm, D):

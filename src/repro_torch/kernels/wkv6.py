@@ -1,27 +1,37 @@
 """RWKV-6 WKV recurrence: the port of ``repro/kernels/rwkv6.py``.
 
 Replaces the Pallas TPU kernel ``_wkv6_kernel`` / ``wkv6_bhsk`` with the
-hand-written CUDA kernel in ``csrc/wkv6.cu`` (sm_90a): one block per
-(b, h) walks the recurrence in time order, each thread holding one column
-of the (K x K) fp32 state in registers.
+hand-written CUDA kernels in ``csrc/wkv6.cu`` (sm_90a), one launch per call.
+bf16 takes the chunked tensor-core kernel: one CTA per (b, h, tile of 64
+value columns) walks chunks of 64 tokens in order, with the two-level
+chunking of gated linear attention (Yang et al., 2023) on ``mma.sync``
+while the next chunk's loads are in flight; the fp32 state is the warps'
+mma accumulator. Its operands are fp16 with fp32 accumulation: bf16 operands
+missed the bf16 tolerance at S = 2048 in a CPU mirror of the kernel's
+roundings (``tests/test_torch_kernels.py``). fp32 takes the scalar kernel:
+one block per (b, h) walks the recurrence token by token, each thread
+holding one column of the (K x K) fp32 state in registers.
 
 Bound on the H100: bytes. At the rwkv6-7b prefill shape (B=4, S=2048, H=64,
 K=64; bf16 r, k, v and y, fp32 logw) it must move 403 MB, about 0.120 ms at
 3.35 TB/s; its 8.6e9 FLOP take about 9 us at the bf16 tensor-core rate.
-The kernel reads each input once through the model's (B, S, H, K) strides
-and keeps the state on chip, but its sequential walk over tokens keeps it
-well above that bound for now.
+Both kernels read each input once through the model's (B, S, H, K) strides
+and keep the state on chip. The bf16 kernel's 16-byte copies need K a
+multiple of 8 and 16-byte aligned bases and strides (``check_layout``);
+other layouts raise.
 
 The Pallas kernel (and the reference model's ``wkv6_chunked``) factor the
 intra-chunk decay into two exponentials with half-shifted exponents, which
 overflow fp32 once a chunk's summed log-decay passes about -176, and asserts
-``S % chunk == 0``. Here no exponent is ever positive: the kernel applies
-one ``exp(logw_t) <= 1`` per token, and the plain version forms each
+``S % chunk == 0``. Here no exponent is ever positive: the scalar kernel
+applies one ``exp(logw_t) <= 1`` per token, the chunked kernel splits each
+decay at a token between the pair (so both factors are ``2^x`` of a
+non-positive difference, clamped at 0), and the plain version forms each
 pairwise decay as ``exp(cum_i - cum_j)`` of a masked, non-positive
-difference. Both take any S >= 1.
+difference. All take any S >= 1.
 
-``wkv6_bhsk`` launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors. ``wkv6_bhsk.launches`` counts kernel launches.
+``wkv6_bhsk`` launches a kernel for CUDA tensors and takes the plain version
+only for CPU tensors. ``wkv6_bhsk.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -30,14 +40,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.mamba2_ssd import check_layout
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_SIGNATURES = {
-    "wkv6_fwd": ([_P] * 6 + [_I] * 5 + [_L] * 15 + [_I, _P], _I),
-}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = ([_P] * 6 + [_I] * 4 + [_L] * 15 + [_I, _P], _I)
+_SIGNATURES = {"wkv6_fwd": _ARGS, "wkv6_chunk_fwd": _ARGS}
+# the scalar kernel for fp32, the chunked tensor-core kernel for bf16
+_ENTRIES = {torch.float32: "wkv6_fwd", torch.bfloat16: "wkv6_chunk_fwd"}
 MAX_HEAD_DIM = 64
 PLAIN_CHUNK = 64     # tokens per chunk of the plain version
 
@@ -97,7 +108,7 @@ wkv6_bhsk.launches = 0
 
 def _launch(r, k, v, logw, u):
     b, h, s, dk = r.shape
-    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+    if r.dtype not in _ENTRIES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise TypeError(f"WKV6 takes float32 or bfloat16 r, k, v of one "
                         f"dtype, got {r.dtype}, {k.dtype}, {v.dtype}")
     if logw.dtype != torch.float32:
@@ -108,14 +119,16 @@ def _launch(r, k, v, logw, u):
         raise ValueError(f"head dim {dk} > {MAX_HEAD_DIM}")
     y = torch.empty_like(r)          # keeps r's layout, e.g. a (B, S, H, K) view
     for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw), ("y", y)):
-        if t.stride(3) != 1:
+        if r.dtype == torch.bfloat16:
+            check_layout(name, t)
+        elif t.stride(3) != 1:
             raise ValueError(f"{name}'s K dim must be contiguous")
     uf = u.float().contiguous()      # (H, K), a few KB
     lib = _build.load("wkv6", _SIGNATURES)
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    rc = lib.wkv6_fwd(
+    rc = getattr(lib, _ENTRIES[r.dtype])(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-        uf.data_ptr(), y.data_ptr(), _DTYPES[r.dtype], b, s, h, dk,
+        uf.data_ptr(), y.data_ptr(), b, s, h, dk,
         *(st for t in (r, k, v, logw, y)
           for st in (t.stride(0), t.stride(2), t.stride(1))),
         r.device.index or 0, stream)

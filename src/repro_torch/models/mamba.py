@@ -24,7 +24,13 @@ from repro_torch.models.blocks import dense_init
 
 
 def init_mamba_layer(cfg: ArchConfig, gen: torch.Generator, lead=()):
-    """Separate z, x, B, C and dt projections, as in the reference."""
+    """Separate z, x, B, C and dt projections, as in the reference.
+
+    The reference draws ``out_proj`` from the key of ``z_proj``
+    (``ks[1]`` twice); both have d x d_inner elements, so its values are
+    z_proj's in the same flat order, scaled by 1/sqrt(d_inner) in place of
+    1/sqrt(d). The port copies that, so its random-init models have the
+    reference's weight statistics."""
     mc = cfg.mamba
     d = cfg.d_model
     di = mc.d_inner(d)
@@ -35,8 +41,9 @@ def init_mamba_layer(cfg: ArchConfig, gen: torch.Generator, lead=()):
     dt = torch.exp(lo + (hi - lo) * torch.rand((*lead, nh), generator=gen,
                                                device=dev))
     a_log = torch.log(torch.linspace(1.0, 16.0, nh, device=dev))
+    z_proj = dense_init(gen, (*lead, d, di))
     return {
-        "z_proj": dense_init(gen, (*lead, d, di)),
+        "z_proj": z_proj,
         "x_proj": dense_init(gen, (*lead, d, di)),
         "B_proj": dense_init(gen, (*lead, d, gn)),
         "C_proj": dense_init(gen, (*lead, d, gn)),
@@ -51,7 +58,7 @@ def init_mamba_layer(cfg: ArchConfig, gen: torch.Generator, lead=()):
         "D": torch.ones((*lead, nh), device=dev),
         "dt_bias": dt + torch.log(-torch.expm1(-dt)),   # inverse softplus
         "gate_norm": torch.ones((*lead, di), device=dev),
-        "out_proj": dense_init(gen, (*lead, di, d)),
+        "out_proj": z_proj.reshape(*lead, di, d) * math.sqrt(d / di),
     }
 
 

@@ -50,6 +50,9 @@ DECODE_EDGE_SHAPES = [(4, 1024, 16, 16, 128), (3, 512, 8, 2, 128),
 # tests/test_kernels.py's shapes, and a length no chunk divides
 WKV6_SHAPES = [(1, 128, 2, 32), (2, 256, 4, 64), (1, 64, 1, 16),
                (1, 601, 2, 64)]
+# the bf16 chunked kernel's edges: S around its 64-token chunk and a ragged
+# tail, K below and at its 64-channel tile
+WKV6_EDGE_CASES = [(s, k) for s in (1, 63, 64, 65, 601) for k in (16, 32, 64)]
 SSD_SHAPES = [(1, 128, 2, 32, 1, 16), (2, 256, 4, 64, 2, 32),
               (1, 64, 2, 16, 1, 8), (1, 601, 4, 64, 1, 64)]
 # the bf16 chunked kernel's edges: S around its 64-token chunk and a ragged
@@ -236,15 +239,73 @@ def test_wkv6_kernel_matches_plain(card, b, s, h, k, dtype):
                                **_recurrence_tol(dtype, 2e-4))
 
 
-def test_wkv6_kernel_strong_decay_matches_sequential_ref(card):
-    """logw in (-3, -0.3): the reference's chunked forms overflow there; the
-    kernel stays finite and matches the sequential oracle."""
-    r, kk, v, logw, u = _wkv6_inputs(11, 1, 512, 2, 64, "float32", card,
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_kernel_strong_decay_matches_sequential_ref(card, dtype):
+    """logw in (-3, -0.3): the reference's chunked forms overflow there.
+    fp32 takes the scalar kernel, bf16 the chunked one, whose every
+    exponent is a non-positive difference clamped at 0; both stay finite
+    and match the sequential oracle on the same inputs."""
+    r, kk, v, logw, u = _wkv6_inputs(11, 1, 512, 2, 64, dtype, card,
                                      (np.log(0.3), np.log(3.0)))
     got = ops.wkv6(r, kk, v, logw, u)
     assert bool(torch.isfinite(got).all())
     np.testing.assert_allclose(_np(got), _np(ref.wkv6_ref(r, kk, v, logw, u)),
-                               rtol=2e-4, atol=2e-4)
+                               **_recurrence_tol(dtype, 2e-4))
+
+
+def _wkv6_model_views(seed, b, s, h, k, card, logw_range=(-7.0, -0.7)):
+    """bf16 r, k and v as strided (B, S, H, K) views of one wider
+    projection, fp32 logw a view of a wider buffer; the draws of
+    _wkv6_inputs."""
+    rng = np.random.default_rng(seed)
+    wide = torch.from_numpy((rng.standard_normal((b, s, 3 * h * k + 64)) * 0.5)
+                            .astype(np.float32)).to(card, torch.bfloat16)
+    r, kk, v = (wide[..., i * h * k:(i + 1) * h * k].unflatten(-1, (h, k))
+                for i in range(3))
+    lw = torch.from_numpy(-np.exp(rng.uniform(*logw_range, (b, s, h * k + 8)))
+                          .astype(np.float32)).to(card)
+    u = torch.from_numpy((rng.standard_normal((h, k)) * 0.3)
+                         .astype(np.float32)).to(card)
+    return r, kk, v, lw[..., :h * k].unflatten(-1, (h, k)), u
+
+
+@pytest.mark.parametrize("s,k", WKV6_EDGE_CASES)
+def test_wkv6_bf16_kernel_edges_on_model_views(card, s, k):
+    r, kk, v, logw, u = _wkv6_model_views(21, 2, s, 4, k, card)
+    before = wkv.wkv6_bhsk.launches
+    got = ops.wkv6(r, kk, v, logw, u)
+    torch.cuda.synchronize()
+    assert wkv.wkv6_bhsk.launches == before + 1
+    assert got.shape == r.shape and got.dtype == torch.bfloat16
+    tr = lambda a: a.permute(0, 2, 1, 3)
+    want = tr(wkv.wkv6_plain(tr(r), tr(kk), tr(v), tr(logw), u))
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+
+
+def test_wkv6_bf16_kernel_refuses_misaligned_views(card):
+    r, kk, v, logw, u = _wkv6_model_views(22, 1, 64, 2, 64, card)
+    shifted = torch.zeros(1, 64, 2, 72, dtype=torch.bfloat16,
+                          device=card)[..., 1:65]   # base 2 bytes off 16
+    ragged = torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16,
+                         device=card)[..., :64]     # 136-byte head stride
+    before = wkv.wkv6_bhsk.launches
+    with pytest.raises(ValueError):
+        ops.wkv6(shifted, kk, v, logw, u)
+    with pytest.raises(ValueError):
+        ops.wkv6(r, kk, ragged, logw, u)
+    assert wkv.wkv6_bhsk.launches == before
+
+
+def test_wkv6_bf16_call_is_one_kernel_launch(card):
+    """Each bf16 call at rwkv6-7b's head width adds one to the counter and
+    enqueues exactly one CUDA kernel."""
+    args = _wkv6_model_views(23, 1, 300, 64, 64, card)
+    ops.wkv6(*args)                             # builds
+    before = wkv.wkv6_bhsk.launches
+    one = _one_kernel_per_call(lambda: ops.wkv6(*args))
+    assert wkv.wkv6_bhsk.launches == before + 5
+    assert one
 
 
 def _ssd_inputs(seed, b, s, h, p, g, n, dtype, card, strong=False):

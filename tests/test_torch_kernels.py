@@ -389,14 +389,153 @@ def test_ssd_bf16_kernel_arithmetic_holds_tolerance(strong):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
 
 
+def _wkv6_chunked_bf16_mirror(r, k, v, logw, u, operand=torch.float16,
+                              chunk=64, sub=16):
+    """The bf16 WKV6 kernel's arithmetic (csrc/wkv6.cu, ``wkv6_chunk_kernel``)
+    in plain torch, rounding to ``operand`` (fp16, as the kernel does) every
+    tensor-core operand the kernel rounds, with fp32 accumulation. Per chunk,
+    cum (log2 units) and its exclusive ce; per 16-token sub-chunk w (b the
+    token before it, e_J the last of sub-chunk J): kt_J = k 2^(cum_e_J -
+    cum); r_off = r 2^(ce - cum_b); y = (r_off 2^cum_b) S_prev +
+    sum_{J<w} ((r_off 2^(cum_b - cum_e_J)) kt_J^T) v_J + A_ww v + (r u k) v,
+    A_ww by levels of 8, 4, 2 and 1 tokens, each a product of r 2^(ce -
+    cum_m) and k 2^(cum_m - cum) for the boundary m of the pair's block,
+    masked, rounded; y rounded once to bf16; S = 2^(cum_e_J - cum_e_J-1) S
+    + kt_J^T v_J for J = 0 .. 3. r, k, v, logw: (B, S, H, K)."""
+    def rnd(t):
+        return t.to(operand).float()
+
+    def exp2(t):
+        return torch.exp2(t.clamp(max=0.0))
+
+    b, s, h, dk = r.shape
+    tr = lambda a: a.float().permute(0, 2, 1, 3)
+    rf, kf, vf = tr(r), tr(k), rnd(tr(v))
+    lw = tr(logw) * 1.4426950408889634
+    bonus_u = u.float()[None, :, None, :]
+    state = torch.zeros(b, h, dk, dk)
+    pos = torch.arange(sub)
+    ys = []
+    for c0 in range(0, s, chunk):
+        rc, kc, vc = (a[:, :, c0:c0 + chunk] for a in (rf, kf, vf))
+        cum = lw[:, :, c0:c0 + chunk].cumsum(2)
+        n = cum.shape[2]
+        ce = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], 2)
+        subs = [slice(j0, min(j0 + sub, n)) for j0 in range(0, n, sub)]
+        ends = [cum[:, :, sl.stop - 1:sl.stop] for sl in subs]
+        kt = [rnd(kc[:, :, sl] * exp2(e - cum[:, :, sl]))
+              for sl, e in zip(subs, ends)]
+        s_prev = rnd(state)
+        for w, sl in enumerate(subs):
+            m = sl.stop - sl.start
+            base = ends[w - 1] if w else torch.zeros_like(cum[:, :, :1])
+            r_off = rc[:, :, sl] * exp2(ce[:, :, sl] - base)
+            y = rnd(r_off * exp2(base)) @ s_prev
+            for J in range(w):
+                d = exp2(base - ends[J]) if J < w - 1 else 1.0
+                a = rnd(rnd(r_off * d) @ kt[J].transpose(-1, -2))
+                y = y + a @ vc[:, :, subs[J]]
+            p = pos[:m]
+            for hs in (8, 4, 2, 1):
+                blk = p & ~(2 * hs - 1)
+                i_side = (p & hs) != 0
+                cm = cum[:, :, sl][:, :, (blk + hs - 1).clamp(max=m - 1)]
+                rl = rnd(torch.where(i_side[:, None],
+                                     rc[:, :, sl] * exp2(ce[:, :, sl] - cm),
+                                     torch.zeros(())))
+                kl = rnd(kc[:, :, sl] * exp2(cm - cum[:, :, sl]))
+                keep = i_side[:, None] & ~i_side[None, :] & \
+                    (blk[:, None] == blk[None, :])
+                a = rnd(torch.where(keep, rl @ kl.transpose(-1, -2),
+                                    torch.zeros(())))
+                y = y + a @ vc[:, :, sl]
+            bonus = (rc[:, :, sl] * bonus_u * kc[:, :, sl]).sum(-1, keepdim=True)
+            ys.append(y + bonus * vc[:, :, sl])
+        prev = torch.zeros_like(cum[:, :, :1])
+        for sl, e, ktj in zip(subs, ends, kt):
+            state = exp2(e - prev).transpose(-1, -2) * state + \
+                ktj.transpose(-1, -2) @ vc[:, :, sl]
+            prev = e
+    return torch.cat(ys, 2).permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _card_wkv6_draws(seed, b, s, h, k, strong):
+    """test_torch_card.py's draws: r, k, v ~ 0.5 N(0, 1) rounded to bf16;
+    logw = -exp(U(-7, -0.7)), or with ``strong`` -exp(U(log 0.3, log 3)),
+    logw in (-3, -0.3); u ~ 0.3 N(0, 1); logw and u fp32."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+    r, kk, v = (t(rng.standard_normal((b, s, h, k)) * 0.5, torch.bfloat16)
+                for _ in range(3))
+    lo, hi = (np.log(0.3), np.log(3.0)) if strong else (-7.0, -0.7)
+    logw = t(-np.exp(rng.uniform(lo, hi, (b, s, h, k))))
+    return r, kk, v, logw, t(rng.standard_normal((h, k)) * 0.3)
+
+
+def _wkv6_plain_bshk(r, k, v, logw, u):
+    tr = lambda a: a.permute(0, 2, 1, 3)
+    return tr(wkv.wkv6_plain(tr(r), tr(k), tr(v), tr(logw), u))
+
+
+@pytest.mark.parametrize("strong", [False, True])
+def test_wkv6_bf16_kernel_arithmetic_holds_tolerance(strong):
+    """The bf16 kernel rounds its decayed operands (r and k times decays,
+    the attention blocks, the state copy, v) to fp16 for the tensor cores.
+    Mirrored on the CPU at S = 2048, H = 2, K = 64, it stays within the bf16
+    tolerance (2e-2) of the fp32 plain version on the same bf16 inputs, at
+    the card tests' normal and strong decays, and is finite everywhere."""
+    args = _card_wkv6_draws(12, 1, 2048, 2, 64, strong)
+    got = _wkv6_chunked_bf16_mirror(*args)
+    assert bool(torch.isfinite(got.float()).all())
+    np.testing.assert_allclose(_np(got), _np(_wkv6_plain_bshk(*args)),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_wkv6_bf16_operands_would_miss_tolerance():
+    """Why the kernel's operands are fp16: the same arithmetic with bf16
+    operands leaves the bf16 tolerance at S = 2048 (every rounding site
+    adds its share, and the state's slow channels carry them for hundreds
+    of tokens), while the decomposition itself is exact in fp32."""
+    args = _card_wkv6_draws(12, 1, 2048, 2, 64, False)
+    want = _wkv6_plain_bshk(*args)
+    got = _wkv6_chunked_bf16_mirror(*args, operand=torch.bfloat16)
+    assert not np.allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+    exact = _wkv6_chunked_bf16_mirror(*args, operand=torch.float32)
+    np.testing.assert_allclose(_np(exact), _np(want), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("s,k", [(1, 64), (63, 16), (65, 32), (601, 64)])
+def test_wkv6_bf16_mirror_matches_sequential_ref(s, k):
+    """The mirror's decomposition (sub-chunks, levels, a short last chunk,
+    K below 64) against the sequential oracle at strong decay: with fp32
+    operands within 1e-2 (its output is still rounded to bf16), and with
+    the kernel's fp16 operands within the bf16 tolerance."""
+    args = _card_wkv6_draws(13, 2, s, 2, k, True)
+    want = ref.wkv6_ref(*args)
+    got = _wkv6_chunked_bf16_mirror(*args, operand=torch.float32)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=1e-2)
+    got = _wkv6_chunked_bf16_mirror(*args)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+
+
 def test_ssd_bf16_layout_checks():
-    """What the bf16 SSD kernel's 16-byte copies accept, on CPU tensors."""
+    """What the bf16 SSD and WKV6 kernels' 16-byte copies accept, on CPU
+    tensors (WKV6 takes the same check)."""
+    assert wkv.check_layout is ssd.check_layout
     bf = torch.bfloat16
     x = torch.zeros(2, 64, 4, 64, dtype=bf)
     ssd.check_layout("x", x.permute(0, 2, 1, 3))             # the model's view
     bc = torch.zeros(2, 64, 2 * 64, dtype=bf)                 # B and C halves
     for half in (bc[..., :64], bc[..., 64:]):
         ssd.check_layout("B", half.unflatten(-1, (1, 64)).permute(0, 2, 1, 3))
+    rkv = torch.zeros(2, 64, 3 * 4 * 16 + 64, dtype=bf)       # WKV6 r, k, v
+    for i in range(3):
+        view = rkv[..., i * 64:(i + 1) * 64].unflatten(-1, (4, 16))
+        ssd.check_layout("r", view.permute(0, 2, 1, 3))
+    ssd.check_layout("logw", torch.zeros(2, 64, 4, 16).permute(0, 2, 1, 3))
     ssd.check_layout("x", torch.zeros(1, 1, 1, 8, dtype=bf)
                      .as_strided((1, 1, 1, 8), (3, 5, 7, 1)))  # size-1 dims
     bad = [torch.zeros(1, 64, 2, 72, dtype=bf)[..., 1:65],     # base + 2 bytes

@@ -316,6 +316,26 @@ def test_rwkv_shift_lora_init_scale_follows_reference():
         assert not tm[key].any(), key
 
 
+def test_mamba_out_proj_init_reuses_z_proj_key():
+    """The reference's init_mamba_layer draws out_proj from z_proj's key
+    (ks[1] twice): out_proj holds z_proj's values in the same flat order,
+    scaled by 1/sqrt(d_inner) in place of 1/sqrt(d). The port copies that
+    (ROADMAP C, quirk), in every stacked layer."""
+    cfg = port_arch("zamba2-7b").reduced()
+    d, di = cfg.d_model, cfg.mamba.d_inner(cfg.d_model)
+    jax_layers = JM.init_params(get_arch("zamba2-7b").reduced(),
+                                jax.random.PRNGKey(0))["layers"]
+    port_layers = M.init_params(cfg, 0, device="cpu")["layers"]
+    for group in ("inner", "trailing"):
+        for m in (jax_layers[group]["m"], port_layers[group]["m"]):
+            z, o = _np(m["z_proj"]), _np(m["out_proj"])
+            assert o.shape == (*z.shape[:-2], di, d)
+            np.testing.assert_allclose(o.reshape(z.shape) * np.sqrt(di / d),
+                                       z, rtol=1e-6, atol=1e-6)
+    out = port_layers["inner"]["m"]["out_proj"]
+    assert abs(out.std().item() * di ** 0.5 - 1) < 0.1
+
+
 # ---------------------------------------------------------------------------
 # RWKV-6 and Mamba-2 sub-blocks
 # ---------------------------------------------------------------------------
