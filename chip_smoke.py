@@ -45,6 +45,18 @@ without printing a result:
    zeroed before each slice and must show each kernel of the model launched
    once per layer that runs it, per prefill call or per decode tick, and
    the other kernels not at all. A profiled window of decode ticks follows.
+6. train (the dense training path, fp32 params, AdamW; it runs no kernel,
+   since no kernel has a backward): olmo-1b at full width and 2 layers,
+   fp32, one train step on the card against the same step on the CPU at
+   2x256 (full attention) and 1x1536 (chunked attention); olmo-1b and
+   qwen3-8b at full width and 2 layers on the card, remat none, full and
+   dots giving equal gradients, and the chunked attention's gradients
+   against the full attention's at S = 1536; then olmo-1b at full width
+   and depth, bf16 compute, remat "full", 4x2048 tokens of the synthetic
+   pipeline: 6 steps (the first a warm-up), one step with 2 microbatches
+   and one profiled step, with the launch counters at 0 throughout. It
+   prints ms per step, tokens/s, peak memory and train_mfu, and the
+   profiled step broken down into matmuls, attention einsums and the rest.
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -122,6 +134,8 @@ SSD_CASES = [  # (b, s, h, p, g, n, dtype of x, B, C); dt, A and D are fp32
       for p, n in ((16, 8), (32, 64), (128, 64), (128, 8))],
 ]
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
+# the full-width train phase: olmo-1b, 4x2048 tokens a step, timed steps
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 6
 # per model: slots, cache buffer, requests, new tokens each, prompt lengths
 SLICES = {"olmo-1b": (4, 1024, 8, 32, (128, 512)),
           "rwkv6-7b": (4, 512, 8, 16, (64, 256)),
@@ -541,6 +555,10 @@ def main() -> int:
         del params
         free()
 
+    # -- 6. training -----------------------------------------------------------
+    check_train_parity(card, dev)
+    log("train: " + json.dumps(run_train(card, counters, dev)))
+
     for row in rows:
         row["launches"] = totals[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -712,6 +730,236 @@ def check_parity(cfg, params, prompts, pre16, served16, card) -> dict:
     return out
 
 
+def _worst(got, want) -> float:
+    """Largest over leaves of max|got - want| / max|want| (nested dicts)."""
+    from repro_torch import convert
+    got, want = convert.flatten(got), convert.flatten(want)
+    return max(((got[k].float().cpu() - w.float().cpu()).abs().max()
+                / w.abs().max().clamp_min(1e-30)).item()
+               for k, w in want.items() if w.numel())
+
+
+def check_train_parity(card, dev) -> None:
+    """The train path at full width and reduced depth, fp32 (TF32 off).
+
+    olmo-1b with 2 layers: one train step (its gradients, then the AdamW
+    update) on the card against the same step on the CPU, at 2x256 (full
+    attention) and 1x1536 (chunked). Gates: loss within 1e-4 relative;
+    every gradient leaf within 1e-4 of its largest entry (fp32 sums in other
+    orders); params within 2 lr (AdamW's first step is about lr * sign(g),
+    and a gradient near zero may change sign). Then, on the card alone,
+    olmo-1b and qwen3-8b with 2 layers at 1x1536: remat none, full and dots
+    give gradients within 1e-6 of each leaf's largest entry, and the
+    chunked attention's output and gradients (q, k, v before the GQA
+    expansion) match the full attention's within 1e-4 of their largest
+    entry at S = 1536."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as T
+    from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                             leaves)
+
+    tc = T.TrainConfig(remat="full", compute_dtype="float32")
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    cfg = dataclasses.replace(get_arch("olmo-1b"), n_layers=2)
+    init = M.init_params(cfg, 0, device="cpu")
+    log(f"train: {cfg.name} at full width, 2 layers, fp32: one step on the "
+        f"card against the CPU [{card}]")
+    for b, s in ((2, 256), (1, 1536)):
+        batch = TokenPipeline(DataConfig(vocab_size=64, seq_len=s,
+                                         global_batch=b), cfg).batch_at(0)
+        out = []
+        for where in (torch.device("cpu"), dev):
+            params = _to(init, where)
+            t0 = time.perf_counter()
+            loss, _, grads = T.make_grad_fn(cfg, tc, device=where)(
+                params, {k: torch.as_tensor(v, device=where)
+                         for k, v in batch.items()})
+            adamw_update(oc, params, grads, T.make_opt_state(params, tc))
+            loss = float(loss)
+            out.append((loss, grads, params, time.perf_counter() - t0))
+        (cl, cg, cp, cs), (gl, gg, gp, gs) = out
+        loss_err, grad_err = abs(gl - cl) / abs(cl), _worst(gg, cg)
+        param_err = max((a.cpu() - b).abs().max().item()
+                        for a, b in zip(leaves(gp), leaves(cp)) if b.numel())
+        log(f"  {b}x{s}: loss {gl:.6f} (CPU {cl:.6f}, rel err {loss_err:.2e},"
+            f" gate 1e-4), grads worst {grad_err:.2e} of the leaf max (gate "
+            f"1e-4), params max_abs_err {param_err:.2e} (gate {2 * oc.lr:g}); "
+            f"CPU {cs:.1f} s")
+        if not (loss_err <= 1e-4 and grad_err <= 1e-4
+                and param_err <= 2 * oc.lr):
+            raise AssertionError(f"train step {b}x{s}: card and CPU disagree")
+        del out, gg, cg, gp, cp
+
+    rng = np.random.default_rng(5)
+    for arch in ("olmo-1b", "qwen3-8b"):
+        cfg = dataclasses.replace(get_arch(arch), n_layers=2)
+        params = M.init_params(cfg, 0, device=dev)
+        batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 1536)),
+                                    device=dev) for k in ("tokens", "labels")}
+        want = None
+        for remat in ("none", "full", "dots"):
+            grads = T.make_grad_fn(cfg, dataclasses.replace(tc, remat=remat),
+                                   device=dev)(params, batch)[2]
+            if want is None:
+                want = grads
+                continue
+            err = _worst(grads, want)
+            log(f"  {arch}, 2 layers, 1x1536: remat {remat} against none, "
+                f"grads worst {err:.2e} of the leaf max (gate 1e-6)")
+            if not err <= 1e-6:
+                raise AssertionError(f"{arch}: remat {remat} changes grads")
+        del params, grads, want
+        h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        gen = torch.Generator(device=dev).manual_seed(6)
+        q, k, v = (torch.randn((1, 1536, n, d), generator=gen, device=dev)
+                   .requires_grad_() for n in (h, kv, kv))
+        ct = torch.randn((1, 1536, h, d), generator=gen, device=dev)
+        res = []
+        for attn in (B.chunked_causal_attention, B.full_causal_attention):
+            o = attn(q, B._gqa_expand(k, h), B._gqa_expand(v, h))
+            res.append({"o": o.detach(), **dict(zip("qkv", torch.autograd.grad(
+                o, (q, k, v), ct)))})
+        err = _worst(*res)
+        log(f"  {arch} heads {h}:{kv} of {d}, S = 1536: chunked against full "
+            f"attention, output and grads worst {err:.2e} of the max (gate "
+            "1e-4)")
+        if not err <= 1e-4:
+            raise AssertionError(f"{arch}: chunked and full attention differ")
+        del q, k, v, ct, res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_train(card, counters, dev) -> dict:
+    """olmo-1b at full width and depth: fp32 params, bf16 compute, remat
+    "full", AdamW (lr 1e-3, warmup 2), 4x2048 tokens a step from the
+    synthetic pipeline (data vocabulary 64). Six steps, the first a warm-up,
+    then one step with 2 microbatches, with the launch counters zeroed
+    before and read after: no kernel may launch (flash and decode attention
+    have no backward). Gates: every loss finite; the first within 0.5 of a
+    random model's, ln V plus half the logits' variance (V = 50304, and the
+    tied head's logits have variance d * 0.02² = 0.82 under the
+    non-parametric final norm); the last below the first. Then one profiled
+    step, broken down by the ops that launched its kernels: ``aten::mm``
+    (the weight matmuls and the head), ``aten::bmm`` (the attention
+    einsums) and the rest (elementwise work, reductions, copies), and one
+    AdamW update profiled alone."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as T
+    from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                             leaves)
+
+    cfg = get_arch("olmo-1b")
+    b, s, steps = TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS
+    tc = T.TrainConfig(remat="full")
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    params = M.init_params(cfg, 0, device=dev)
+    opt = T.make_opt_state(params, tc)
+    pipe = TokenPipeline(DataConfig(vocab_size=64, seq_len=s, global_batch=b,
+                                    markov_temp=2.5), cfg)
+    batches = [pipe.batch_at(i) for i in range(steps + 2)]
+    n_params = sum(p.numel() for p in leaves(params))
+    h, d = cfg.n_heads, cfg.resolved_head_dim
+    # 6 N per token, and causal attention: QK^T and PV over half the
+    # (query, key) pairs, forward and backward
+    flops = 6 * n_params * b * s + 6 * cfg.n_layers * b * h * s * s * d
+    log(f"train: {cfg.name} {cfg.n_layers} layers, {n_params} params, "
+        f"{b}x{s} tokens a step, bf16 compute, remat full [{card}]")
+
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = T.make_train_step(cfg, tc, oc, device=dev)
+    step_mb2 = T.make_train_step(cfg, dataclasses.replace(tc, microbatches=2),
+                                 oc, device=dev)
+    losses, secs = [], []
+    for i in range(steps + 1):
+        t0 = time.perf_counter()
+        params, opt, metrics = (step_mb2 if i == steps else step)(
+            params, opt, batches[i])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        log(f"  step {i}{' (2 microbatches)' if i == steps else ''}: loss "
+            f"{losses[-1]:.4f}, grad_norm {float(metrics['grad_norm']):.4f}, "
+            f"{1e3 * secs[-1]:.1f} ms")
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    first_want = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not abs(losses[0] - first_want) <= 0.5:
+        raise AssertionError(f"first loss {losses[0]:.4f} is not within 0.5 "
+                             f"of a random model's {first_want:.4f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"the train path launched kernels: {launches}")
+
+    step_s = sorted(secs[1:steps])[(steps - 1) // 2]
+    numbers = {
+        "arch": cfg.name, "card": card, "params": n_params,
+        "tokens_per_step": b * s, "remat": "full", "compute": "bfloat16",
+        "losses": losses, "first_loss_want": first_want,
+        "ms_per_step": 1e3 * step_s, "ms_per_step_all": [1e3 * x for x in secs],
+        "tokens_per_s": b * s / step_s, "peak_gb": peak / 1e9,
+        "model_flops": flops, "bound_ms": 1e3 * flops / PEAK_FLOPS["bfloat16"],
+        "train_mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+        "launches": launches,
+    }
+    numbers["profile"] = profile_train_step(
+        lambda: step(params, opt, batches[steps + 1]), step_s)
+    # the AdamW update's share of "other": one update alone, profiled
+    grads = T.make_grad_fn(cfg, tc, device=dev)(params, {
+        k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()})[2]
+    numbers["profile"]["adamw_ms"] = profile_train_step(
+        lambda: adamw_update(oc, params, grads, opt), step_s)["device_ms"]
+    return numbers
+
+
+def profile_train_step(fn, wall_s) -> dict:
+    """One call of fn under torch.profiler: device time by the op that
+    launched each kernel (``aten::mm``, ``aten::bmm``, the rest), kernels
+    per step and the kernels that take the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = _kernel_rows(prof, 1)
+    if not kernels:
+        return {"device_ms": "not measured"}
+    total = sum(us for us, _, _ in kernels) / 1e3
+    by_op = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+             if e.key in ("aten::mm", "aten::bmm")}
+    mm, bmm = by_op.get("aten::mm", 0.0), by_op.get("aten::bmm", 0.0)
+    return {
+        "device_ms": total, "wall_ms_unprofiled": 1e3 * wall_s,
+        "device_busy_share": total / (1e3 * wall_s),
+        "matmul_ms": mm, "attention_einsum_ms": bmm,
+        "other_ms": total - mm - bmm,
+        "kernels": sum(n for _, n, _ in kernels),
+        "top": [{"kernel": k[:60], "ms": us / 1e3, "count": n}
+                for us, n, k in kernels[:8]],
+    }
+
+
 def _kernel_rows(prof, calls: int) -> list:
     """(device us, launches, name) per call of each CUDA kernel in a
     profile, largest first. CPU-op rows are left out: their device time is
@@ -850,8 +1098,9 @@ def profile_ticks(cfg, params, card, slots, buf, ticks: int = 20) -> dict:
 
 
 def _to(tree, device):
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    """A copy of a nested dict of tensors on ``device``."""
+    return {k: _to(v, device) if isinstance(v, dict)
+            else v.to(device, copy=True) for k, v in tree.items()}
 
 
 if __name__ == "__main__":

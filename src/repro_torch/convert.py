@@ -7,6 +7,11 @@ arrays (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
 format (``repro/train/checkpoints.py``'s ``_flatten``: dict keys in sorted
 order). The round trip is bit-exact; OLMo's zero-size ``{"_np": (0,)}``
 non-parametric norm sentinel goes through like any other leaf.
+
+The optimizer state (``repro/train/optimizer.py``'s ``init_opt_state`` and
+``train_step.make_opt_state``) crosses the same way: ``mu``, ``nu`` and,
+where present, ``master`` and ``residuals`` are fp32 trees shaped like the
+params, ``step`` a 0-d int32.
 """
 from __future__ import annotations
 
@@ -47,3 +52,31 @@ def to_numpy(tree) -> dict:
         return t.detach().cpu().numpy().copy()
     return {k: to_numpy(v) if isinstance(v, dict) else leaf(v)
             for k, v in tree.items()}
+
+
+OPT_TREES = ("mu", "nu", "master", "residuals")
+
+
+def opt_state_from_numpy(state, device="cpu") -> dict:
+    """numpy optimizer state -> tensors on ``device``."""
+    extra = set(state) - set(OPT_TREES) - {"step"}
+    if extra:
+        raise KeyError(f"unknown optimizer state entries {sorted(extra)}")
+    step = np.asarray(state["step"])
+    if step.dtype != np.int32 or step.shape != ():
+        raise TypeError(f"expected a 0-d int32 step, got {step.dtype} "
+                        f"{step.shape}")
+    out = {k: from_numpy(state[k], device) for k in OPT_TREES if k in state}
+    out["step"] = torch.from_numpy(step.copy()).to(device)
+    return out
+
+
+def opt_state_to_numpy(state) -> dict:
+    """tensor optimizer state -> numpy (fp32 trees, 0-d int32 step)."""
+    step = state["step"]
+    if step.dtype != torch.int32 or step.dim():
+        raise TypeError(f"expected a 0-d int32 step, got {step.dtype} "
+                        f"{tuple(step.shape)}")
+    out = {k: to_numpy(state[k]) for k in OPT_TREES if k in state}
+    out["step"] = step.detach().cpu().numpy().copy()
+    return out

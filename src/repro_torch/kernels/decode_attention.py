@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -97,6 +97,8 @@ def decode_attention_bhd(q, k_cache, v_cache, cache_len):
     Any strides are accepted as long as the head dim is contiguous; on the
     card the caches' base and strides must also be 16-byte aligned
     (``check_cache_layout``)."""
+    refuse_grad("decode attention", "decode_attention_plain", q, k_cache,
+                v_cache)
     b, h, d = q.shape
     if k_cache.shape != v_cache.shape or k_cache.shape[0] != b \
             or k_cache.shape[3] != d or h % k_cache.shape[1] \

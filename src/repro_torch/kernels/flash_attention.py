@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,6 +84,7 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True):
 
     Any strides are accepted as long as the head dim is contiguous; the
     output has q's memory layout."""
+    refuse_grad("flash attention", "flash_attention_plain", q, k, v)
     b, h, s, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (s, d) \
             or h % k.shape[1]:

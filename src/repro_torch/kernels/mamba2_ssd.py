@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -110,6 +110,7 @@ def ssd_bhsp(x, dt, A, Bm, Cm, D):
 
     Any strides are accepted as long as the P and N dims are contiguous;
     the output has x's memory layout."""
+    refuse_grad("the SSD kernel", "ssd_plain", x, dt, A, Bm, Cm, D)
     b, h, s, p_ = x.shape
     if x.dim() != 4 or tuple(dt.shape) != (b, h, s) \
             or tuple(A.shape) != (h,) or tuple(D.shape) != (h,) \

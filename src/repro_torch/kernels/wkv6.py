@@ -39,7 +39,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.mamba2_ssd import check_layout
 
 _P = ctypes.c_void_p
@@ -91,6 +91,7 @@ def wkv6_bhsk(r, k, v, logw, u):
 
     Any strides are accepted as long as the K dim is contiguous; the output
     has r's memory layout."""
+    refuse_grad("the WKV6 kernel", "wkv6_plain", r, k, v, logw, u)
     if not (r.shape == k.shape == v.shape == logw.shape) or r.dim() != 4 \
             or tuple(u.shape) != (r.shape[1], r.shape[3]):
         raise ValueError(f"bad shapes r{tuple(r.shape)} k{tuple(k.shape)} "

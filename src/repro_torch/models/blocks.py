@@ -1,12 +1,13 @@
 """Transformer blocks (the port of ``repro/models/blocks.py``): norms, RoPE,
-GQA attention over the flash and decode kernels, the KV-cache insert and the
-SwiGLU MLP.
+GQA attention (the flash and decode kernels for prefill and decode, the
+reference's XLA attention in plain PyTorch for training), the KV-cache
+insert and the SwiGLU MLP.
 
 Plain functions over dicts of tensors. Params live in fp32 and each block
 casts a weight to the activations' dtype where the reference does
 (``.to(cd)``); weights cast once at load (``model.cast_params``) make that a
-no-op with the same values. MoE, cross-attention and the chunked XLA
-attention are not ported yet.
+no-op with the same values. Training keeps fp32 params and casts per call.
+MoE and cross-attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -120,16 +121,108 @@ def apply_rope(x, cos, sin):
 # ---------------------------------------------------------------------------
 
 
+def _gqa_expand(k, n_heads):
+    """(B, S, KV, D) -> (B, S, H, D), each kv head repeated H / KV times
+    next to itself (kv head j serves query heads j*G .. j*G + G - 1)."""
+    kv = k.shape[2]
+    return k if kv == n_heads else k.repeat_interleave(n_heads // kv, dim=2)
+
+
+def _dot(a, b, out_dtype):
+    """a @ b with the reference's ``preferred_element_type``: for fp32
+    output the operands are widened first, so bf16 products are exact and
+    summed in fp32 (as XLA does); otherwise the product in the operands'
+    dtype is cast to ``out_dtype``."""
+    if out_dtype == torch.float32:
+        return a.float() @ b.float()
+    return (a @ b).to(out_dtype)
+
+
+def chunked_causal_attention(q, k, v, *, chunk: int = 512,
+                             logit_dtype=torch.float32):
+    """Online-softmax causal attention over key chunks (O(S * chunk) live
+    scores). q, k, v: (B, S, H, D), kv already GQA-expanded -> (B, S, H, D)
+    in q's dtype.
+
+    As in the reference: q is scaled in its own dtype, every (q, key-chunk)
+    pair is computed and masked above the diagonal, score blocks are
+    materialised at ``logit_dtype`` and the running max, sum and output
+    stay fp32. The chunk is ``s // max(s // chunk, 1)`` keys, the
+    reference's; where that does not divide S (the reference's reshape
+    fails there) the last chunk is short.
+    """
+    b, s, h, d = q.shape
+    size = s // max(s // chunk, 1)
+    qf = q.transpose(1, 2) * d ** -0.5              # (B, H, S, D)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    q_pos = torch.arange(s, device=q.device)
+    m = torch.full((b, h, s), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, s), device=q.device)
+    o = torch.zeros((b, h, s, d), device=q.device)
+    for start in range(0, s, size):
+        kb, vb = kt[:, :, start:start + size], vt[:, :, start:start + size]
+        sc = _dot(qf, kb.transpose(-1, -2), logit_dtype)
+        k_pos = torch.arange(start, start + kb.shape[2], device=q.device)
+        mask = q_pos[:, None] >= k_pos[None, :]
+        scf = torch.where(mask, sc.float(), float("-inf"))
+        m_new = torch.maximum(m, scf.amax(-1))
+        p = torch.exp(scf - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + _dot(p.to(vb.dtype), vb, torch.float32)
+        m = m_new
+    o = o / l.clamp_min(1e-37)[..., None]
+    return o.transpose(1, 2).to(q.dtype)
+
+
+def full_causal_attention(q, k, v):
+    """O(S²)-memory causal attention, the reference's path at S <= 1024.
+    q, k, v: (B, S, H, D), kv already GQA-expanded. Scores and softmax in
+    fp32; the probabilities are cast to v's dtype before the second
+    product, whose output has v's dtype."""
+    s, d = q.shape[1], q.shape[3]
+    sc = _dot(q.transpose(1, 2), k.permute(0, 2, 3, 1), torch.float32) \
+        * d ** -0.5                                  # (B, H, S, S)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+    return (p.to(v.dtype) @ v.transpose(1, 2)).transpose(1, 2)
+
+
+def train_attention(q, k, v, n_heads: int, attn_impl: str):
+    """Train mode's causal attention, dispatched on ``attn_impl`` as the
+    reference's ``attention_block`` does: "xla" takes full attention at
+    S <= 1024 and the chunked one above; "xla-bf16-logits" takes chunked
+    attention with bf16 score blocks above 1024. Both are plain PyTorch,
+    so autograd differentiates them. The kernels have no backward, in the
+    reference as here, so "pallas" and "pallas-interpret" raise."""
+    if attn_impl in ("pallas", "pallas-interpret"):
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r} cannot train: the attention kernels "
+            "have no backward (nor do the reference's Pallas kernels); use "
+            "'xla' or 'xla-bf16-logits'")
+    if attn_impl not in ("xla", "xla-bf16-logits"):
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    kq, vq = _gqa_expand(k, n_heads), _gqa_expand(v, n_heads)
+    if q.shape[1] <= 1024:
+        return full_causal_attention(q, kq, vq)
+    return chunked_causal_attention(
+        q, kq, vq, logit_dtype=torch.bfloat16
+        if attn_impl == "xla-bf16-logits" else torch.float32)
+
+
 def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
-                    kv_cache=None, cache_len=None):
+                    kv_cache=None, cache_len=None, attn_impl=None):
     """proj -> (qk-norm) -> rope -> attention -> out proj.
 
+    attn_impl: None for prefill and decode, which run the kernels; train
+    mode passes its ``ctx["attn_impl"]`` and takes ``train_attention``,
+    which never reaches a kernel (a kernel's output has no ``grad_fn``).
     kv_cache: None for prefill, where attention is the flash kernel (its
     plain version on the CPU); (k, v) of shape (B, Skv, KV, D) for decode,
     where the new token's k, v are written into the cache in place and
     attention is the decode kernel over ``cache_len + 1`` positions.
-    K and V are never GQA-expanded: the kernels map head h to kv head
-    h // (H / KV). Returns (out, cache).
+    K and V are never GQA-expanded for the kernels: they map head h to kv
+    head h // (H / KV). Returns (out, cache).
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -152,6 +245,8 @@ def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
         cache_insert(kc, k, cache_len)
         cache_insert(vc, v, cache_len)
         o = ops.decode_attention(q, kc.to(cd), vc.to(cd), cache_len + 1)
+    elif attn_impl is not None:          # train, causal
+        o = train_attention(q, k, v, cfg.n_heads, attn_impl)
     else:                                # prefill, causal
         o = ops.flash_attention(q, k, v, causal=True)
     out = o.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(cd)

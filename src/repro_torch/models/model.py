@@ -1,5 +1,5 @@
 """LM wrapper (the port of ``repro/models/model.py``): embedding, block stack,
-tied or untied head, prefill and decode entries."""
+tied or untied head, the next-token loss, prefill and decode entries."""
 from __future__ import annotations
 
 import torch
@@ -47,14 +47,19 @@ def cast_params(params, dtype):
     return out
 
 
-def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *, cache_len=None,
-             compute_dtype=torch.bfloat16, device="cuda") -> dict:
+def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *,
+             attn_impl: str = "xla", remat: str | None = "full",
+             cache_len=None, compute_dtype=torch.bfloat16,
+             device="cuda") -> dict:
     """RoPE table of ``seq_len`` rows (none for an attention-free config)
     and, for decode, the positions ``cache_len[:, None]``. A position past
     the table would read outside it (the reference's ``jnp.take`` gives NaN
-    there), so it raises here."""
+    there), so it raises here. ``attn_impl`` and ``remat`` are read in
+    "train" mode only (``blocks.train_attention``,
+    ``transformer._maybe_remat``); prefill and decode run the kernels."""
     dev = resolve_device(device)
-    ctx = {"mode": mode, "compute_dtype": compute_dtype}
+    ctx = {"mode": mode, "attn_impl": attn_impl, "remat": remat,
+           "compute_dtype": compute_dtype}
     if not cfg.attention_free:
         ctx["rope"] = B.rope_table(seq_len, cfg.resolved_head_dim,
                                    cfg.rope_theta, device=dev)
@@ -78,10 +83,31 @@ def lm_logits(params, x, cfg: ArchConfig):
 
 
 def forward(params, tokens, cfg: ArchConfig, ctx: dict, states=None):
-    """Returns (logits, states)."""
+    """Returns (logits, aux, states). aux is the auxiliary loss, a 0-d fp32
+    zero: no block of the port has one (MoE's load-balancing loss is the
+    reference's only)."""
     x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"])
     x, states = T.apply_stack(params, x, cfg, ctx, states)
-    return lm_logits(params, x, cfg), states
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_logits(params, x, cfg), aux, states
+
+
+def loss_fn(params, batch, cfg: ArchConfig, ctx: dict):
+    """Next-token cross-entropy. batch: tokens (B, S) and labels (B, S),
+    labels[t] the target of position t, -100 (any negative) ignored. Logits
+    in fp32; the mean is over the valid labels (at least 1). Returns
+    (loss + aux, {"loss", "aux_loss", "ntokens"})."""
+    logits, aux, _ = forward(params, batch["tokens"], cfg, ctx)
+    labels = batch["labels"]
+    logits = logits.float()
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    ntok = valid.sum().clamp_min(1)
+    loss = nll.sum() / ntok
+    return loss + aux, {"loss": loss, "aux_loss": aux, "ntokens": ntok}
 
 
 def prefill(params, tokens, cfg: ArchConfig, ctx: dict):
@@ -97,4 +123,5 @@ def decode_step(params, tokens, states, cache_len, cfg: ArchConfig,
                 ctx: dict):
     """One-token decode. tokens (B, 1); states from init_decode_state,
     updated in place. Returns (logits (B, 1, V), states)."""
-    return forward(params, tokens, cfg, ctx, states)
+    logits, _, states = forward(params, tokens, cfg, ctx, states)
+    return logits, states

@@ -17,11 +17,17 @@ dims. The decode state has the same stacking as the params:
            "trailing": (ssm, conv) with a leading max(trailing, 1) dim}
 Every layer updates its slice of the decode state in place (the reference
 returns new arrays; in place saves a copy of every cache and state per layer
-and tick). The VLM cross-attention block and MoE are not ported.
+and tick). Train mode runs the dense uniform layout only, each layer under
+``ctx["remat"]`` as the reference remats its scan body (one layer). The VLM
+cross-attention block and MoE are not ported.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
@@ -85,7 +91,8 @@ def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
         o, state = B.attention_block(
             p["attn"], h, cfg, rope=ctx.get("rope"),
             positions=ctx.get("positions"), kv_cache=state,
-            cache_len=ctx.get("cache_len"))
+            cache_len=ctx.get("cache_len"),
+            attn_impl=ctx["attn_impl"] if ctx["mode"] == "train" else None)
         x = x + o
         h = B.apply_norm(p["ln2"], x, cfg)
         return x + B.mlp_block(p["mlp"], h), state
@@ -117,7 +124,34 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+# "dots": keep the outputs of the unbatched matmuls (the projections and
+# the MLP, all ``aten.mm``) and recompute the rest, the attention einsums
+# (``aten.bmm``) included: jax's dots_with_no_batch_dims_saveable
+_SAVE_MM = functools.partial(create_selective_checkpoint_contexts,
+                             [torch.ops.aten.mm.default])
+
+
+def _maybe_remat(fn, ctx):
+    """A train-mode layer under ``ctx["remat"]``: fn itself for "none";
+    else fn under ``torch.utils.checkpoint``: "full" saves only its inputs
+    and recomputes the layer in the backward, "dots" saves its ``aten.mm``
+    outputs too."""
+    pol = ctx.get("remat")
+    if pol in (None, "none"):
+        return fn
+    if pol not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {pol!r}")
+    kw = {"context_fn": _SAVE_MM} if pol == "dots" else {}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def _run(block, stacked, n, x, cfg, ctx, states):
+    if ctx["mode"] == "train":
+        fwd = _maybe_remat(
+            lambda p, x: layer_fwd(block, p, x, cfg, ctx)[0], ctx)
+        for i in range(n):
+            x = fwd(_layer(stacked, i), x)
+        return x
     for i in range(n):
         st = None if states is None else _layer(states, i)
         x, _ = layer_fwd(block, _layer(stacked, i), x, cfg, ctx, st)
@@ -129,6 +163,11 @@ def apply_stack(params, x, cfg: ArchConfig, ctx: dict, states=None):
     Returns (x, states)."""
     layout = build_layout(cfg)
     decode = ctx["mode"] == "decode"
+    if ctx["mode"] == "train" and layout.get("block") != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training runs the dense family only; the rwkv and "
+            "hybrid layouts need differentiable ports of the reference's "
+            "wkv6_chunked and ssd_chunked (their kernels have no backward)")
 
     def part(key):
         return states[key] if decode else None

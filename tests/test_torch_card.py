@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -20,6 +21,8 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve import decode as D  # noqa: E402
+from repro_torch.train.optimizer import OptimizerConfig  # noqa: E402
+from repro_torch.train import train_step as T  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -425,6 +428,64 @@ def test_kernels_raise_instead_of_falling_back(card):
     h = torch.zeros(1, 8, 2, device=card)
     with pytest.raises(TypeError):
         ops.mamba2_ssd(q, h, h[0, 0], q, q, h[0, 0])
+
+
+def test_kernel_launches_refuse_grad(card):
+    """Each wrapper refuses CUDA inputs that require grad (its output would
+    have no grad_fn) before it launches anything."""
+    x = torch.randn(1, 2, 64, 64, device=card, requires_grad=True)
+    h = torch.rand(1, 2, 64, device=card)
+    calls = {
+        "flash_attention_plain": (fa.flash_attention_bhsd, (x, x, x)),
+        "decode_attention_plain": (dec.decode_attention_bhd, (
+            x[:, :, 0], x, x, torch.ones(1, dtype=torch.int32, device=card))),
+        "wkv6_plain": (wkv.wkv6_bhsk, (x, x, x, -x.detach().abs(),
+                                       torch.zeros(2, 64, device=card))),
+        "ssd_plain": (ssd.ssd_bhsp, (x, h, -h[0, :, 0], x[:, :1], x[:, :1],
+                                     h[0, :, 0])),
+    }
+    counters = (fa.flash_attention_bhsd, dec.decode_attention_bhd,
+                wkv.wkv6_bhsk, ssd.ssd_bhsp)
+    before = [c.launches for c in counters]
+    for plain, (fn, args) in calls.items():
+        with pytest.raises(RuntimeError, match=plain):
+            fn(*args)
+    assert [c.launches for c in counters] == before
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b"])
+def test_reduced_train_step_on_card_matches_cpu(card, arch):
+    """fp32 loss and gradients of the reduced model on the card against the
+    CPU (GQA and qk-norm with qwen3-8b; S = 1040 takes the chunked
+    attention), then two AdamW steps. The gradients sum the same products
+    in other orders: rtol 1e-4, atol 1e-5. The params may differ by a
+    sign flip of an update of size lr per step, so 4 lr after two."""
+    cfg = get_arch(arch).reduced()
+    tc = T.TrainConfig(remat="full", compute_dtype="float32")
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    rng = np.random.default_rng(4)
+    batches = [{k: rng.integers(0, cfg.vocab_size, (1, 1040)).astype(np.int32)
+                for k in ("tokens", "labels")} for _ in range(2)]
+    runs = []
+    for dev in ("cpu", card):
+        params = _to(M.init_params(cfg, 0, device="cpu"), dev)
+        loss, _, grads = T.make_grad_fn(cfg, tc, device=dev)(
+            params, {k: torch.from_numpy(v).to(dev)
+                     for k, v in batches[0].items()})
+        step = T.make_train_step(cfg, tc, oc, device=dev)
+        opt = T.make_opt_state(params, tc)
+        for b in batches:
+            params, opt, metrics = step(params, opt, b)
+        runs.append((float(loss), grads, params, float(metrics["loss"])))
+    (cl, cg, cp, cm), (gl, gg, gp, gm) = runs
+    assert gl == pytest.approx(cl, rel=1e-5)
+    assert gm == pytest.approx(cm, rel=1e-4)
+    for on_cpu, on_card, tol in ((cg, gg, dict(rtol=1e-4, atol=1e-5)),
+                                 (cp, gp, dict(rtol=0, atol=4e-3))):
+        want, got = convert.flatten(on_cpu), convert.flatten(on_card)
+        for key in want:
+            np.testing.assert_allclose(_np(got[key]), _np(want[key]),
+                                       err_msg=key, **tol)
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b", "rwkv6-7b",

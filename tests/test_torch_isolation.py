@@ -14,7 +14,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.launch import serve as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.serve import decode as D  # noqa: E402
+from repro_torch.train import train_step as TS  # noqa: E402
+from repro_torch.train.optimizer import OptimizerConfig  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -45,7 +48,7 @@ def test_importing_every_module_pulls_in_no_jax_repro_or_triton():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
-    assert int(proc.stdout.split()[0]) >= 19
+    assert int(proc.stdout.split()[0]) >= 32
 
 
 def test_import_needs_no_nvcc(tmp_path):
@@ -84,6 +87,10 @@ ENTRY_POINTS = {
     "launch.serve": lambda: L.serve(
         CFG, M.init_params(CFG, 0, device="cpu"), [[1, 2]], slots=1, buf=8,
         max_new=2),
+    "make_train_step": lambda: TS.make_train_step(
+        CFG, TS.TrainConfig(), OptimizerConfig()),
+    "launch.train": lambda: LT.main(["--arch", CFG.name.removesuffix(
+        "-smoke"), "--steps", "1"]),
 }
 
 

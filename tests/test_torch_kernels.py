@@ -676,6 +676,44 @@ def test_wrappers_check_shapes():
                                  torch.randn(1, 1, 8, 4), torch.tensor([3]))
 
 
+def _refuses_grad(call, inputs, plain):
+    """call(*inputs) raises naming ``plain`` once one input requires grad
+    with grad mode on, and runs under torch.no_grad() or without it."""
+    call(*inputs)
+    with_grad = [t.clone().requires_grad_(t.is_floating_point())
+                 for t in inputs]
+    with pytest.raises(RuntimeError, match=plain):
+        call(*with_grad)
+    with torch.no_grad():
+        call(*with_grad)
+
+
+def test_flash_wrapper_refuses_grad():
+    _refuses_grad(fa.flash_attention_bhsd,
+                  [torch.randn(1, 2, 8, 8) for _ in range(3)],
+                  "flash_attention_plain")
+
+
+def test_decode_wrapper_refuses_grad():
+    _refuses_grad(dec.decode_attention_bhd,
+                  [torch.randn(1, 2, 8), torch.randn(1, 2, 8, 8),
+                   torch.randn(1, 2, 8, 8), torch.tensor([4])],
+                  "decode_attention_plain")
+
+
+def test_wkv6_wrapper_refuses_grad():
+    _refuses_grad(wkv.wkv6_bhsk,
+                  [*(torch.randn(1, 2, 8, 8) for _ in range(3)),
+                   -torch.rand(1, 2, 8, 8), torch.randn(2, 8)], "wkv6_plain")
+
+
+def test_ssd_wrapper_refuses_grad():
+    _refuses_grad(ssd.ssd_bhsp,
+                  [torch.randn(1, 2, 8, 8), torch.rand(1, 2, 8),
+                   -torch.rand(2), torch.randn(1, 1, 8, 4),
+                   torch.randn(1, 1, 8, 4), torch.ones(2)], "ssd_plain")
+
+
 @pytest.mark.parametrize("s,rows,elem", [
     (1024, 64, 2),      # olmo-1b serving: 4 slots x 16 kv heads
     (512, 128, 2),      # zamba2-7b serving: 4 slots x 32 kv heads

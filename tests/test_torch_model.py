@@ -242,7 +242,7 @@ def _forward_pair(arch, dtype):
     ctx = JM.make_ctx(cfg, 12, "train", remat=None, compute_dtype=jd)
     want, _, _ = JM.forward(jp, jnp.asarray(toks), cfg, ctx)
     tctx = M.make_ctx(tcfg, 12, "prefill", compute_dtype=td, device="cpu")
-    got, _ = M.forward(tp, torch.from_numpy(toks), tcfg, tctx)
+    got, _, _ = M.forward(tp, torch.from_numpy(toks), tcfg, tctx)
     assert got.shape == want.shape and got.dtype == td
     return _np(got), _np(want)
 

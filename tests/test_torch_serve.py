@@ -63,7 +63,7 @@ def test_decode_matches_parallel_forward(arch):
     toks = torch.from_numpy(_tokens(1, (b, s), cfg.vocab_size))
     ctx = M.make_ctx(tcfg, s, "prefill", compute_dtype=torch.float32,
                      device=CPU)
-    ref, _ = M.forward(tp, toks, tcfg, ctx)
+    ref, _, _ = M.forward(tp, toks, tcfg, ctx)
     states = T.init_decode_state(tcfg, b, s, dtype=torch.float32)
     cache_len = torch.zeros((b,), dtype=torch.int32)
     outs = []
