@@ -57,6 +57,20 @@ without printing a result:
    and one profiled step, with the launch counters at 0 throughout. It
    prints ms per step, tokens/s, peak memory and train_mfu, and the
    profiled step broken down into matmuls, attention einsums and the rest.
+7. checkpoints (ACAI's training jobs must survive preemption; no kernel
+   launches): olmo-1b as in the train phase, under ``TrainSupervisor``
+   saving a 14.1 GB checkpoint (fp32 params, AdamW's mu and nu) to a data
+   lake under build/ every 2 steps, with a failure injected once at step 3:
+   steps 0 and 1, a save at 2, step 2, the failure, a restore of step 2,
+   steps 2 and 3 again, a save at 4. It raises with less than 32 GB free
+   there, and deletes the lake at the end. Gates: the report (1 restart, 2
+   checkpoints, 5 steps run, final step 4), the lake's latest step and its
+   two checkpoint entries with finite losses, the latest checkpoint
+   restored into a fresh template on the card bit-equal to the live state,
+   step 2's loss after the restore within 1e-6 relative of its loss before,
+   and the launch counters at 0. It prints a ``checkpoint:`` line with the
+   time and rate of each save and restore, ms per step, peak device memory
+   and peak host RSS.
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -65,11 +79,14 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import re
 import subprocess
 import sys
+import threading
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -136,6 +153,9 @@ SSD_CASES = [  # (b, s, h, p, g, n, dtype of x, B, C); dt, A and D are fp32
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 # the full-width train phase: olmo-1b, 4x2048 tokens a step, timed steps
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 6
+# the checkpoint phase: supervised steps, a save every 2, a failure at step
+# 3; the lake needs two checkpoints of 14.1 GB and room
+CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_FAIL_AT, CKPT_MIN_FREE = 4, 2, 3, 32e9
 # per model: slots, cache buffer, requests, new tokens each, prompt lengths
 SLICES = {"olmo-1b": (4, 1024, 8, 32, (128, 512)),
           "rwkv6-7b": (4, 512, 8, 16, (64, 256)),
@@ -558,6 +578,10 @@ def main() -> int:
     # -- 6. training -----------------------------------------------------------
     check_train_parity(card, dev)
     log("train: " + json.dumps(run_train(card, counters, dev)))
+    free()
+
+    # -- 7. checkpoints and supervision ----------------------------------------
+    log("checkpoint: " + json.dumps(run_checkpoints(card, counters, dev)))
 
     for row in rows:
         row["launches"] = totals[row["name"]]
@@ -928,6 +952,217 @@ def run_train(card, counters, dev) -> dict:
     numbers["profile"]["adamw_ms"] = profile_train_step(
         lambda: adamw_update(oc, params, grads, opt), step_s)["device_ms"]
     return numbers
+
+
+def run_checkpoints(card, counters, dev) -> dict:
+    """olmo-1b at full width and depth as in run_train (fp32 params, bf16
+    compute, remat "full", AdamW lr 1e-3 with warmup 2, 4x2048 tokens of
+    the synthetic pipeline) under ``TrainSupervisor``: CKPT_STEPS steps, a
+    checkpoint every CKPT_SAVE_EVERY, a non-external ``JobPreempted`` once
+    at step CKPT_FAIL_AT, in a temporary ``AcaiProject`` under build/ that
+    is deleted at the end. Gates and numbers: see the module docstring."""
+    import math
+    import resource
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.convert import flatten
+    from repro_torch.core.acai import AcaiProject
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as T
+    from repro_torch.train.checkpoints import CheckpointManager
+    from repro_torch.train.fault import JobPreempted, TrainSupervisor
+    from repro_torch.train.optimizer import OptimizerConfig, leaves, tree_map
+
+    cfg = get_arch("olmo-1b")
+    tc = T.TrainConfig(remat="full")
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    step = T.make_train_step(cfg, tc, oc, device=dev)
+    pipe = TokenPipeline(DataConfig(vocab_size=64, seq_len=TRAIN_LEN,
+                                    global_batch=TRAIN_BATCH,
+                                    markov_temp=2.5), cfg)
+    times = {"save_ms": [], "restore_ms": []}
+
+    class TimedCheckpoints(CheckpointManager):
+        def save(self, *args, **kw):
+            t0 = time.perf_counter()
+            ref = super().save(*args, **kw)
+            times["save_ms"].append(1e3 * (time.perf_counter() - t0))
+            log(f"  save {ref}: {times['save_ms'][-1]:.1f} ms")
+            return ref
+
+        def restore(self, *args, **kw):
+            t0 = time.perf_counter()
+            out = super().restore(*args, **kw)
+            torch.cuda.synchronize()
+            times["restore_ms"].append(1e3 * (time.perf_counter() - t0))
+            log(f"  restore of step {out[1]}: "
+                f"{times['restore_ms'][-1]:.1f} ms")
+            return out
+
+    losses, stamps, current = [], [], {}
+
+    def batch_fn(i):
+        current["step"] = i
+        return pipe.batch_at(i)
+
+    def step_fn(params, opt, batch):
+        params, opt, metrics = step(params, opt, batch)
+        losses.append((current["step"], float(metrics["loss"])))
+        log(f"  step {current['step']}: loss {losses[-1][1]:.6f}")
+        return params, opt, metrics
+
+    def clock():
+        stamps.append(time.perf_counter())
+        return stamps[-1]
+
+    pending = {CKPT_FAIL_AT}
+
+    def failure_hook(i):
+        if i in pending:
+            pending.discard(i)
+            log(f"  injected failure at step {i}")
+            raise JobPreempted(f"injected failure at step {i}")
+
+    rss = RssSampler()
+    params = M.init_params(cfg, 0, device=dev)
+    # a one-item list, popped into the run: nothing here keeps the state,
+    # so the restore frees the state it replaces
+    start = [{"params": params, "opt": T.make_opt_state(params, tc),
+              "step": 0}]
+    n_params = sum(p.numel() for p in leaves(params))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in leaves(start[0]["opt"]) + leaves(params))
+    del params
+    workdir = Path(tempfile.mkdtemp(prefix="acai-ckpt-", dir=ROOT / "build"))
+    rss.start()
+    try:
+        disk_free = shutil.disk_usage(workdir).free
+        log(f"checkpoints: {cfg.name}, {n_params} params, {state_bytes} "
+            f"bytes of state; {disk_free / 1e9:.2f} GB free under "
+            f"{workdir}, {2 * state_bytes / 1e9:.2f} GB planned (2 saves) "
+            f"[{card}]")
+        if disk_free < CKPT_MIN_FREE:
+            raise AssertionError(f"{disk_free / 1e9:.2f} GB free under "
+                                 f"{workdir}; the phase needs "
+                                 f"{CKPT_MIN_FREE / 1e9:.0f} GB")
+        project = AcaiProject("smoke", workdir)
+        data_ref = pipe.register(project, "olmo-1b-data", creator="trainer")
+        ckpt = TimedCheckpoints(project, "olmo-1b-run")
+        sup = TrainSupervisor(ckpt, save_every=CKPT_SAVE_EVERY)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, report = sup.run(step_fn, start.pop(), CKPT_STEPS,
+                                batch_fn, failure_hook=failure_hook,
+                                time_fn=clock)
+        launches = {k: c.launches for k, c in counters.items()}
+        want = {"restarts": 1, "checkpoints": 2, "steps_run": 5,
+                "final_step": CKPT_STEPS}
+        got = {k: getattr(report, k) for k in want}
+        if got != want:
+            raise AssertionError(f"supervisor report {got}, wanted {want}")
+        if ckpt.latest_step() != CKPT_STEPS:
+            raise AssertionError(f"latest step {ckpt.latest_step()}")
+        metas = [project.metadata.get(a) for a in project.metadata.find(
+            kind="checkpoint", run="olmo-1b-run")]
+        if sorted(m["step"] for m in metas) != [2, 4] or not all(
+                math.isfinite(m["loss"]) for m in metas):
+            raise AssertionError(f"checkpoint metadata {metas}")
+
+        live = {"params": state["params"], "opt": state["opt"]}
+        restored, at = ckpt.restore(tree_map(torch.empty_like, live))
+        live_flat = flatten(live)
+        mismatched = [key for key, leaf in flatten(restored).items()
+                      if not _bits_equal(leaf, live_flat[key])]
+        if at != CKPT_STEPS or mismatched:
+            raise AssertionError(f"restored step {at}; leaves that differ "
+                                 f"from the live state: {mismatched}")
+        del restored
+        before, after = [loss for i, loss in losses if i == CKPT_FAIL_AT - 1]
+        log(f"  step {CKPT_FAIL_AT - 1}'s loss {before!r} before the restore, "
+            f"{after!r} after: bit-equal {before == after}")
+        if not abs(after - before) <= 1e-6 * abs(before):
+            raise AssertionError(f"step {CKPT_FAIL_AT - 1}'s loss {after} "
+                                 f"after the restore, {before} before")
+        if any(launches.values()):
+            raise AssertionError(f"the checkpoint phase launched kernels: "
+                                 f"{launches}")
+        npz = project.storage.resolve("/olmo-1b-run-ckpt/state.npz").size
+        step_ms = [1e3 * (b - a) for a, b in zip(stamps[::2], stamps[1::2])]
+        peak_host = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        # the host's hash rates, which bound a save and a restore: SHA-256
+        # names the blob, CRC-32 guards each zip entry (written and read)
+        sample = live["params"]["embed"].cpu().numpy()
+        t0 = time.perf_counter()
+        hashlib.sha256(sample).digest()
+        t1 = time.perf_counter()
+        zlib.crc32(sample)
+        t2 = time.perf_counter()
+        sample_bytes = sample.nbytes
+        del sample
+        return {
+            "arch": cfg.name, "card": card, "params": n_params,
+            "tokens_per_step": TRAIN_BATCH * TRAIN_LEN, "data": data_ref,
+            "report": dataclasses.asdict(report), "losses": losses,
+            "step2_loss_before": before, "step2_loss_after": after,
+            "step2_bit_equal": before == after,
+            "restored_bit_equal": True, "launches": launches,
+            "state_bytes": state_bytes, "npz_bytes": npz,
+            "disk_free_gb": disk_free / 1e9,
+            "save_ms": times["save_ms"], "restore_ms": times["restore_ms"],
+            "save_gb_per_s": [npz / ms / 1e6 for ms in times["save_ms"]],
+            "restore_gb_per_s": [npz / ms / 1e6
+                                 for ms in times["restore_ms"]],
+            "ms_per_step": step_ms, "straggler_steps": report.straggler_steps,
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_host_rss_gb": peak_host / 1e9,
+            "phase_host_rss_gb": {"start": rss.first / 1e9,
+                                  "peak": rss.peak / 1e9},
+            "host_sha256_gb_per_s": sample_bytes / (t1 - t0) / 1e9,
+            "host_crc32_gb_per_s": sample_bytes / (t2 - t1) / 1e9,
+        }
+    finally:
+        rss.stop.set()
+        rss.join(timeout=10)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+class RssSampler(threading.Thread):
+    """The process's resident set size (``VmRSS``) every 50 ms while it
+    runs: the first reading and the largest."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.stop = threading.Event()
+        self.first = self.peak = self.read()
+
+    @staticmethod
+    def read() -> int:
+        for line in Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+        raise RuntimeError("no VmRSS line in /proc/self/status")
+
+    def run(self):
+        while not self.stop.wait(0.05):
+            self.peak = max(self.peak, self.read())
+
+
+def _bits_equal(a, b) -> bool:
+    """Same dtype, shape and bits (NaN and -0.0 included)."""
+    import torch
+    if (a.dtype, a.shape) != (b.dtype, b.shape):
+        return False
+    if not a.numel():
+        return True
+    return torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8))
 
 
 def profile_train_step(fn, wall_s) -> dict:

@@ -13,6 +13,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.core.acai import AcaiProject  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
@@ -21,7 +22,9 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve import decode as D  # noqa: E402
-from repro_torch.train.optimizer import OptimizerConfig  # noqa: E402
+from repro_torch.train.checkpoints import CheckpointManager  # noqa: E402
+from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
+                                         adamw_update, tree_map)
 from repro_torch.train import train_step as T  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -505,6 +508,46 @@ def test_reduced_model_on_card_matches_cpu(card, arch):
                                       device=dev).cpu().numpy())
     np.testing.assert_allclose(outs[2], outs[0], rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(outs[3], outs[1])
+
+
+def test_checkpoint_round_trip_on_card(card, tmp_path):
+    """CUDA leaves (fp32, bf16, the int32 step, a zero-size sentinel) saved
+    and restored: they come back on the card in their dtypes, bit-equal,
+    in memory of their own, and an in-place AdamW step on the restored
+    state leaves the live state as it was."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = {"w": torch.randn(64, 32, generator=gen, device=card),
+              "b": torch.randn(32, generator=gen, device=card).bfloat16(),
+              "norm": {"_np": torch.zeros(0, device=card)}}
+
+    def moments():
+        return {"w": torch.randn(64, 32, generator=gen, device=card),
+                "b": torch.randn(32, generator=gen, device=card),
+                "norm": {"_np": torch.zeros(0, device=card)}}
+
+    opt = {"mu": moments(), "nu": moments(),
+           "step": torch.tensor(3, dtype=torch.int32, device=card)}
+    opt["nu"] = tree_map(torch.abs, opt["nu"])
+    live = {"params": params, "opt": opt}
+    ckpt = CheckpointManager(AcaiProject("p", tmp_path), "run")
+    ckpt.save(3, params, opt, extra={"loss": 1.0})
+    state, step = ckpt.restore(live)
+    assert step == 3
+    got, want = convert.flatten(state), convert.flatten(live)
+    assert list(got) == list(want)
+    for key, w in want.items():
+        g = got[key]
+        assert (g.device, g.dtype, g.shape) == (w.device, w.dtype, w.shape)
+        assert g.numel() == 0 or g.data_ptr() != w.data_ptr(), key
+        if g.numel():
+            assert torch.equal(g.reshape(-1).view(torch.uint8),
+                               w.reshape(-1).view(torch.uint8)), key
+    before = {k: v.clone() for k, v in want.items()}
+    adamw_update(OptimizerConfig(lr=0.1, warmup_steps=0), state["params"],
+                 tree_map(torch.ones_like, state["params"]), state["opt"])
+    assert int(state["opt"]["step"]) == 4
+    for key, w in want.items():
+        assert torch.equal(w, before[key]), key
 
 
 def _to(tree, device):

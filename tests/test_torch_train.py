@@ -652,12 +652,13 @@ def test_opt_state_bridge_refuses_bad_entries():
         convert.opt_state_from_numpy({**state, "moment3": {}})
 
 
-def test_launch_train_main_on_cpu(capsys):
+def test_launch_train_main_on_cpu(capsys, tmp_path):
     losses = LT.main(["--device", "cpu", "--steps", "3", "--seq-len", "16",
-                      "--global-batch", "4"])
+                      "--global-batch", "4", "--workdir", str(tmp_path)])
     assert len(losses) == 3 and all(np.isfinite(losses))
     out = capsys.readouterr().out
-    assert "step 2: loss" in out and "done: olmo-1b-smoke on cpu" in out
+    assert "step 2: loss" in out and "olmo-1b-smoke on cpu: loss" in out
+    assert out.strip().splitlines()[-1] == "done: 3 steps, 1 ckpts, latest=3"
 
 
 def test_launch_train_refuses_mesh():
