@@ -71,6 +71,37 @@ without printing a result:
    and the launch counters at 0. It prints a ``checkpoint:`` line with the
    time and rate of each save and restore, ms per step, peak device memory
    and peak host RSS.
+8. the platform (the paper's workflow as jobs through the port's
+   ``AcaiPlatform`` with ``runner="thread"`` and one worker, so that jobs
+   run one at a time on an engine thread), at olmo-1b's full width and
+   depth in a data lake under build/ that it deletes at the end (it raises
+   with less than 12 GB free there), as one pipeline: a data job that
+   uploads the data description and makes fileset ``TrainData``; two
+   training jobs after it (lr 3e-3 and 1e-4, 8 steps each as in the train
+   phase), each saving its params
+   (4.7 GB) with its job's provenance and printing its final loss as
+   ``[[acai:final_loss=...]]``; then an eval job after both, which
+   restores the run the metadata's ``find_min("final_loss")`` names, casts
+   it to bf16, prefills each of phase 5's 8 olmo-1b requests (flash
+   attention) and serves them (decode attention), printing its tokens/s.
+   Gates: all four jobs FINISHED and one at a time; ``find_min`` names the
+   job with the smaller final loss; both checkpoints lead back to
+   ``TrainData:1``; the restored params' SHA-256 equals the saved ones';
+   each train job's engine runtime at least the sum of its synchronized
+   steps (a consistency check: a train job syncs after each step and its
+   save copies to the host, so it leaves no work queued, and this gate
+   would hold without the runner's wait for the card; the evidence for
+   that wait is ``tests/test_torch_card.py::
+   test_thread_runner_runtime_covers_queued_device_work``), and no kernel
+   launched by them or the data job; the eval job's
+   launches exactly 16 flash per prefill call and 16 decode per tick;
+   device memory after
+   each job (at its terminal event, after the runner's commit) within
+   0.5 GB of its value when the job started. It prints an ``engine:`` line
+   with each job's state, engine runtime beside its own step or serve
+   time, save and restore seconds, device memory before, at peak and
+   after, launches, and the eval job's tokens/s. The eval job's launches
+   count in the kernel table's main-path launches.
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -156,6 +187,11 @@ TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 6
 # the checkpoint phase: supervised steps, a save every 2, a failure at step
 # 3; the lake needs two checkpoints of 14.1 GB and room
 CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_FAIL_AT, CKPT_MIN_FREE = 4, 2, 3, 32e9
+# the platform phase: two training jobs (one per learning rate) of this
+# many steps, the free disk it needs under build/ (two 4.7 GB saves), and
+# how far device memory may stay above its value before a job
+PLATFORM_LRS, PLATFORM_STEPS, PLATFORM_MIN_FREE = (3e-3, 1e-4), 8, 12e9
+MEMORY_RETURN_BYTES = 0.5e9
 # per model: slots, cache buffer, requests, new tokens each, prompt lengths
 SLICES = {"olmo-1b": (4, 1024, 8, 32, (128, 512)),
           "rwkv6-7b": (4, 512, 8, 16, (64, 256)),
@@ -582,6 +618,13 @@ def main() -> int:
 
     # -- 7. checkpoints and supervision ----------------------------------------
     log("checkpoint: " + json.dumps(run_checkpoints(card, counters, dev)))
+    free()
+
+    # -- 8. the platform on the card -------------------------------------------
+    engine = run_platform(card, counters, dev)
+    for name, n in engine["launches"].items():
+        totals[name] += n
+    log("engine: " + json.dumps(engine))
 
     for row in rows:
         row["launches"] = totals[row["name"]]
@@ -1130,6 +1173,309 @@ def run_checkpoints(card, counters, dev) -> dict:
     finally:
         rss.stop.set()
         rss.join(timeout=10)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def run_platform(card, counters, dev) -> dict:
+    """The paper's workflow as jobs through the port's ``AcaiPlatform``
+    (``runner="thread"``, one worker, so the two full-width training jobs
+    run one at a time and do not time each other), in a lake under build/
+    that is deleted at the end: a pipeline of a data job, which uploads
+    the data description and makes fileset ``TrainData``, two olmo-1b
+    training jobs after it at full
+    width and depth (lr 3e-3 and 1e-4, PLATFORM_STEPS steps of 4x2048
+    tokens, bf16 compute, remat "full", warmup 2), each saving its params
+    with its job's provenance and printing ``[[acai:final_loss=...]]``;
+    then an eval job after both that restores the run ``find_min`` names,
+    casts it to bf16, prefills each request's prompt (flash attention) and
+    serves phase 5's olmo-1b workload (decode attention), printing its
+    tokens/s. Gates and numbers: see the module docstring."""
+    import hashlib
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.convert import flatten
+    from repro_torch.core.acai import AcaiPlatform
+    from repro_torch.core.engine.events import (TOPIC_CONTAINER_STATUS,
+                                                TOPIC_JOB_PROGRESS)
+    from repro_torch.core.engine.lifecycle import TERMINAL_STATUS_VALUES
+    from repro_torch.core.engine.registry import JobSpec
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import serve as L
+    from repro_torch.models import model as M
+    from repro_torch.serve import decode as D
+    from repro_torch.train import train_step as T
+    from repro_torch.train.checkpoints import CheckpointManager
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    cfg = get_arch("olmo-1b")
+    tc = T.TrainConfig(remat="full")
+    slots, buf, requests, max_new, prompt_lens = SLICES["olmo-1b"]
+    per_call, per_tick = launches_per_call(cfg)
+    pipe = TokenPipeline(DataConfig(vocab_size=64, seq_len=TRAIN_LEN,
+                                    global_batch=TRAIN_BATCH,
+                                    markov_temp=2.5), cfg)
+    batches = [pipe.batch_at(i) for i in range(PLATFORM_STEPS)]
+
+    def digest(params) -> str:
+        """SHA-256 over every leaf's key, dtype, shape and bytes, in key
+        order."""
+        h = hashlib.sha256()
+        for key, leaf in sorted(flatten(params).items()):
+            h.update(f"{key} {leaf.dtype} {tuple(leaf.shape)}".encode())
+            if leaf.numel():
+                h.update(leaf.detach().contiguous().cpu().reshape(-1)
+                         .view(torch.uint8).numpy())
+        return h.hexdigest()
+
+    def launched():
+        return {k: c.launches for k, c in counters.items()}
+
+    # the engine's own events, stamped with the host clock and the card's
+    # memory: a job starts at its "running" progress event and ends at
+    # its terminal status, which its worker publishes after the runner's
+    # wait for the card and the commit of its outputs
+    marks = {}
+
+    def memory():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def on_progress(msg):
+        if msg.get("stage") == "running":
+            before = memory()
+            torch.cuda.reset_peak_memory_stats()
+            marks[msg["job_id"]] = {"start": time.perf_counter(),
+                                    "before": before,
+                                    "launches_before": launched()}
+
+    def on_status(msg):
+        mark = marks.get(msg["job_id"])
+        if msg.get("status") in TERMINAL_STATUS_VALUES and mark is not None:
+            mark.update(end=time.perf_counter(), after=memory(),
+                        peak=torch.cuda.max_memory_allocated(),
+                        launches={k: n - mark["launches_before"][k]
+                                  for k, n in launched().items()})
+
+    workdir = Path(tempfile.mkdtemp(prefix="acai-platform-",
+                                    dir=ROOT / "build"))
+    eng = None
+    try:
+        disk_free = shutil.disk_usage(workdir).free
+        log(f"platform: {cfg.name} through AcaiPlatform(runner='thread', "
+            f"max_workers=1), lake under {workdir} with "
+            f"{disk_free / 1e9:.2f} GB free [{card}]")
+        if disk_free < PLATFORM_MIN_FREE:
+            raise AssertionError(f"{disk_free / 1e9:.2f} GB free under "
+                                 f"{workdir}; the phase needs "
+                                 f"{PLATFORM_MIN_FREE / 1e9:.0f} GB")
+        plat = AcaiPlatform(workdir, runner="thread", max_workers=1)
+        admin = plat.create_project(plat.admin_token, "smoke")
+        proj = plat.project(admin)
+        eng = plat.engine(admin)
+        eng.bus.subscribe(TOPIC_JOB_PROGRESS, on_progress)
+        eng.bus.subscribe(TOPIC_CONTAINER_STATUS, on_status)
+
+        def data_job(workdir, job):
+            print(proj.upload(
+                "/data/dataset.json",
+                json.dumps(dataclasses.asdict(pipe.cfg)).encode(),
+                creator=job.spec.user))
+            print(proj.create_file_set("TrainData", ["/data/dataset.json"],
+                                       creator=job.spec.user))
+
+        def train_job(workdir, job):
+            lr = job.spec.args["lr"]
+            step = T.make_train_step(cfg, tc, OptimizerConfig(
+                lr=lr, warmup_steps=2, total_steps=100), device=dev)
+            params = M.init_params(cfg, 0, device=dev)
+            opt = T.make_opt_state(params, tc)
+            losses, step_s = [], []
+            for i, batch in enumerate(batches):
+                t0 = time.perf_counter()
+                params, opt, metrics = step(params, opt, batch)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(metrics["loss"]))
+                print(f"  step {i}: loss {losses[-1]:.4f}, "
+                      f"{1e3 * step_s[-1]:.1f} ms")
+            del opt
+            t0 = time.perf_counter()
+            ref = CheckpointManager(proj, f"run-lr{lr}").save(
+                PLATFORM_STEPS, params, extra={"final_loss": losses[-1]},
+                job_id=job.job_id, input_fileset="TrainData")
+            save_s = time.perf_counter() - t0
+            print(f"[[acai:final_loss={losses[-1]}]]")
+            return {"losses": losses, "step_s": step_s, "save_s": save_s,
+                    "checkpoint": ref, "params_sha256": digest(params)}
+
+        def eval_job(workdir, job):
+            best = proj.metadata.find_min("final_loss", kind="job")
+            trained = eng.registry.get(best)
+            run = f"run-lr{trained.spec.args['lr']}"
+            t0 = time.perf_counter()
+            state, at = CheckpointManager(proj, run).restore(
+                {"params": M.init_params(cfg, 0, device=dev)})
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            bit_equal = digest(state["params"]) == \
+                trained.outputs["params_sha256"]
+            params = M.cast_params(state["params"], torch.bfloat16)
+            del state
+            rng = np.random.default_rng(0)
+            prompts = [rng.integers(0, cfg.vocab_size, rng.integers(
+                prompt_lens[0], prompt_lens[1] + 1)).tolist()
+                for _ in range(requests)]
+            before = launched()
+            prefill = D.make_prefill_step(cfg, device=dev)
+            pre = [prefill(params, {"tokens": torch.tensor([p])})[0]
+                   .float().cpu() for p in prompts]
+            res = L.serve(cfg, params, prompts, slots=slots, buf=buf,
+                          max_new=max_new, device=dev)
+            launches = {k: n - before[k] for k, n in launched().items()}
+            tokens_per_s = requests * max_new / res.seconds
+            ok = all(bool(torch.isfinite(t).all())
+                     for t in pre + res.first_logits) and all(
+                len(o) == max_new and 0 <= min(o) and
+                max(o) < cfg.vocab_size for o in res.outputs)
+            print(f"[[acai:tokens_per_s={tokens_per_s},ticks={res.ticks}]]")
+            return {"best": best, "run": run, "restored_step": at,
+                    "restore_s": restore_s, "bit_equal": bit_equal,
+                    "serve_s": res.seconds, "ticks": res.ticks,
+                    "tokens_per_s": tokens_per_s, "outputs_ok": ok,
+                    "launches": launches, "prefill_calls": len(prompts)}
+
+        sweep = plat.pipeline(admin, "sweep")
+        data = sweep.stage(JobSpec(name="data", project="", user="",
+                                   fn=data_job))
+        runs = [sweep.stage(JobSpec(
+            name=f"train-lr{lr}", project="", user="", fn=train_job,
+            input_fileset="TrainData", args={"lr": lr},
+            resources={"vcpu": 8, "mem_mb": 8192}), after=data)
+            for lr in PLATFORM_LRS]
+        sweep.stage(JobSpec(name="eval", project="", user="", fn=eval_job,
+                            resources={"vcpu": 8, "mem_mb": 8192}),
+                    after=runs)
+        for c in counters.values():
+            c.launches = 0
+        handles = sweep.run()
+        states = sweep.wait(timeout=1200)
+        # the handles resolve at the engine's monitor; this phase's own
+        # handlers on the same events have run once the workers are idle
+        eng.scheduler.run_to_completion()
+        launches = launched()
+        # what stays after the jobs: torch keeps a cuBLAS workspace per
+        # (handle, stream), and each thread has its own handle
+        retained = memory()
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        after_clear = memory()
+        jobs = [h.job for h in handles]
+        for job, state in zip(jobs, states):
+            if state.value != "FINISHED":
+                raise AssertionError(f"{job.job_id} ({job.spec.name}) ended "
+                                     f"{state.value}: {job.error}")
+        data_j, *trains, ev = jobs
+        out = ev.outputs
+
+        # gates
+        spans = sorted((marks[j.job_id]["start"], marks[j.job_id]["end"])
+                       for j in jobs)
+        one_at_a_time = all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+        log(f"  the {len(jobs)} jobs ran one at a time: {one_at_a_time}")
+        if not one_at_a_time:
+            raise AssertionError(f"jobs overlapped: {spans}")
+        losses = {j.job_id: j.outputs["losses"][-1] for j in trains}
+        if not all(math.isfinite(x) for j in trains
+                   for x in j.outputs["losses"]):
+            raise AssertionError(f"non-finite training loss: {losses}")
+        if out["best"] != min(losses, key=losses.get):
+            raise AssertionError(f"find_min named {out['best']}, final "
+                                 f"losses {losses}")
+        for j in trains:
+            back = proj.provenance.backward(
+                f"run-lr{j.spec.args['lr']}-ckpt:1")
+            if not any(src == "TrainData:1" for src, _ in back):
+                raise AssertionError(f"{j.job_id}'s checkpoint does not "
+                                     f"lead back to TrainData:1: {back}")
+            # consistency only: the job returns with nothing queued (see
+            # the module docstring), so this holds with or without the
+            # runner's device wait
+            if not j.runtime >= sum(j.outputs["step_s"]):
+                raise AssertionError(
+                    f"{j.job_id}: engine runtime {j.runtime} s < its "
+                    f"synchronized steps' {sum(j.outputs['step_s'])} s")
+        for j in (data_j, *trains):
+            if any(marks[j.job_id]["launches"].values()):
+                raise AssertionError(f"{j.job_id} launched kernels: "
+                                     f"{marks[j.job_id]['launches']}")
+        if not (out["bit_equal"] and out["restored_step"] == PLATFORM_STEPS):
+            raise AssertionError(f"restore of {out['run']}: step "
+                                 f"{out['restored_step']}, bit-equal "
+                                 f"{out['bit_equal']}")
+        if not out["outputs_ok"]:
+            raise AssertionError("the eval job's logits or outputs are "
+                                 "non-finite or out of range")
+        want = {k: out["prefill_calls"] * per_call.get(k, 0)
+                + out["ticks"] * per_tick.get(k, 0) for k in counters}
+        if out["launches"] != want or launches != want or \
+                marks[ev.job_id]["launches"] != want:
+            raise AssertionError(f"eval launches {out['launches']} (phase "
+                                 f"{launches}), expected {want}")
+        for j in jobs:
+            m = marks[j.job_id]
+            log(f"  {j.job_id} {j.spec.name}: device memory "
+                f"{m['before'] / 1e9:.3f} GB before, {m['peak'] / 1e9:.3f} "
+                f"GB peak, {m['after'] / 1e9:.3f} GB after")
+            if not m["after"] - m["before"] <= MEMORY_RETURN_BYTES:
+                raise AssertionError(
+                    f"{j.job_id} left {(m['after'] - m['before']) / 1e9:.3f}"
+                    f" GB on the card")
+
+        def row(j):
+            m = marks[j.job_id]
+            own = sum(j.outputs["step_s"]) if "step_s" in j.outputs \
+                else j.outputs.get("serve_s")
+            return {"name": j.spec.name, "state": j.state.value,
+                    "runtime_s": j.runtime, "own_s": own,
+                    "save_s": j.outputs.get("save_s"),
+                    "restore_s": j.outputs.get("restore_s"),
+                    "cpu_pricing_cost": j.cost,
+                    "before_gb": m["before"] / 1e9,
+                    "peak_gb": m["peak"] / 1e9, "after_gb": m["after"] / 1e9,
+                    "launches": m["launches"]}
+
+        numbers = {
+            "arch": cfg.name, "card": card, "runner": "thread",
+            "max_workers": 1, "one_at_a_time": one_at_a_time,
+            "jobs": {j.job_id: row(j) for j in jobs},
+            "final_losses": losses, "best": out["best"],
+            "best_lr": eng.registry.get(out["best"]).spec.args["lr"],
+            "step_ms": {j.job_id: [1e3 * x for x in j.outputs["step_s"]]
+                        for j in trains},
+            "restored_bit_equal": out["bit_equal"],
+            "eval_ticks": out["ticks"], "eval_serve_s": out["serve_s"],
+            "eval_tokens_per_s": out["tokens_per_s"],
+            "eval_metadata_tokens_per_s":
+                proj.metadata.get(ev.job_id)["tokens_per_s"],
+            "launches": launches, "retained_gb": retained / 1e9,
+            "retained_gb_after_clearing_cublas_workspaces":
+                after_clear / 1e9 if clear is not None else None,
+        }
+        log(f"  best run {out['run']} ({out['best']}); the eval job served "
+            f"{requests} requests in {out['ticks']} ticks, "
+            f"{out['tokens_per_s']:.2f} tokens/s")
+        return numbers
+    finally:
+        if eng is not None:
+            eng.launcher.shutdown()
         shutil.rmtree(workdir, ignore_errors=True)
 
 

@@ -5,6 +5,9 @@ without a card:
 
     python -m pytest -m cuda tests/test_torch_card.py
 """
+import threading
+import time
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -13,7 +16,9 @@ import numpy as np  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_arch  # noqa: E402
-from repro_torch.core.acai import AcaiProject  # noqa: E402
+from repro_torch.core.acai import AcaiEngine, AcaiProject  # noqa: E402
+from repro_torch.core.engine.registry import JobSpec  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
@@ -553,3 +558,82 @@ def test_checkpoint_round_trip_on_card(card, tmp_path):
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+def _spin_ms(cycles):
+    """The device time of one ``torch.cuda._sleep(cycles)``, from events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(cycles)            # warm-up
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def test_thread_runner_runtime_covers_queued_device_work(card, tmp_path):
+    """A job on a worker thread enqueues a spin and returns without a
+    sync: its engine runtime and bill still cover the spin, because the
+    runner waits for the card before it reads the end time."""
+    cycles = 200_000_000
+    spin_ms = _spin_ms(cycles)
+    assert spin_ms > 20
+    eng = AcaiEngine(runner="thread", max_workers=1, workroot=str(tmp_path))
+    seen = {}
+
+    def job_fn(workdir, job):
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        seen["thread"] = threading.current_thread().name
+        seen["enqueue_ms"] = 1e3 * (time.perf_counter() - t0)
+
+    h = eng.submit(JobSpec(name="spin", project="p", user="u", fn=job_fn,
+                           resources={"vcpu": 1, "mem_mb": 512}))
+    assert h.wait(timeout=120).value == "FINISHED", h.job.error
+    job = h.job
+    assert seen["thread"].startswith("acai-agent")
+    assert seen["enqueue_ms"] < spin_ms / 2
+    assert 1e3 * job.runtime >= spin_ms
+    assert job.cost > 0
+    eng.launcher.shutdown()
+
+
+def test_kernels_launch_from_an_agent_thread(card, tmp_path):
+    """The flash and decode kernels' first load in this process (and their
+    build, when the library is missing) and their launches happen on an
+    engine worker thread; the results match the plain versions and the
+    launch counters move by one each."""
+    for name in ("flash_attention", "decode_attention"):
+        _build._libs.pop(name, None)
+    q, k, v = _randn(11, [(2, 256, 4, 64), (2, 256, 2, 64), (2, 256, 2, 64)],
+                     "bfloat16", card)
+    qd, kc, vc = _randn(12, [(2, 1, 4, 64), (2, 512, 2, 64), (2, 512, 2, 64)],
+                        "bfloat16", card)
+    lens = torch.tensor([100, 512], dtype=torch.int32, device=card)
+    before = (fa.flash_attention_bhsd.launches,
+              dec.decode_attention_bhd.launches)
+    eng = AcaiEngine(runner="thread", max_workers=1, workroot=str(tmp_path))
+
+    def job_fn(workdir, job):
+        got = {"flash": ops.flash_attention(q, k, v, causal=True),
+               "decode": ops.decode_attention(qd, kc, vc, lens)}
+        print(f"[[acai:thread={threading.current_thread().name}]]")
+        return {name: t.float().cpu() for name, t in got.items()}
+
+    h = eng.submit(JobSpec(name="kernels", project="p", user="u",
+                           fn=job_fn))
+    out = h.result(timeout=600)
+    assert "acai-agent" in out["log"]
+    assert (fa.flash_attention_bhsd.launches,
+            dec.decode_attention_bhd.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert set(_build._libs) >= {"flash_attention", "decode_attention"}
+    want = fa.flash_attention_plain(*(t.permute(0, 2, 1, 3) for t in (q, k, v)),
+                                    causal=True).permute(0, 2, 1, 3)
+    np.testing.assert_allclose(out["flash"].numpy(), _np(want),
+                               **_tol("bfloat16"))
+    want = dec.decode_attention_plain(qd[:, 0], kc.permute(0, 2, 1, 3),
+                                      vc.permute(0, 2, 1, 3), lens)
+    np.testing.assert_allclose(out["decode"][:, 0].numpy(), _np(want),
+                               **_tol("bfloat16"))
+    eng.launcher.shutdown()

@@ -338,20 +338,29 @@ def test_supervisor_restart_and_stragglers_match_reference(tmp_path):
     assert int(tstate["opt"]["step"]) == int(jstate["opt"]["step"]) == 20
 
 
+def _steady_clock():
+    # every step takes 0.01 s, so no step is a straggler
+    return iter(np.ones(200).cumsum() * 0.01)
+
+
 def test_restart_without_a_checkpoint_keeps_the_trained_state(tmp_path):
     """The reference's quirk, kept: a failure before the first save
     restarts at step 0 from the live, already updated state (its AdamW
-    counter goes on), not from the initial state."""
-    runs = {pkg: _quadratic(pkg, tmp_path / pkg, {2}, 4, 5)
+    counter goes on), not from the initial state. Both packages run on a
+    steady fake clock: on the real clock a loaded machine can make one
+    package's watchdog flag a straggler and not the other's."""
+    runs = {pkg: _quadratic(pkg, tmp_path / pkg, {2}, 4, 5, _steady_clock())
             for pkg in ("repro", "repro_torch")}
     (jstate, jrep), (tstate, trep) = runs["repro"], runs["repro_torch"]
+    assert jrep.straggler_steps == trep.straggler_steps == []
     assert dataclasses.asdict(trep) == dataclasses.asdict(jrep)
     assert (trep.steps_run, trep.restarts, trep.checkpoints,
             trep.final_step) == (6, 1, 1, 4)
     assert int(tstate["opt"]["step"]) == int(jstate["opt"]["step"]) == 6
     np.testing.assert_allclose(tstate["params"]["w"].numpy(),
                                np.asarray(jstate["params"]["w"]), rtol=1e-6)
-    clean, _ = _quadratic("repro_torch", tmp_path / "clean", (), 4, 5)
+    clean, _ = _quadratic("repro_torch", tmp_path / "clean", (), 4, 5,
+                          _steady_clock())
     assert not torch.equal(clean["params"]["w"], tstate["params"]["w"])
 
 

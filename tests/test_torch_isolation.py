@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.examples import quickstart as Q  # noqa: E402
 from repro_torch.launch import serve as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
@@ -93,6 +94,8 @@ ENTRY_POINTS = {
     "make_train_step": lambda: TS.make_train_step(
         CFG, TS.TrainConfig(), OptimizerConfig()),
     "launch.train": lambda: LT.main(["--arch", CFG.name.removesuffix(
+        "-smoke"), "--steps", "1"]),
+    "examples.quickstart": lambda: Q.main(["--arch", CFG.name.removesuffix(
         "-smoke"), "--steps", "1"]),
 }
 
