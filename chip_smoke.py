@@ -57,6 +57,20 @@ without printing a result:
    and one profiled step, with the launch counters at 0 throughout. It
    prints ms per step, tokens/s, peak memory and train_mfu, and the
    profiled step broken down into matmuls, attention einsums and the rest.
+   Then the recurrent families (their train mode runs the differentiable
+   scans ``wkv6_chunked`` and ``ssd_chunked``, no kernel), their
+   zero-init leaves seeded: rwkv6-7b at full width and 1 layer and
+   zamba2-7b at full width and 7 layers (one period and one trailing
+   layer), fp32, one train step on the card against the CPU at 2x200, and
+   remat none, full and dots giving equal gradients on the card at
+   1x1536; then rwkv6-7b at 8 of its 32 layers and zamba2-7b at 21 of its
+   81 (3 periods and 3 trailing layers), each at full width, bf16 compute,
+   remat "full", 4x2048 tokens: 6 steps (the first a warm-up) and one
+   profiled step, freed before the next, with the launch counters at 0.
+   Each prints a ``train:`` line like olmo-1b's, its profiled step split
+   into ``aten::mm``, the scan (the ops under the scan's record_function,
+   its forward and remat recompute, and the backward nodes of those ops),
+   ``aten::bmm`` and the rest.
 7. checkpoints (ACAI's training jobs must survive preemption; no kernel
    launches): olmo-1b as in the train phase, under ``TrainSupervisor``
    saving a 14.1 GB checkpoint (fp32 params, AdamW's mu and nu) to a data
@@ -184,6 +198,15 @@ SSD_CASES = [  # (b, s, h, p, g, n, dtype of x, B, C); dt, A and D are fp32
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 # the full-width train phase: olmo-1b, 4x2048 tokens a step, timed steps
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 6
+# the recurrent families: layers at full width (fp32 params, grads and
+# AdamW moments take 16 bytes a param, 36.7 and 29.4 GB), layers of the
+# fp32 parity step, its gradient gate (of each leaf's largest entry), and
+# the scan's record_function; the train steps' peak may not pass
+# TRAIN_PEAK_BYTES (zamba2-7b at 27 layers, 35.7 GB, peaked at 73.9 GB on
+# an H100: its shared block's sites keep their activations outside remat)
+TRAIN_RECURRENT = {"rwkv6-7b": (8, 1, 2e-4, "wkv6_chunked"),
+                   "zamba2-7b": (21, 7, 1e-4, "ssd_chunked")}
+TRAIN_PEAK_BYTES = 70e9
 # the checkpoint phase: supervised steps, a save every 2, a failure at step
 # 3; the lake needs two checkpoints of 14.1 GB and room
 CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_FAIL_AT, CKPT_MIN_FREE = 4, 2, 3, 32e9
@@ -615,6 +638,12 @@ def main() -> int:
     check_train_parity(card, dev)
     log("train: " + json.dumps(run_train(card, counters, dev)))
     free()
+    check_recurrent_train_parity(card, dev)
+    free()
+    for arch in TRAIN_RECURRENT:
+        log("train: " + json.dumps(run_train_recurrent(card, counters, dev,
+                                                       arch)))
+        free()
 
     # -- 7. checkpoints and supervision ----------------------------------------
     log("checkpoint: " + json.dumps(run_checkpoints(card, counters, dev)))
@@ -644,8 +673,9 @@ def _enliven_rwkv(cfg, params, gen) -> None:
     """Give the leaves the reference initialises to zero (bonus u, the
     shift and decay LoRAs' second factors) small seeded values, and the
     decay base RWKV-6's own initial spread over channels n and layers l,
-    -6 + 5 (n / (D - 1)) ** (0.7 + 1.3 l / (L - 1)), so that u and the
-    data-dependent decay take part in the run."""
+    -6 + 5 (n / (D - 1)) ** (0.7 + 1.3 l / (L - 1)) (l / (L - 1) = 0 for
+    one layer), so that u and the data-dependent decay take part in the
+    run."""
     import torch
     tm = params["layers"]["tm"]
     for key, scale in (("bonus_u", 0.1), ("shift_lora_b", 0.01),
@@ -654,8 +684,22 @@ def _enliven_rwkv(cfg, params, gen) -> None:
                                       device=gen.device)
     d, n_l = cfg.d_model, cfg.n_layers
     ch = torch.arange(d, device=gen.device) / (d - 1)
-    layer = torch.arange(n_l, device=gen.device)[:, None] / (n_l - 1)
+    layer = torch.arange(n_l, device=gen.device)[:, None] / max(n_l - 1, 1)
     tm["decay_base"] = -6.0 + 5.0 * ch[None, :] ** (0.7 + 1.3 * layer)
+
+
+def _enliven(cfg, params, gen) -> None:
+    """Seed every leaf the reference initialises to zero: RWKV's as
+    _enliven_rwkv does, the hybrid's Mamba-2 conv biases (0.1 N(0, 1))."""
+    import torch
+    if cfg.family == "ssm":
+        _enliven_rwkv(cfg, params, gen)
+        return
+    for part in ("inner", "trailing"):
+        m = params["layers"][part]["m"]
+        for key in ("conv_b_x", "conv_b_BC"):
+            m[key] = 0.1 * torch.randn(m[key].shape, generator=gen,
+                                       device=gen.device)
 
 
 def launches_per_call(cfg) -> tuple[dict, dict]:
@@ -869,19 +913,8 @@ def check_train_parity(card, dev) -> None:
         params = M.init_params(cfg, 0, device=dev)
         batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 1536)),
                                     device=dev) for k in ("tokens", "labels")}
-        want = None
-        for remat in ("none", "full", "dots"):
-            grads = T.make_grad_fn(cfg, dataclasses.replace(tc, remat=remat),
-                                   device=dev)(params, batch)[2]
-            if want is None:
-                want = grads
-                continue
-            err = _worst(grads, want)
-            log(f"  {arch}, 2 layers, 1x1536: remat {remat} against none, "
-                f"grads worst {err:.2e} of the leaf max (gate 1e-6)")
-            if not err <= 1e-6:
-                raise AssertionError(f"{arch}: remat {remat} changes grads")
-        del params, grads, want
+        check_remat(cfg, params, batch, tc, dev)
+        del params
         h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         gen = torch.Generator(device=dev).manual_seed(6)
         q, k, v = (torch.randn((1, 1536, n, d), generator=gen, device=dev)
@@ -938,10 +971,7 @@ def run_train(card, counters, dev) -> dict:
                                     markov_temp=2.5), cfg)
     batches = [pipe.batch_at(i) for i in range(steps + 2)]
     n_params = sum(p.numel() for p in leaves(params))
-    h, d = cfg.n_heads, cfg.resolved_head_dim
-    # 6 N per token, and causal attention: QK^T and PV over half the
-    # (query, key) pairs, forward and backward
-    flops = 6 * n_params * b * s + 6 * cfg.n_layers * b * h * s * s * d
+    flops = train_flops(cfg, params, b, s)
     log(f"train: {cfg.name} {cfg.n_layers} layers, {n_params} params, "
         f"{b}x{s} tokens a step, bf16 compute, remat full [{card}]")
 
@@ -995,6 +1025,208 @@ def run_train(card, counters, dev) -> dict:
     numbers["profile"]["adamw_ms"] = profile_train_step(
         lambda: adamw_update(oc, params, grads, opt), step_s)["device_ms"]
     return numbers
+
+
+def check_remat(cfg, params, batch, tc, dev) -> None:
+    """remat none, full and dots on one batch: gradients within 1e-6 of
+    each leaf's largest entry."""
+    from repro_torch.train import train_step as T
+
+    want = None
+    for remat in ("none", "full", "dots"):
+        grads = T.make_grad_fn(cfg, dataclasses.replace(tc, remat=remat),
+                               device=dev)(params, batch)[2]
+        if want is None:
+            want = grads
+            continue
+        err = _worst(grads, want)
+        log(f"  {cfg.name}, {cfg.n_layers} layers, 1x1536: remat {remat} "
+            f"against none, grads worst {err:.2e} of the leaf max (gate 1e-6)")
+        if not err <= 1e-6:
+            raise AssertionError(f"{cfg.name}: remat {remat} changes grads")
+
+
+def check_recurrent_train_parity(card, dev) -> None:
+    """The recurrent train path at full width and reduced depth, fp32 (TF32
+    off), the zero-init leaves seeded (_enliven): rwkv6-7b with 1 layer
+    and zamba2-7b with 7 (one period of 5 Mamba-2 layers and the shared
+    attention block, then one trailing layer). One train step (its
+    gradients, then the AdamW update) on the card against the same step on
+    the CPU at 2x200 (three chunks of 64 and a ragged tail of 8). Gates:
+    loss within 1e-4 relative; every gradient leaf within TRAIN_RECURRENT's
+    gate of its largest entry: 1e-4 for zamba2-7b, as olmo-1b; 2e-4 for
+    rwkv6-7b, as tests/test_torch_train_recurrent.py holds it, since its
+    per-head group norm divides by small standard deviations and so
+    enlarges the fp32 rounding of the scan (on the CPU at reduced width two
+    correct fp32 scans give gradients 4.4e-5 of the leaf max apart);
+    params within 2 lr.
+    Then, on the card alone at 1x1536, remat none, full and dots give
+    gradients within 1e-6 of each leaf's largest entry."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as T
+    from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                             leaves)
+
+    tc = T.TrainConfig(remat="full", compute_dtype="float32")
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    cpu = torch.device("cpu")
+    for arch, (_, layers, gate, _) in TRAIN_RECURRENT.items():
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        init = M.init_params(cfg, 0, device="cpu")
+        _enliven(cfg, init, torch.Generator().manual_seed(1))
+        batch = TokenPipeline(DataConfig(vocab_size=64, seq_len=200,
+                                         global_batch=2), cfg).batch_at(0)
+        log(f"train: {cfg.name} at full width, {layers} layers, fp32: one "
+            f"step on the card against the CPU at 2x200 [{card}]")
+        out = []
+        for where in (cpu, dev):
+            params = _to(init, where)
+            t0 = time.perf_counter()
+            loss, _, grads = T.make_grad_fn(cfg, tc, device=where)(
+                params, {k: torch.as_tensor(v, device=where)
+                         for k, v in batch.items()})
+            adamw_update(oc, params, grads, T.make_opt_state(params, tc))
+            out.append((float(loss), grads, params,
+                        time.perf_counter() - t0))
+        (cl, cg, cp, cs), (gl, gg, gp, _) = out
+        loss_err, grad_err = abs(gl - cl) / abs(cl), _worst(gg, cg)
+        param_err = max((a.cpu() - b).abs().max().item()
+                        for a, b in zip(leaves(gp), leaves(cp)) if b.numel())
+        log(f"  loss {gl:.6f} (CPU {cl:.6f}, rel err {loss_err:.2e}, gate "
+            f"1e-4), grads worst {grad_err:.2e} of the leaf max (gate "
+            f"{gate:g}), params max_abs_err {param_err:.2e} (gate "
+            f"{2 * oc.lr:g}); CPU {cs:.1f} s")
+        if not (loss_err <= 1e-4 and grad_err <= gate
+                and param_err <= 2 * oc.lr):
+            raise AssertionError(f"{arch} train step: card and CPU disagree")
+        del out, gg, cg, gp, cp, init
+
+        params = M.init_params(cfg, 0, device=dev)
+        _enliven(cfg, params, torch.Generator(device=dev).manual_seed(1))
+        rng = np.random.default_rng(5)
+        batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 1536)),
+                                    device=dev) for k in ("tokens", "labels")}
+        check_remat(cfg, params, batch, tc, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_flops(cfg, params, b: int, s: int) -> int:
+    """Model FLOPs of one train step (forward and backward, remat's
+    recompute not counted): 6 per weight that multiplies a token (the
+    input embedding is a lookup, and is left out unless tied to the head;
+    the hybrid's shared block counts once per site), plus, per layer, the
+    sequential recurrence's 4 K V (WKV6) or 4 N P (SSD) per token and head
+    and causal attention's 2 S D per query and head (half the pairs, QK^T
+    and PV), each three times (forward, and backward at twice the
+    forward)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import leaves
+    weights = sum(p.numel() for p in leaves(params))
+    if not cfg.tie_embeddings:
+        weights -= params["embed"].numel()
+    lay, t = T.build_layout(cfg), b * s
+    if lay["kind"] == "uniform" and lay["block"] == "dense":
+        return 6 * weights * t + 6 * lay["n"] * t * cfg.n_heads * s * \
+            cfg.resolved_head_dim
+    if lay["kind"] == "uniform":
+        k = cfg.rwkv.head_dim
+        return 6 * weights * t + 12 * lay["n"] * t * cfg.d_model * k
+    mc, sites = cfg.mamba, lay["periods"]
+    shared = sum(p.numel() for p in leaves(params["shared_block"]))
+    mamba_layers = sites * lay["inner_n"] + lay["trailing"]
+    return (6 * (weights + (sites - 1) * shared) * t
+            + 12 * mamba_layers * t * mc.n_heads(cfg.d_model) * mc.d_state
+            * mc.head_dim
+            + 6 * sites * t * cfg.n_heads * s * cfg.resolved_head_dim)
+
+
+def run_train_recurrent(card, counters, dev, arch) -> dict:
+    """rwkv6-7b or zamba2-7b at full width and TRAIN_RECURRENT's depth:
+    fp32 params (the zero-init leaves seeded), bf16 compute, remat "full",
+    AdamW (lr 1e-3, warmup 2), 4x2048 tokens a step from the synthetic
+    pipeline (data vocabulary 64). Six steps, the first a warm-up, then one
+    profiled step, with the launch counters zeroed before and read after:
+    no kernel may launch (the scans run in plain torch). Gates: every loss
+    finite; the last below the first; the steps' peak device memory at
+    most TRAIN_PEAK_BYTES. The profiled step is split by the op
+    that launched each kernel: the scan (``wkv6_chunked`` or
+    ``ssd_chunked``: the ops under its record_function and the backward
+    nodes of those ops), ``aten::mm`` (the weight matmuls and the head),
+    ``aten::bmm`` (the shared block's attention einsums) and the rest."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as T
+    from repro_torch.train.optimizer import OptimizerConfig, leaves
+
+    layers, _, _, scan = TRAIN_RECURRENT[arch]
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    b, s, steps = TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS
+    tc = T.TrainConfig(remat="full")
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    params = M.init_params(cfg, 0, device=dev)
+    _enliven(cfg, params, torch.Generator(device=dev).manual_seed(1))
+    opt = T.make_opt_state(params, tc)
+    pipe = TokenPipeline(DataConfig(vocab_size=64, seq_len=s, global_batch=b,
+                                    markov_temp=2.5), cfg)
+    batches = [pipe.batch_at(i) for i in range(steps + 1)]
+    n_params = sum(p.numel() for p in leaves(params))
+    flops = train_flops(cfg, params, b, s)
+    log(f"train: {cfg.name} {layers} of {full.n_layers} layers, {n_params} "
+        f"params, {b}x{s} tokens a step, bf16 compute, remat full [{card}]")
+
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = T.make_train_step(cfg, tc, oc, device=dev)
+    losses, secs = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batches[i])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        log(f"  step {i}: loss {losses[-1]:.4f}, grad_norm "
+            f"{float(metrics['grad_norm']):.4f}, {1e3 * secs[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(secs[1:])[(steps - 1) // 2]
+    profile = profile_train_step(
+        lambda: step(params, opt, batches[steps]), step_s, scan=scan)
+    launches = {k: c.launches for k, c in counters.items()}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch}: non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"{arch}: the train path launched kernels: "
+                             f"{launches}")
+    if not peak <= TRAIN_PEAK_BYTES:
+        raise AssertionError(f"{arch}: peak {peak / 1e9:.1f} GB passes "
+                             f"{TRAIN_PEAK_BYTES / 1e9:g} GB; cut its depth")
+    return {
+        "arch": cfg.name, "card": card, "layers": layers,
+        "layers_of": full.n_layers, "params": n_params,
+        "tokens_per_step": b * s, "remat": "full", "compute": "bfloat16",
+        "losses": losses, "ms_per_step": 1e3 * step_s,
+        "ms_per_step_all": [1e3 * x for x in secs],
+        "tokens_per_s": b * s / step_s, "peak_gb": peak / 1e9,
+        "model_flops": flops, "bound_ms": 1e3 * flops / PEAK_FLOPS["bfloat16"],
+        "train_mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+        "launches": launches, "profile": profile,
+    }
 
 
 def run_checkpoints(card, counters, dev) -> dict:
@@ -1511,10 +1743,13 @@ def _bits_equal(a, b) -> bool:
                        b.reshape(-1).view(torch.uint8))
 
 
-def profile_train_step(fn, wall_s) -> dict:
+def profile_train_step(fn, wall_s, scan=None) -> dict:
     """One call of fn under torch.profiler: device time by the op that
     launched each kernel (``aten::mm``, ``aten::bmm``, the rest), kernels
-    per step and the kernels that take the most time."""
+    per step and the kernels that take the most time. With ``scan``, the
+    name of a record_function in the model, the kernels of the ops under it
+    (the scan's forward and its remat recompute) and of the backward nodes
+    of those ops count as ``scan_ms`` and under no other op."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1527,27 +1762,68 @@ def profile_train_step(fn, wall_s) -> dict:
     if not kernels:
         return {"device_ms": "not measured"}
     total = sum(us for us, _, _ in kernels) / 1e3
-    by_op = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
-             if e.key in ("aten::mm", "aten::bmm")}
-    mm, bmm = by_op.get("aten::mm", 0.0), by_op.get("aten::bmm", 0.0)
-    return {
+    split = _device_ms_by_op(prof, scan)
+    out = {
         "device_ms": total, "wall_ms_unprofiled": 1e3 * wall_s,
         "device_busy_share": total / (1e3 * wall_s),
-        "matmul_ms": mm, "attention_einsum_ms": bmm,
-        "other_ms": total - mm - bmm,
+        "matmul_ms": split["mm"], "attention_einsum_ms": split["bmm"],
+        "other_ms": total - split["mm"] - split["bmm"] - split["scan"],
         "kernels": sum(n for _, n, _ in kernels),
         "top": [{"kernel": k[:60], "ms": us / 1e3, "count": n}
                 for us, n, k in kernels[:8]],
     }
+    if scan:
+        out["scan"], out["scan_ms"] = scan, split["scan"]
+    return out
+
+
+def _device_ms_by_op(prof, scan=None) -> dict:
+    """Device ms of a profile's kernels by the CPU op that launched them:
+    "scan" (under the record_function ``scan``, or under the backward node
+    of an op that ran under it, matched by sequence number and forward
+    thread), else "mm" under ``aten::mm``, "bmm" under ``aten::bmm``, and
+    "rest"."""
+    from torch.autograd import DeviceType
+
+    def chain(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    events = prof.events()
+    seqs = {(e.sequence_nr, e.thread) for e in events
+            if scan and e.sequence_nr >= 0
+            and any(a.name == scan for a in chain(e))}
+    out = dict.fromkeys(("scan", "mm", "bmm", "rest"), 0.0)
+    for e in events:     # an annotation's own "kernel" is its device span
+        if e.device_type != DeviceType.CPU or not e.kernels \
+                or e.is_user_annotation:
+            continue
+        names = [a.name for a in chain(e)]
+        node = next((a for a in chain(e) if a.scope == 1), None)  # backward
+        if scan and (scan in names or node is not None and (
+                node.sequence_nr, node.fwd_thread) in seqs):
+            key = "scan"
+        elif "aten::mm" in names:
+            key = "mm"
+        elif "aten::bmm" in names:
+            key = "bmm"
+        else:
+            key = "rest"
+        out[key] += sum(k.duration for k in e.kernels) / 1e3
+    return out
 
 
 def _kernel_rows(prof, calls: int) -> list:
     """(device us, launches, name) per call of each CUDA kernel in a
     profile, largest first. CPU-op rows are left out: their device time is
-    their child kernels', which have rows of their own."""
+    their child kernels', which have rows of their own; so are the device
+    spans of record_function annotations, which cover kernels that have
+    rows of their own."""
     from torch.autograd import DeviceType
     rows = [(e.self_device_time_total / calls, e.count / calls, e.key)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation]
     return sorted(rows, reverse=True)
 
 

@@ -3,9 +3,12 @@ causal depthwise conv -> selective state space scan -> gated RMSNorm ->
 out projection.
 
 Prefill runs the scan through ``ops.mamba2_ssd`` (the CUDA kernel on the
-card, its plain version on the CPU); decode steps a (B, H, N, P) fp32 SSM
-state and a (B, W-1, C) conv state with ``ssd_recurrent`` in plain torch, as
-the reference does. Both states are updated in place.
+card, its plain version on the CPU); train mode through ``ssd_chunked``,
+plain torch that autograd differentiates, as the reference trains through
+its jnp ``ssd_chunked`` (the kernel has no backward); decode steps a
+(B, H, N, P) fp32 SSM state and a (B, W-1, C) conv state with
+``ssd_recurrent`` in plain torch, as the reference does. Both states are
+updated in place.
 
 Recurrence per head (state N x P, P = head_dim, scalar decay per head):
     h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t^T
@@ -82,6 +85,72 @@ def _causal_conv(x, w, b, state=None):
     return F.silu(y), xp[:, -(wlen - 1):]
 
 
+CHUNK = 64   # ssd_chunked's tokens per chunk
+
+
+def ssd_chunked(x, dt, A, B, C, D):
+    """Chunk-parallel SSD for train mode (the port of the reference's
+    ``ssd_chunked``), in plain torch, differentiated by autograd.
+
+    x: (B, S, H, P); dt: (B, S, H) fp32; A, D: (H,); B, C: (B, S, G, N),
+    head h reading group h // (H / G). Returns y (B, S, H, P) in x's dtype;
+    fp32 inside. Any S >= 1: the sequence is zero-padded to whole chunks
+    (dt 0: a padded token changes nothing before it) and the padding's
+    outputs are dropped.
+
+    Within a chunk, with cum the inclusive cumulative dt A of a head, token
+    j reaches token t >= j decayed by exp(cum_t - cum_j), the difference
+    masked before the exp; a chunk's tokens reach the next chunk through
+    an (N x P) state decayed by exp of the chunk's total, and every state
+    term's decay, exp(tot - cum_j) and exp(cum_t), is of a sum of dt A <= 0.
+    No exponent is positive, so no factor overflows: the reference's
+    half-shifted factors do once a chunk's sum passes about -176, which
+    zamba2-7b's own init reaches at its chunk of 256 (ROADMAP C). B and C
+    stay per group (C Bᵀ once per group, not per head). A chunk of 64, the
+    kernel's: the (L x L) pairwise decay and the per-chunk states then
+    each hold 64 floats a token and head, as many as x at P = 64 (at 256
+    the pairwise term would hold four times x)."""
+    with torch.profiler.record_function("ssd_chunked"):
+        b, s, h, p_ = x.shape
+        g, n = B.shape[2], B.shape[3]
+        reps = h // g
+        nc = -(-s // CHUNK)
+        pad = nc * CHUNK - s
+
+        def chunks(a):   # (B, S, X, F) -> (B, X, nc, CHUNK, F), fp32
+            a = F.pad(a.float(), (0, 0, 0, 0, 0, pad))
+            return a.view(b, nc, CHUNK, a.shape[2], a.shape[3]).permute(
+                0, 3, 1, 2, 4)
+
+        dtc = F.pad(dt.float(), (0, 0, 0, pad)).view(b, nc, CHUNK, h)
+        dtc = dtc.permute(0, 3, 1, 2)                        # (B, H, nc, L)
+        # heads as (G, reps), so that B and C broadcast over a group's heads
+        cum = (dtc * A.float()[None, :, None, None]).cumsum(-1).view(
+            b, g, reps, nc, CHUNK)
+        tot = cum[..., -1]                                   # (B, G, r, nc)
+        xd = (chunks(x) * dtc[..., None]).view(b, g, reps, nc, CHUNK, p_)
+        Bc, Cc = (chunks(a)[:, :, None] for a in (B, C))  # (B, G, 1, nc, L, N)
+
+        lower = torch.ones(CHUNK, CHUNK, dtype=torch.bool,
+                           device=x.device).tril()
+        diff = cum[..., :, None] - cum[..., None, :]         # (., t, j)
+        dec = torch.exp(torch.where(lower, diff, float("-inf")))
+        y = ((Cc @ Bc.transpose(-1, -2)) * dec) @ xd         # this chunk
+
+        # the state before each chunk: h_{c+1} = exp(tot_c) h_c + delta_c
+        delta = Bc.transpose(-1, -2) @ (
+            xd * torch.exp(tot[..., None] - cum)[..., None])  # (., nc, N, P)
+        states = [torch.zeros_like(delta[:, :, :, 0])]
+        for c in range(nc - 1):
+            states.append(torch.exp(tot[..., c])[..., None, None] * states[-1]
+                          + delta[:, :, :, c])
+        y = y + torch.exp(cum)[..., None] * (Cc @ torch.stack(states, 3))
+
+        y = y.view(b, h, nc * CHUNK, p_).transpose(1, 2)[:, :s]
+        y = y + x.float() * D.float()[None, None, :, None]
+        return y.to(x.dtype)
+
+
 def ssd_recurrent(x, dt, A, B, C, D, state):
     """Single-token decode. x: (B, 1, H, P); dt: (B, 1, H); B, C:
     (B, 1, G, N); state (B, H, N, P) fp32, updated in place. Returns
@@ -99,9 +168,10 @@ def ssd_recurrent(x, dt, A, B, C, D, state):
     return y[:, None].to(x.dtype), state
 
 
-def mamba_block(p, x, cfg: ArchConfig, *, state=None):
+def mamba_block(p, x, cfg: ArchConfig, *, state=None, train=False):
     """state: (ssm_state, conv_state) for decode, updated in place; None for
-    prefill. Returns (out, state)."""
+    prefill and train mode; ``train`` takes ``ssd_chunked`` in place of the
+    kernel. Returns (out, state)."""
     mc = cfg.mamba
     b, s, d = x.shape
     di = mc.d_inner(d)
@@ -127,7 +197,9 @@ def mamba_block(p, x, cfg: ArchConfig, *, state=None):
     # x + log1p(exp(-x)): the two differ by less than 2.1e-9
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-    if ssm is None:
+    if train:
+        y = ssd_chunked(xs, dt, A, Bm, Cm, p["D"])
+    elif ssm is None:
         y = ops.mamba2_ssd(xs, dt, A, Bm, Cm, p["D"])
     else:
         y, _ = ssd_recurrent(xs, dt, A, Bm, Cm, p["D"], ssm)

@@ -2,9 +2,12 @@
 data-dependent decay, and channel-mix.
 
 Prefill runs the WKV recurrence through ``ops.wkv6`` (the CUDA kernel on
-the card, its plain version on the CPU); decode carries per-layer state,
-a (B, H, K, K) fp32 wkv state and the last token of each sub-block, and
-steps it with ``wkv6_recurrent`` in plain torch, as the reference does.
+the card, its plain version on the CPU); train mode through
+``wkv6_chunked``, plain torch that autograd differentiates, as the
+reference trains through its jnp ``wkv6_chunked`` (the kernel has no
+backward); decode carries per-layer state, a (B, H, K, K) fp32 wkv state
+and the last token of each sub-block, and steps it with ``wkv6_recurrent``
+in plain torch, as the reference does.
 
 Recurrence per head (K = V = head_dim):
     S_t = diag(w_t) S_{t-1} + k_t^T v_t
@@ -92,6 +95,88 @@ def _group_norm_heads(x, scale, n_heads, eps=1e-5):
     return (hx.reshape(b, s, d) * scale).to(x.dtype)
 
 
+CHUNK, SUB = 64, 16   # wkv6_chunked: tokens per chunk and per sub-chunk
+
+
+def wkv6_chunked(r, k, v, logw, u):
+    """Chunk-parallel WKV6 for train mode (the port of the reference's
+    ``wkv6_chunked``), in plain torch, differentiated by autograd.
+
+    r, k, v: (B, S, H, K); logw: (B, S, H, K) fp32, <= 0; u: (H, K).
+    Returns y (B, S, H, K) in r's dtype; fp32 inside. Any S >= 1: the
+    sequence is zero-padded to whole chunks (logw 0, k 0: a padded token
+    changes nothing before it) and the padding's outputs are dropped.
+
+    The two-level chunking of ``csrc/wkv6.cu`` and of gated linear
+    attention (Yang et al., 2023): chunks of CHUNK = 64 tokens split into
+    sub-chunks of SUB = 16. Within a chunk, with ce the exclusive and cum
+    the inclusive cumulative log-decay per channel, token j reaches token
+    i > j decayed by exp(ce_i - cum_j). Between sub-chunks that factors
+    through the later sub-chunk's first token s, as
+    exp(ce_i - ce_s) * exp(ce_s - cum_j), both exponents sums of logw <= 0,
+    so the terms are matmuls of (B, H, ., K) operands; only the 16 x 16
+    diagonal blocks take the per-channel (B, H, ., 16, 16, K) pairwise
+    form, masked before the exp. Between chunks a (K x K) state is carried,
+    decayed by exp of the chunk's total. No exponent is positive, so no
+    factor overflows: the reference's half-shifted factors do once a
+    chunk's log-decay passes about -176 (ROADMAP C). The chunk of 64 is the
+    kernel's; sub-chunks of 16 keep the pairwise term at 16 K floats a
+    token (2.1 GB a tensor for a rwkv6-7b layer at 4 x 2048), where one
+    64-token pairwise form would take four times that. The backward is
+    autograd's, with no hand-written one: a train step of rwkv6-7b at full
+    width, 8 layers, 4 x 2048 tokens and remat "full" peaked at 50.1 GB on
+    an 80 GB H100, 36.7 GB of it params, grads and AdamW moments."""
+    with torch.profiler.record_function("wkv6_chunked"):
+        b, s, h, dk = r.shape
+        nc = -(-s // CHUNK)
+        nsub = CHUNK // SUB
+
+        def chunks(a):   # (B, S, H, K) -> (B, H, nc, CHUNK, K), fp32
+            a = F.pad(a.float(), (0, 0, 0, 0, 0, nc * CHUNK - s))
+            return a.view(b, nc, CHUNK, h, dk).permute(0, 3, 1, 2, 4)
+
+        rc, kc, vc, lw = (chunks(a) for a in (r, k, v, logw))
+        cum = lw.cumsum(3)                                   # inclusive
+        ce = F.pad(cum[:, :, :, :-1], (0, 0, 1, 0))          # exclusive
+        tot = cum[:, :, :, -1]                               # (B, H, nc, K)
+
+        # the state before each chunk: S_{c+1} = exp(tot_c) S_c + delta_c
+        delta = (kc * torch.exp(tot[:, :, :, None] - cum)).transpose(-1, -2) \
+            @ vc                                             # (B, H, nc, K, K)
+        states = [torch.zeros_like(delta[:, :, 0])]
+        for c in range(nc - 1):
+            states.append(torch.exp(tot[:, :, c])[..., None] * states[-1]
+                          + delta[:, :, c])
+        y = (rc * torch.exp(ce)) @ torch.stack(states, 2)    # earlier chunks
+
+        # earlier sub-chunks of the chunk, through each sub-chunk's first
+        # token: exp(ce_i - ce_s) on r, exp(ce_s - cum_j) on k
+        sub = lambda a: a.view(b, h, nc, nsub, SUB, dk)
+        rs, ks, vs, cs, es = (sub(a) for a in (rc, kc, vc, cum, ce))
+        rq = rs * torch.exp(es - es[:, :, :, :, :1])
+        ys = [torch.zeros_like(vs[:, :, :, 0])]
+        for a in range(1, nsub):
+            first = a * SUB
+            kq = kc[:, :, :, :first] * torch.exp(
+                ce[:, :, :, first:first + 1] - cum[:, :, :, :first])
+            ys.append((rq[:, :, :, a] @ kq.transpose(-1, -2))
+                      @ vc[:, :, :, :first])
+        y = y + torch.stack(ys, 3).view_as(y)
+
+        # the diagonal blocks, pairwise per channel, and the bonus u
+        lower = torch.ones(SUB, SUB, dtype=torch.bool,
+                           device=r.device).tril(-1)[:, :, None]
+        diff = es[..., :, None, :] - cs[..., None, :, :]     # (., i, j, K)
+        dec = torch.exp(torch.where(lower, diff, float("-inf")))
+        att = (rs[..., :, None, :] * dec * ks[..., None, :, :]).sum(-1)
+        y = y + (att @ vs).view_as(y)
+        bonus = (rc * u.float()[None, :, None, None, :] * kc).sum(
+            -1, keepdim=True)
+        y = y + bonus * vc
+        y = y.permute(0, 2, 3, 1, 4).reshape(b, nc * CHUNK, h, dk)[:, :s]
+        return y.to(r.dtype)
+
+
 def wkv6_recurrent(r, k, v, logw, u, state):
     """Single-token decode. r, k, v, logw: (B, 1, H, K); u: (H, K); state
     (B, H, K, K) fp32, updated in place. Returns (y (B, 1, H, K), state)."""
@@ -103,9 +188,11 @@ def wkv6_recurrent(r, k, v, logw, u, state):
     return y[:, None].to(r.dtype), state
 
 
-def rwkv_time_mix(p, x, cfg: ArchConfig, *, state=None, last_x=None):
+def rwkv_time_mix(p, x, cfg: ArchConfig, *, state=None, last_x=None,
+                  train=False):
     """Time-mix sub-block. state: the layer's wkv state for decode (updated
-    in place), None for prefill. Returns (out, state)."""
+    in place), None for prefill and train mode; ``train`` takes
+    ``wkv6_chunked`` in place of the kernel. Returns (out, state)."""
     hd = cfg.rwkv.head_dim
     b, s, d = x.shape
     h = d // hd
@@ -117,7 +204,9 @@ def rwkv_time_mix(p, x, cfg: ArchConfig, *, state=None, last_x=None):
     g = F.silu(xg @ p["wg"].to(cd))
     logw = _decay(p, xw).view(b, s, h, hd)
     u = p["bonus_u"].view(h, hd)
-    if state is None:
+    if train:
+        y = wkv6_chunked(r, k, v, logw, u)
+    elif state is None:
         y = ops.wkv6(r, k, v, logw, u)
     else:
         y, state = wkv6_recurrent(r, k, v, logw, u, state)

@@ -17,9 +17,14 @@ dims. The decode state has the same stacking as the params:
            "trailing": (ssm, conv) with a leading max(trailing, 1) dim}
 Every layer updates its slice of the decode state in place (the reference
 returns new arrays; in place saves a copy of every cache and state per layer
-and tick). Train mode runs the dense uniform layout only, each layer under
-``ctx["remat"]`` as the reference remats its scan body (one layer). The VLM
-cross-attention block and MoE are not ported.
+and tick). Train mode runs every layout here. Each stacked layer (dense,
+rwkv, an inner or trailing mamba layer) runs under ``ctx["remat"]``, as the
+reference remats its inner scan body (one layer); the hybrid's shared
+attention block runs outside it, as the reference's outer scan body is not
+rematerialised, and its weights gather the gradients of every site. The
+RWKV and Mamba layers take their differentiable ``wkv6_chunked`` and
+``ssd_chunked`` there, not the kernels. The VLM cross-attention block and
+MoE are not ported.
 """
 from __future__ import annotations
 
@@ -83,23 +88,35 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator):
         "shared_block": init_layer("shared_attn", cfg, gen)}
 
 
+def unused_subtrees(cfg: ArchConfig) -> tuple[str, ...]:
+    """Param subtrees (``convert.flatten`` paths) that the layout holds but
+    never runs: the hybrid's placeholder trailing layer when no layer
+    trails, which the reference keeps and ``jax.grad`` gives zeros."""
+    layout = build_layout(cfg)
+    if layout["kind"] == "periodic" and layout["trailing"] == 0:
+        return ("layers/trailing",)
+    return ()
+
+
 def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
     """One layer. Returns (x, state); a decode state is updated in place."""
     decode = ctx["mode"] == "decode"
+    train = ctx["mode"] == "train"
     if block in ("dense", "shared_attn"):
         h = B.apply_norm(p["ln1"], x, cfg)
         o, state = B.attention_block(
             p["attn"], h, cfg, rope=ctx.get("rope"),
             positions=ctx.get("positions"), kv_cache=state,
             cache_len=ctx.get("cache_len"),
-            attn_impl=ctx["attn_impl"] if ctx["mode"] == "train" else None)
+            attn_impl=ctx["attn_impl"] if train else None)
         x = x + o
         h = B.apply_norm(p["ln2"], x, cfg)
         return x + B.mlp_block(p["mlp"], h), state
     if block == "rwkv":
         wkv, tm_last, cm_last = state if decode else (None, None, None)
         h = B.apply_norm(p["ln1"], x, cfg)
-        o, _ = R.rwkv_time_mix(p["tm"], h, cfg, state=wkv, last_x=tm_last)
+        o, _ = R.rwkv_time_mix(p["tm"], h, cfg, state=wkv, last_x=tm_last,
+                               train=train)
         x = x + o
         h2 = B.apply_norm(p["ln2"], x, cfg)
         # channel-mix params live under the time-mix key, as in the reference
@@ -110,7 +127,7 @@ def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
         return x, state
     if block == "mamba":
         h = B.apply_norm(p["ln1"], x, cfg)
-        o, state = M.mamba_block(p["m"], h, cfg, state=state)
+        o, state = M.mamba_block(p["m"], h, cfg, state=state, train=train)
         return x + o, state
     raise NotImplementedError(block)
 
@@ -163,11 +180,6 @@ def apply_stack(params, x, cfg: ArchConfig, ctx: dict, states=None):
     Returns (x, states)."""
     layout = build_layout(cfg)
     decode = ctx["mode"] == "decode"
-    if ctx["mode"] == "train" and layout.get("block") != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training runs the dense family only; the rwkv and "
-            "hybrid layouts need differentiable ports of the reference's "
-            "wkv6_chunked and ssd_chunked (their kernels have no backward)")
 
     def part(key):
         return states[key] if decode else None

@@ -3,11 +3,15 @@ through ``torch.autograd`` (optionally over microbatches) -> gradient
 compression with error feedback -> AdamW.
 
 Train mode's attention is the reference's XLA attention in plain PyTorch
-(``blocks.train_attention``); no kernel is on this path, since no kernel has
-a backward. Every parameter must come out of the backward with a gradient:
-a ``None`` raises, so a graph cut (a kernel's output has no ``grad_fn``)
-cannot pass as a zero gradient. Zero-size leaves (OLMo's non-parametric
-norm sentinel) hold no value and get zero gradients, as ``jax.grad`` gives.
+(``blocks.train_attention``) and its recurrences are the reference's
+chunked scans (``rwkv.wkv6_chunked``, ``mamba.ssd_chunked``); no kernel is
+on this path, since no kernel has a backward. Every parameter must come out
+of the backward with a gradient: a ``None`` raises, so a graph cut (a
+kernel's output has no ``grad_fn``) cannot pass as a zero gradient. Two
+kinds of leaves get zero gradients, as ``jax.grad`` gives: zero-size leaves
+(OLMo's non-parametric norm sentinel), which hold no value, and the leaves
+of the subtrees the layout never runs (``transformer.unused_subtrees``: the
+hybrid's placeholder trailing layer when no layer trails).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 from repro_torch import convert, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
+from repro_torch.models import transformer as TF
 from repro_torch.train import compression as C
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
                                          init_opt_state, leaves, tree_map)
@@ -63,18 +68,21 @@ def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda"):
     (not a token-weighted mean), summed in fp32, and the metrics are the
     last microbatch's, as in the reference."""
     loss_fn = make_loss_fn(cfg, tcfg, device=device)
+    unused = tuple(f"{path}/" for path in TF.unused_subtrees(cfg))
 
     def value_and_grad(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        names = {id(p): name for name, p in convert.flatten(live).items()}
+        idle = {id(p) for p in leaves(live)
+                if not p.numel() or names[id(p)].startswith(unused)}
         with torch.enable_grad():
             loss, metrics = loss_fn(live, batch)
-            wanted = [p for p in leaves(live) if p.numel()]
+            wanted = [p for p in leaves(live) if id(p) not in idle]
             grads = iter(torch.autograd.grad(loss, wanted, allow_unused=True))
-        out = [next(grads) if p.numel() else torch.zeros_like(p)
+        out = [torch.zeros_like(p) if id(p) in idle else next(grads)
                for p in leaves(live)]
-        got = {id(p): g for p, g in zip(leaves(live), out)}
-        missing = [name for name, p in convert.flatten(live).items()
-                   if got[id(p)] is None]
+        missing = [names[id(p)] for p, g in zip(leaves(live), out)
+                   if g is None]
         if missing:
             raise RuntimeError(f"no gradient reached {missing}: the graph "
                                "was cut between them and the loss")

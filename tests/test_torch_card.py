@@ -1,5 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions, and the
-reduced models on the card against the CPU. Needs only torch and numpy, so
+"""The port's CUDA kernels on the card, against their plain versions, the
+train path's scans, and the reduced models on the card against the CPU. Needs only torch and numpy, so
 it runs where JAX is absent; every test here is marked ``cuda`` and skips
 without a card:
 
@@ -25,7 +25,9 @@ from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv  # noqa: E402
+from repro_torch.models import mamba as MB  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import rwkv as R  # noqa: E402
 from repro_torch.serve import decode as D  # noqa: E402
 from repro_torch.train.checkpoints import CheckpointManager  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
@@ -637,3 +639,76 @@ def test_kernels_launch_from_an_agent_thread(card, tmp_path):
     np.testing.assert_allclose(out["decode"][:, 0].numpy(), _np(want),
                                **_tol("bfloat16"))
     eng.launcher.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the train path's scans: plain torch on the card, no kernel
+# ---------------------------------------------------------------------------
+
+
+def _scan_case(scan, seed, card, dtype="float32", full_width=False):
+    """Inputs, the train-mode scan, its sequential oracle and its kernel's
+    wrapper. Small shapes with a ragged S, or one sequence of 256 at the
+    full configs' head shapes (rwkv6-7b: 64 heads of 64; zamba2-7b: 112
+    heads of 64, one group, state 64)."""
+    if scan == "wkv6":
+        b, s, h, k = (1, 256, 64, 64) if full_width else (2, 601, 2, 32)
+        return (list(_wkv6_inputs(seed, b, s, h, k, dtype, card)),
+                R.wkv6_chunked, ref.wkv6_ref, ops.wkv6)
+    b, s, h, p, g, n = (1, 256, 112, 64, 1, 64) if full_width \
+        else (2, 601, 4, 32, 2, 16)
+    return (list(_ssd_inputs(seed, b, s, h, p, g, n, dtype, card)),
+            MB.ssd_chunked, ref.ssd_ref, ops.mamba2_ssd)
+
+
+@pytest.mark.parametrize("scan", ["ssd", "wkv6"])
+def test_train_scan_and_grads_match_sequential_ref_on_card(card, scan):
+    """fp32 output and the gradients of every input of ``wkv6_chunked`` and
+    ``ssd_chunked`` on the card against autograd through kernels/ref.py's
+    sequential oracles, at S = 601: fp32 sums in other orders, within 5e-5
+    of each one's largest entry (on the CPU, at most 4.2e-6)."""
+    args, chunked, oracle, _ = _scan_case(scan, 30, card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    ct = torch.randn(args[0].shape, generator=gen, device=card)
+    outs = []
+    for fn in (chunked, oracle):
+        ins = [a.detach().clone().requires_grad_() for a in args]
+        y = fn(*ins)
+        outs.append([y.detach(), *torch.autograd.grad(y, ins, ct)])
+    for i, (got, want) in enumerate(zip(*outs)):
+        assert bool(torch.isfinite(got).all()), i
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0, err_msg=i,
+                                   atol=5e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("scan", ["ssd", "wkv6"])
+def test_train_scan_bf16_matches_kernel_at_full_width_heads(card, scan):
+    """The bf16 forward of the train-mode scan against the CUDA kernel
+    that prefill runs, on the same bf16 inputs at the full configs' head
+    shapes, at the kernels' bf16 tolerance."""
+    args, chunked, _, kernel = _scan_case(scan, 31, card, "bfloat16",
+                                          full_width=True)
+    got, want = chunked(*args), kernel(*args)
+    assert got.dtype == want.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_recurrent_train_step_launches_no_kernel(card, arch):
+    """A train step of the reduced rwkv6-7b or zamba2-7b on the card runs
+    its scans and its shared attention in plain torch: no launch counter
+    moves, and the loss is finite."""
+    cfg = get_arch(arch).reduced()
+    counters = (fa.flash_attention_bhsd, dec.decode_attention_bhd,
+                wkv.wkv6_bhsk, ssd.ssd_bhsp)
+    before = [c.launches for c in counters]
+    tc = T.TrainConfig(remat="full")
+    params = M.init_params(cfg, 0, device=card)
+    rng = np.random.default_rng(5)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 200)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    _, _, metrics = T.make_train_step(cfg, tc, OptimizerConfig(), device=card)(
+        params, T.make_opt_state(params, tc), batch)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
+    assert np.isfinite(float(metrics["loss"]))

@@ -680,15 +680,6 @@ def test_kernel_attn_impl_raises_in_train_mode(impl):
         fn(convert.from_numpy(params), _t(_batch(0, 1, 8, cfg.vocab_size)))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
-def test_train_mode_refuses_recurrent_layouts(arch):
-    tcfg = port_arch(arch).reduced()
-    fn = T.make_grad_fn(tcfg, T.TrainConfig(remat="none"), device=CPU)
-    with pytest.raises(NotImplementedError, match="dense family"):
-        fn(M.init_params(tcfg, 0, device=CPU),
-           _t(_batch(0, 1, 8, tcfg.vocab_size)))
-
-
 def test_cut_graph_raises_instead_of_zero_grads(monkeypatch):
     """An attention whose output has no grad_fn (as a kernel's would) cuts
     wq, wk, wv and the qk-norms off the loss: the step names them."""
@@ -703,9 +694,11 @@ def test_cut_graph_raises_instead_of_zero_grads(monkeypatch):
     assert "layers/attn/wo" not in str(err.value)
 
 
-def test_train_path_reaches_no_kernel_wrapper(monkeypatch):
+@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-7b", "zamba2-7b"])
+def test_train_path_reaches_no_kernel_wrapper(arch, monkeypatch):
     """Train mode on the CPU never calls a kernel wrapper (on the card they
-    would launch kernels without a backward)."""
+    would launch kernels without a backward): the dense, rwkv and hybrid
+    layouts take their own attention and scans."""
     from repro_torch.kernels import ops
 
     def boom(*a, **k):
@@ -714,7 +707,7 @@ def test_train_path_reaches_no_kernel_wrapper(monkeypatch):
     for name in ("flash_attention", "decode_attention", "wkv6",
                  "mamba2_ssd"):
         monkeypatch.setattr(ops, name, boom)
-    cfg, tcfg, params = _params("qwen3-8b")
+    cfg, tcfg, params = _params(arch)
     fn = T.make_grad_fn(tcfg, T.TrainConfig(remat="dots"), device=CPU)
     loss, _, _ = fn(convert.from_numpy(params),
                     _t(_batch(0, 1, 1040, cfg.vocab_size)))
