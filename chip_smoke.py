@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises, and the script then exits non-zero
-without printing a result:
+Phases, in order (each logged with the script's elapsed seconds); any
+failure raises, and the script then exits non-zero without printing a
+result:
 
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: nvcc builds every kernel in src/repro_torch/csrc/ into build/,
@@ -17,7 +18,10 @@ without printing a result:
    at cache_len 1, 0 and the whole buffer; WKV6 and SSD also at strong
    decays against the sequential oracles of kernels/ref.py (each in fp32,
    which takes its scalar kernel, and in bf16, which takes its chunked
-   tensor-core kernel; bf16 SSD also at S of 1, 63, 64, 65 and 601, P of
+   tensor-core kernel; flash and decode attention also at llama4-scout's
+   GQA of 40 query heads on 8 kv heads, head dim 128, in fp32 and bf16,
+   flash also at its 4x2048 prefill shape;
+   bf16 SSD also at S of 1, 63, 64, 65 and 601, P of
    16, 32 and 128, N of 8 and 64, two groups; bf16 WKV6 also at S of 1, 63,
    64, 65 and 601 and K of 16, 32 and 64 on strided views of one
    projection, and a misaligned view must raise); that one decode attention
@@ -26,25 +30,36 @@ without printing a result:
    kernel, its plain version and, where one PyTorch call computes the same
    function (SDPA for the attention kernels, which the port never calls;
    none for WKV6 or SSD), that call, at the serving paths' shapes (flash
-   also at zamba2-7b's prefill shape), beside the card's bound;
-4. reference: reduced olmo-1b, qwen3-8b, rwkv6-7b and zamba2-7b on the card
-   (kernels) against the CPU (plain versions), fp32, prefill and decode
-   logits; then olmo-1b, rwkv6-7b and zamba2-7b at full width but reduced
-   depth, fp32, prefill (the prefill kernels) against serving (the decode
-   path) on the card, within 1e-3 of the logits' range;
+   also at zamba2-7b's and llama4-scout's prefill shapes), beside the
+   card's bound;
+4. reference: reduced olmo-1b, qwen3-8b, rwkv6-7b, zamba2-7b, olmoe-1b-7b
+   and llama4-scout on the card (kernels) against the CPU (plain versions),
+   fp32, prefill and decode logits; then olmo-1b, rwkv6-7b, zamba2-7b and
+   olmoe-1b-7b at full width but reduced depth, fp32, prefill (the prefill
+   kernels) against serving (the decode path) on the card, within 1e-3 of
+   the logits' range (olmoe at the no-drop capacity, see no_drop);
 5. slices, one per model at full width from seeded random weights (bf16
    compute), freed before the next: olmo-1b (flash and decode attention),
-   rwkv6-7b (WKV6) and zamba2-7b (Mamba-2 SSD, and flash and decode attention
-   at head dim 112 in the shared block). Each runs the prefill step on 4
+   rwkv6-7b (WKV6), zamba2-7b (Mamba-2 SSD, and flash and decode attention
+   at head dim 112 in the shared block), olmoe-1b-7b (64 experts, top-8,
+   all 16 layers; flash and decode attention) and llama4-scout at 2 of its
+   48 layers (16 experts, top-1 and a shared expert; flash and decode
+   attention at GQA 40:8). Each runs the prefill step on 4
    prompts of 2048 tokens (three calls, the first a warm-up), then the
    continuous-batching driver serving 8 requests (4 slots), then each
    request's prompt through the prefill step, whose last logits must match
    the served ones within 5e-2 of their range, or within twice the model's
-   own bf16 rounding error where that is larger (see check_parity). The
-   launch counters are
+   own bf16 rounding error where that is larger (see check_parity); an MoE
+   model's per-request prefills and the gate's fp32 prefills run at the
+   no-drop capacity, since a prefill at the real capacity drops choices
+   that serving keeps, while its timed prefills and serving run the real
+   config. The launch counters are
    zeroed before each slice and must show each kernel of the model launched
    once per layer that runs it, per prefill call or per decode tick, and
-   the other kernels not at all. A profiled window of decode ticks follows.
+   the other kernels not at all. A profiled window of decode ticks follows,
+   and for an MoE model a profiled prefill call; both report the MoE
+   blocks' device ms, split into the expert products (``aten::bmm``) and
+   the rest of the block.
 6. train (the dense training path, fp32 params, AdamW; it runs no kernel,
    since no kernel has a backward): olmo-1b at full width and 2 layers,
    fp32, one train step on the card against the same step on the CPU at
@@ -57,20 +72,23 @@ without printing a result:
    and one profiled step, with the launch counters at 0 throughout. It
    prints ms per step, tokens/s, peak memory and train_mfu, and the
    profiled step broken down into matmuls, attention einsums and the rest.
-   Then the recurrent families (their train mode runs the differentiable
-   scans ``wkv6_chunked`` and ``ssd_chunked``, no kernel), their
-   zero-init leaves seeded: rwkv6-7b at full width and 1 layer and
-   zamba2-7b at full width and 7 layers (one period and one trailing
-   layer), fp32, one train step on the card against the CPU at 2x200, and
-   remat none, full and dots giving equal gradients on the card at
-   1x1536; then rwkv6-7b at 8 of its 32 layers and zamba2-7b at 21 of its
-   81 (3 periods and 3 trailing layers), each at full width, bf16 compute,
-   remat "full", 4x2048 tokens: 6 steps (the first a warm-up) and one
-   profiled step, freed before the next, with the launch counters at 0.
-   Each prints a ``train:`` line like olmo-1b's, its profiled step split
-   into ``aten::mm``, the scan (the ops under the scan's record_function,
-   its forward and remat recompute, and the backward nodes of those ops),
-   ``aten::bmm`` and the rest.
+   Then the other families (the recurrent ones' train mode runs the
+   differentiable scans ``wkv6_chunked`` and ``ssd_chunked``, the MoE's its
+   plain block; no kernel), their zero-init leaves seeded: rwkv6-7b at full
+   width and 1 layer, zamba2-7b at full width and 7 layers (one period and
+   one trailing layer) and olmoe-1b-7b at full width and 1 layer, fp32,
+   one train step on the card against the CPU at 2x200 (2x256 for olmoe,
+   where choices drop at capacity, aux included), and remat none, full and
+   dots giving equal gradients on the card at 1x1536; then rwkv6-7b at 8
+   of its 32 layers, zamba2-7b at 21 of its 81 (3 periods and 3 trailing
+   layers) and olmoe-1b-7b at 6 of its 16, each at full width, bf16
+   compute, remat "full", 4x2048 tokens: 6 steps (the first a warm-up) and
+   one profiled step, freed before the next, with the launch counters at
+   0. Each prints a ``train:`` line like olmo-1b's (olmoe's model FLOPs
+   count the active experts only), its profiled step split into
+   ``aten::mm``, the scan (the ops under the scan's record_function, its
+   forward and remat recompute, and the backward nodes of those ops),
+   ``aten::bmm`` (for olmoe the expert products) and the rest.
 7. checkpoints (ACAI's training jobs must survive preemption; no kernel
    launches): olmo-1b as in the train phase, under ``TrainSupervisor``
    saving a 14.1 GB checkpoint (fp32 params, AdamW's mu and nu) to a data
@@ -149,6 +167,7 @@ TOL_SSD = {"bfloat16": (2e-2, 2e-2), "float32": (5e-4, 5e-4)}
 GUARD_CYCLES, GUARD_KERNEL = 20_000_000, "spin_kernel"
 REF_CALLS = 5
 
+PREFILL_BATCH, PREFILL_LEN = 4, 2048
 FLASH_CASES = [  # (b, s, h, kv, d, causal, dtype)
     *[(*shape, True, dt)
       for shape in [(1, 256, 4, 4, 64), (2, 256, 4, 2, 32), (1, 512, 8, 2, 64),
@@ -167,12 +186,18 @@ FLASH_CASES = [  # (b, s, h, kv, d, causal, dtype)
     # zamba2-7b's shared attention block: head dim 112, and its prefill shape
     (2, 200, 4, 4, 112, True, "float32"), (1, 256, 4, 4, 112, True, "bfloat16"),
     (4, 2048, 32, 32, 112, True, "bfloat16"),
+    # llama4-scout's GQA: 40 query heads on 8 kv heads (5:1), head dim 128,
+    # and its prefill shape
+    (1, 256, 40, 8, 128, True, "float32"),
+    (PREFILL_BATCH, PREFILL_LEN, 40, 8, 128, True, "bfloat16"),
 ]
 DECODE_CASES = [  # (b, s, h, kv, d, dtype), seeded random cache_len
     *[(*shape, dt) for shape in [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 32)]
       for dt in ("float32", "bfloat16")],
     (3, 300, 4, 2, 128, "float32"),
     (2, 300, 4, 4, 112, "float32"), (4, 512, 32, 32, 112, "bfloat16"),
+    # llama4-scout's GQA 40:8 at head dim 128
+    (2, 300, 40, 8, 128, "float32"), (4, 256, 40, 8, 128, "bfloat16"),
 ]
 # cache_len 1, the whole buffer, 0 (zeros) and s // 2 + 3; GQA 4:1, D = 112
 DECODE_EDGE_CASES = [(*shape, dt) for shape in [
@@ -195,17 +220,19 @@ SSD_CASES = [  # (b, s, h, p, g, n, dtype of x, B, C); dt, A and D are fp32
     *[(2, s, 4, p, 2, n, "bfloat16") for s in (1, 63, 64, 65, 601)
       for p, n in ((16, 8), (32, 64), (128, 64), (128, 8))],
 ]
-PREFILL_BATCH, PREFILL_LEN = 4, 2048
 # the full-width train phase: olmo-1b, 4x2048 tokens a step, timed steps
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 6
-# the recurrent families: layers at full width (fp32 params, grads and
-# AdamW moments take 16 bytes a param, 36.7 and 29.4 GB), layers of the
-# fp32 parity step, its gradient gate (of each leaf's largest entry), and
-# the scan's record_function; the train steps' peak may not pass
-# TRAIN_PEAK_BYTES (zamba2-7b at 27 layers, 35.7 GB, peaked at 73.9 GB on
-# an H100: its shared block's sites keep their activations outside remat)
-TRAIN_RECURRENT = {"rwkv6-7b": (8, 1, 2e-4, "wkv6_chunked"),
-                   "zamba2-7b": (21, 7, 1e-4, "ssd_chunked")}
+# the families trained at full width and reduced depth: layers of the timed
+# run (fp32 params, grads and AdamW moments take 16 bytes a param: 36.7,
+# 29.4 and 43.6 GB), layers and sequence length of the fp32 parity step
+# (batch 2), its gradient gate (of each leaf's largest entry), and the
+# scan's record_function (None: no scan); the train steps' peak may not
+# pass TRAIN_PEAK_BYTES (zamba2-7b at 27 layers, 35.7 GB, peaked at
+# 73.9 GB on an H100: its shared block's sites keep their activations
+# outside remat)
+TRAIN_FAMILIES = {"rwkv6-7b": (8, 1, 200, 2e-4, "wkv6_chunked"),
+                  "zamba2-7b": (21, 7, 200, 1e-4, "ssd_chunked"),
+                  "olmoe-1b-7b": (6, 1, 256, 1e-4, None)}
 TRAIN_PEAK_BYTES = 70e9
 # the checkpoint phase: supervised steps, a save every 2, a failure at step
 # 3; the lake needs two checkpoints of 14.1 GB and room
@@ -215,14 +242,41 @@ CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_FAIL_AT, CKPT_MIN_FREE = 4, 2, 3, 32e9
 # how far device memory may stay above its value before a job
 PLATFORM_LRS, PLATFORM_STEPS, PLATFORM_MIN_FREE = (3e-3, 1e-4), 8, 12e9
 MEMORY_RETURN_BYTES = 0.5e9
-# per model: slots, cache buffer, requests, new tokens each, prompt lengths
+# per model: slots, cache buffer, requests, new tokens each, prompt lengths;
+# SLICE_LAYERS cuts a model's depth (llama4-scout's 48 layers take 215 GB
+# in bf16; 2 layers, 6.47 B params, take 12.9 GB)
 SLICES = {"olmo-1b": (4, 1024, 8, 32, (128, 512)),
           "rwkv6-7b": (4, 512, 8, 16, (64, 256)),
-          "zamba2-7b": (4, 512, 8, 16, (64, 256))}
+          "zamba2-7b": (4, 512, 8, 16, (64, 256)),
+          "olmoe-1b-7b": (4, 1024, 8, 32, (128, 512)),
+          "llama4-scout-17b-a16e": (4, 256, 4, 16, (64, 128))}
+SLICE_LAYERS = {"llama4-scout-17b-a16e": 2}
+
+
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(name: str) -> None:
+    """Mark a phase's start with the script's elapsed seconds."""
+    log(f"== {name} at {time.perf_counter() - T0:.1f} s")
+
+
+def no_drop(cfg):
+    """An MoE config at capacity_factor E / k, where capacity is the call's
+    T tokens and no choice drops; other configs as they are. A prefill of
+    S tokens at the real capacity (1.25 k S / E slots an expert) drops
+    choices that serving, 4 tokens a tick at capacity 4, keeps, so the two
+    compute the same function only at this capacity (tests/test_torch_moe.py
+    holds both)."""
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
 
 
 def card_line() -> str:
@@ -259,11 +313,13 @@ def main() -> int:
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
     # -- 1. card ------------------------------------------------------------
+    phase("1. card")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
     # -- 2. build -----------------------------------------------------------
+    phase("2. build")
     t0 = time.perf_counter()
     logs = _build.build(verbose=True)
     log(f"build: {len(logs)} kernel source(s) in "
@@ -278,6 +334,7 @@ def main() -> int:
                 log(f"  {name} {entry}: {line.strip()}")
 
     # -- 3. kernels against their plain versions ----------------------------
+    phase("3. kernels")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.zeros(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
 
@@ -323,7 +380,7 @@ def main() -> int:
             "plain_ms": time_ms(lambda: fa.flash_attention_plain(qh, kh, vh),
                                 10),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True), 10),
+                qh, kh, vh, is_causal=True, enable_gqa=h != kv), 10),
         }
         row["bound_ms"], row["bound_by"] = bound(
             4 * d * b * h * (s * (s + 1) // 2),
@@ -342,6 +399,8 @@ def main() -> int:
                             f"{dt}", got, want.permute(0, 2, 1, 3), dt)
         if (b, s, h, d) == (PREFILL_BATCH, PREFILL_LEN, 32, 112):
             zamba_flash = flash_times(q, k, v)        # zamba2-7b's prefill shape
+        if (b, s, h, kv) == (PREFILL_BATCH, PREFILL_LEN, 40, 8):
+            llama4_flash = flash_times(q, k, v)    # llama4-scout's prefill shape
         del got, want
     for causal in (True, False):      # views of one (B, S, 3, H, D) buffer
         fused = randn((2, 300, 3, 4, 64), torch.bfloat16).unbind(2)
@@ -360,6 +419,8 @@ def main() -> int:
         **flash_times(q, k, v),
         "at_zamba2_7b": {"shape": [PREFILL_BATCH, PREFILL_LEN, 32, 32, 112],
                          **zamba_flash},
+        "at_llama4_scout": {"shape": [PREFILL_BATCH, PREFILL_LEN, 40, 8, 128],
+                            **llama4_flash},
     }
 
     log("kernels: decode attention against its plain version")
@@ -535,7 +596,8 @@ def main() -> int:
     del x, dtv, A, Bm, Cm, Dv, args
     rows = (flash_row, decode_row, wkv_row, ssd_row)
     for name, row in [(r["name"], r) for r in rows] + [
-            ("flash_attention at zamba2-7b's shape", zamba_flash)]:
+            ("flash_attention at zamba2-7b's shape", zamba_flash),
+            ("flash_attention at llama4-scout's shape", llama4_flash)]:
         lib = "null" if row["library_ms"] is None \
             else f"{row['library_ms']:.4f} ms"
         log(f"  {name}: {row['ms']:.4f} ms, plain "
@@ -557,8 +619,10 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- 4. small reference: the card's kernels against the CPU's plain path
+    phase("4. reference")
     log("reference: reduced configs, card against CPU, fp32")
-    for arch in ("olmo-1b", "qwen3-8b", "rwkv6-7b", "zamba2-7b"):
+    for arch in ("olmo-1b", "qwen3-8b", "rwkv6-7b", "zamba2-7b",
+                 "olmoe-1b-7b", "llama4-scout-17b-a16e"):
         cfg = get_arch(arch).reduced()
         cpu_params = M.init_params(cfg, 0, device="cpu")
         card_params = _to(cpu_params, dev)
@@ -587,9 +651,10 @@ def main() -> int:
             raise AssertionError(f"{arch}: card disagrees with the CPU")
 
     log("reference: full width at reduced depth, fp32, prefill against "
-        "serving on the card")
-    for arch, layers in (("olmo-1b", 2), ("rwkv6-7b", 2), ("zamba2-7b", 7)):
-        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        "serving on the card (MoE at the no-drop capacity)")
+    for arch, layers in (("olmo-1b", 2), ("rwkv6-7b", 2), ("zamba2-7b", 7),
+                         ("olmoe-1b-7b", 2)):
+        cfg = no_drop(dataclasses.replace(get_arch(arch), n_layers=layers))
         params = weights(cfg)
         rng = np.random.default_rng(2)
         prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (100, 37)]
@@ -614,13 +679,20 @@ def main() -> int:
                 "wkv6": wkv.wkv6_bhsk, "mamba2_ssd": ssd.ssd_bhsp}
     totals = dict.fromkeys(counters, 0)
     for arch, shape in SLICES.items():
-        cfg = get_arch(arch)
+        phase(f"5. slice {arch}")
+        full = get_arch(arch)
+        cfg = dataclasses.replace(full, n_layers=SLICE_LAYERS.get(
+            arch, full.n_layers))
         t0 = time.perf_counter()
         params = M.cast_params(weights(cfg), torch.bfloat16)
         free()
-        log(f"slice: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
-            f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
-            f"vocab {cfg.vocab_size}; weights in "
+        moe = "" if cfg.moe is None else (
+            f"; {cfg.moe.n_experts} experts of {cfg.moe.d_ff_expert}, top "
+            f"{cfg.moe.top_k}, {cfg.moe.n_shared_experts} shared")
+        log(f"slice: {cfg.name} {cfg.n_layers} of {full.n_layers} layers, "
+            f"d_model {cfg.d_model}, {cfg.n_heads} heads of "
+            f"{cfg.resolved_head_dim} on {cfg.n_kv_heads} kv heads, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}{moe}; weights in "
             f"{time.perf_counter() - t0:.2f} s")
         counts, prompts, pre16, served16 = run_slice(cfg, params, card,
                                                      counters, shape)
@@ -630,26 +702,29 @@ def main() -> int:
         free()
         params = weights(cfg)              # fp32, after the counts are read
         log("parity: " + json.dumps(check_parity(
-            cfg, params, prompts, pre16, served16, card)))
+            no_drop(cfg), params, prompts, pre16, served16, card)))
         del params
         free()
 
     # -- 6. training -----------------------------------------------------------
+    phase("6. train")
     check_train_parity(card, dev)
     log("train: " + json.dumps(run_train(card, counters, dev)))
     free()
-    check_recurrent_train_parity(card, dev)
+    check_family_train_parity(card, dev)
     free()
-    for arch in TRAIN_RECURRENT:
-        log("train: " + json.dumps(run_train_recurrent(card, counters, dev,
-                                                       arch)))
+    for arch in TRAIN_FAMILIES:
+        log("train: " + json.dumps(run_train_family(card, counters, dev,
+                                                    arch)))
         free()
 
     # -- 7. checkpoints and supervision ----------------------------------------
+    phase("7. checkpoints")
     log("checkpoint: " + json.dumps(run_checkpoints(card, counters, dev)))
     free()
 
     # -- 8. the platform on the card -------------------------------------------
+    phase("8. platform")
     engine = run_platform(card, counters, dev)
     for name, n in engine["launches"].items():
         totals[name] += n
@@ -659,6 +734,7 @@ def main() -> int:
         row["launches"] = totals[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    phase("end")
     print(json.dumps({"kernels": [
         {k: row[k] for k in keys + tuple(sorted(set(row) - set(keys)))}
         for row in rows]}))
@@ -690,10 +766,13 @@ def _enliven_rwkv(cfg, params, gen) -> None:
 
 def _enliven(cfg, params, gen) -> None:
     """Seed every leaf the reference initialises to zero: RWKV's as
-    _enliven_rwkv does, the hybrid's Mamba-2 conv biases (0.1 N(0, 1))."""
+    _enliven_rwkv does, the hybrid's Mamba-2 conv biases (0.1 N(0, 1)).
+    The dense and MoE families have none."""
     import torch
     if cfg.family == "ssm":
         _enliven_rwkv(cfg, params, gen)
+        return
+    if cfg.family != "hybrid":
         return
     for part in ("inner", "trailing"):
         m = params["layers"][part]["m"]
@@ -702,12 +781,39 @@ def _enliven(cfg, params, gen) -> None:
                                        device=gen.device)
 
 
+def _moe_drops(cfg, params, tokens) -> int:
+    """Choices that the first layer's MoE block drops at capacity in a
+    forward of ``tokens`` (fp32, on the params' device): the layer's input
+    to the block (embedding, attention, the two norms, as
+    ``transformer.layer_fwd`` runs them), then each expert's choices by the
+    block's own routing (``top_k_lower_first`` on the router's softmax)
+    less its capacity (``moe_capacity`` over all B * S tokens)."""
+    import torch
+
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import tree_map
+    lp = tree_map(lambda a: a[0], params["layers"])
+    ctx = M.make_ctx(cfg, tokens.shape[1], "prefill",
+                     compute_dtype=torch.float32, device=tokens.device)
+    with torch.no_grad():
+        x = M.embed_tokens(params, tokens, cfg, torch.float32)
+        x = x + B.attention_block(lp["attn"], B.apply_norm(lp["ln1"], x, cfg),
+                                  cfg, rope=ctx["rope"])[0]
+        h = B.apply_norm(lp["ln2"], x, cfg).reshape(-1, cfg.d_model)
+        probs = torch.softmax(h @ lp["moe"]["router"], -1)
+        idx = B.top_k_lower_first(probs, cfg.moe.top_k)[1]
+    counts = torch.bincount(idx.reshape(-1), minlength=cfg.moe.n_experts)
+    cap = B.moe_capacity(cfg, h.shape[0])
+    return int((counts - cap).clamp_min(0).sum())
+
+
 def launches_per_call(cfg) -> tuple[dict, dict]:
     """Kernel launches of one prefill call and of one decode tick, from the
     model's layout: every layer runs its block's kernel once."""
     from repro_torch.models import transformer as T
     lay = T.build_layout(cfg)
-    if lay["kind"] == "uniform" and lay["block"] == "dense":
+    if lay["kind"] == "uniform" and lay["block"] in ("dense", "moe"):
         return {"flash_attention": lay["n"]}, {"decode_attention": lay["n"]}
     if lay["kind"] == "uniform" and lay["block"] == "rwkv":
         return {"wkv6": lay["n"]}, {}
@@ -720,7 +826,11 @@ def run_slice(cfg, params, card, counters, shape):
     """One model's main path in bf16: prefill, serving, and each request's
     prompt through the prefill step, with the launch counters zeroed before
     and checked after. Returns the launch counts, the prompts, and each
-    request's prefill and served logits at its last prompt token."""
+    request's prefill and served logits at its last prompt token. The
+    timed prefills and the serving run the config as it is; an MoE
+    config's per-request prefills run at the no-drop capacity (no_drop),
+    the function serving computes, for the parity gate. An MoE slice also
+    profiles one prefill call and reports its MoE blocks' device time."""
     import numpy as np
     import torch
 
@@ -767,8 +877,9 @@ def run_slice(cfg, params, card, counters, shape):
            for o in res.outputs):
         raise AssertionError("served outputs of the wrong length or range")
 
-    pre16 = [prefill(params, {"tokens": torch.tensor([p])})[0].float().cpu()
-             for p in prompts]
+    parity_prefill = D.make_prefill_step(no_drop(cfg))
+    pre16 = [parity_prefill(params, {"tokens": torch.tensor([p])})[0]
+             .float().cpu() for p in prompts]
     torch.cuda.synchronize()
     launches = check("main path", 3 + requests, res.ticks)
     if not all(bool(torch.isfinite(t).all()) for t in pre16 + res.first_logits):
@@ -790,6 +901,9 @@ def run_slice(cfg, params, card, counters, shape):
     }
     log("slice: " + json.dumps(numbers))
     log("profile: " + json.dumps(profile_ticks(cfg, params, card, slots, buf)))
+    if cfg.moe is not None:
+        log("profile: " + json.dumps(profile_prefill(
+            cfg, params, card, lambda: prefill(params, {"tokens": tokens}))))
     return launches, prompts, pre16, res.first_logits
 
 
@@ -1046,15 +1160,19 @@ def check_remat(cfg, params, batch, tc, dev) -> None:
             raise AssertionError(f"{cfg.name}: remat {remat} changes grads")
 
 
-def check_recurrent_train_parity(card, dev) -> None:
-    """The recurrent train path at full width and reduced depth, fp32 (TF32
-    off), the zero-init leaves seeded (_enliven): rwkv6-7b with 1 layer
-    and zamba2-7b with 7 (one period of 5 Mamba-2 layers and the shared
-    attention block, then one trailing layer). One train step (its
-    gradients, then the AdamW update) on the card against the same step on
-    the CPU at 2x200 (three chunks of 64 and a ragged tail of 8). Gates:
-    loss within 1e-4 relative; every gradient leaf within TRAIN_RECURRENT's
-    gate of its largest entry: 1e-4 for zamba2-7b, as olmo-1b; 2e-4 for
+def check_family_train_parity(card, dev) -> None:
+    """The other families' train paths at full width and reduced depth,
+    fp32 (TF32 off), the zero-init leaves seeded (_enliven): rwkv6-7b with
+    1 layer, zamba2-7b with 7 (one period of 5 Mamba-2 layers and the
+    shared attention block, then one trailing layer) and olmoe-1b-7b with
+    1 (its aux loss in the loss). One train step (its gradients, then the
+    AdamW update) on the card against the same step on the CPU, at 2x200
+    (the scans: three chunks of 64 and a ragged tail of 8) or 2x256
+    (olmoe: capacity 80 against a mean load of 64 choices an expert, so
+    choices drop and the gate holds the routing too; _moe_drops counts
+    them on the CPU, and none fails the phase). Gates: loss within 1e-4 relative; every gradient leaf within
+    TRAIN_FAMILIES' gate of its largest entry: 1e-4 for zamba2-7b and
+    olmoe-1b-7b, as olmo-1b; 2e-4 for
     rwkv6-7b, as tests/test_torch_train_recurrent.py holds it, since its
     per-head group norm divides by small standard deviations and so
     enlarges the fp32 rounding of the scan (on the CPU at reduced width two
@@ -1072,17 +1190,18 @@ def check_recurrent_train_parity(card, dev) -> None:
     from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
                                              leaves)
 
+
     tc = T.TrainConfig(remat="full", compute_dtype="float32")
     oc = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=10)
     cpu = torch.device("cpu")
-    for arch, (_, layers, gate, _) in TRAIN_RECURRENT.items():
+    for arch, (_, layers, seq, gate, _) in TRAIN_FAMILIES.items():
         cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
         init = M.init_params(cfg, 0, device="cpu")
         _enliven(cfg, init, torch.Generator().manual_seed(1))
-        batch = TokenPipeline(DataConfig(vocab_size=64, seq_len=200,
+        batch = TokenPipeline(DataConfig(vocab_size=64, seq_len=seq,
                                          global_batch=2), cfg).batch_at(0)
         log(f"train: {cfg.name} at full width, {layers} layers, fp32: one "
-            f"step on the card against the CPU at 2x200 [{card}]")
+            f"step on the card against the CPU at 2x{seq} [{card}]")
         out = []
         for where in (cpu, dev):
             params = _to(init, where)
@@ -1093,6 +1212,13 @@ def check_recurrent_train_parity(card, dev) -> None:
             adamw_update(oc, params, grads, T.make_opt_state(params, tc))
             out.append((float(loss), grads, params,
                         time.perf_counter() - t0))
+        if cfg.moe is not None:
+            drops = _moe_drops(cfg, init, torch.as_tensor(batch["tokens"]))
+            log(f"  choices dropped at capacity in the first layer (CPU): "
+                f"{drops} of {2 * seq * cfg.moe.top_k}")
+            if not drops:
+                raise AssertionError(f"{arch}: no choice dropped, so the "
+                                     "gate would not hold the capacity")
         (cl, cg, cp, cs), (gl, gg, gp, _) = out
         loss_err, grad_err = abs(gl - cl) / abs(cl), _worst(gg, cg)
         param_err = max((a.cpu() - b).abs().max().item()
@@ -1121,7 +1247,10 @@ def train_flops(cfg, params, b: int, s: int) -> int:
     """Model FLOPs of one train step (forward and backward, remat's
     recompute not counted): 6 per weight that multiplies a token (the
     input embedding is a lookup, and is left out unless tied to the head;
-    the hybrid's shared block counts once per site), plus, per layer, the
+    the hybrid's shared block counts once per site; of an MoE layer's
+    routed experts only the top k of E count, as ``n_active_params``
+    counts them, and the capacity's empty slots are not model FLOPs),
+    plus, per layer, the
     sequential recurrence's 4 K V (WKV6) or 4 N P (SSD) per token and head
     and causal attention's 2 S D per query and head (half the pairs, QK^T
     and PV), each three times (forward, and backward at twice the
@@ -1132,7 +1261,11 @@ def train_flops(cfg, params, b: int, s: int) -> int:
     if not cfg.tie_embeddings:
         weights -= params["embed"].numel()
     lay, t = T.build_layout(cfg), b * s
-    if lay["kind"] == "uniform" and lay["block"] == "dense":
+    if lay["kind"] == "uniform" and lay["block"] == "moe":
+        m, moe = cfg.moe, params["layers"]["moe"]
+        weights -= sum(moe[k].numel() for k in ("w_gate", "w_up", "w_down")
+                       ) * (m.n_experts - m.top_k) // m.n_experts
+    if lay["kind"] == "uniform" and lay["block"] in ("dense", "moe"):
         return 6 * weights * t + 6 * lay["n"] * t * cfg.n_heads * s * \
             cfg.resolved_head_dim
     if lay["kind"] == "uniform":
@@ -1147,19 +1280,20 @@ def train_flops(cfg, params, b: int, s: int) -> int:
             + 6 * sites * t * cfg.n_heads * s * cfg.resolved_head_dim)
 
 
-def run_train_recurrent(card, counters, dev, arch) -> dict:
-    """rwkv6-7b or zamba2-7b at full width and TRAIN_RECURRENT's depth:
-    fp32 params (the zero-init leaves seeded), bf16 compute, remat "full",
-    AdamW (lr 1e-3, warmup 2), 4x2048 tokens a step from the synthetic
-    pipeline (data vocabulary 64). Six steps, the first a warm-up, then one
-    profiled step, with the launch counters zeroed before and read after:
-    no kernel may launch (the scans run in plain torch). Gates: every loss
-    finite; the last below the first; the steps' peak device memory at
-    most TRAIN_PEAK_BYTES. The profiled step is split by the op
-    that launched each kernel: the scan (``wkv6_chunked`` or
-    ``ssd_chunked``: the ops under its record_function and the backward
-    nodes of those ops), ``aten::mm`` (the weight matmuls and the head),
-    ``aten::bmm`` (the shared block's attention einsums) and the rest."""
+def run_train_family(card, counters, dev, arch) -> dict:
+    """rwkv6-7b, zamba2-7b or olmoe-1b-7b at full width and TRAIN_FAMILIES'
+    depth: fp32 params (the zero-init leaves seeded), bf16 compute, remat
+    "full", AdamW (lr 1e-3, warmup 2), 4x2048 tokens a step from the
+    synthetic pipeline (data vocabulary 64). Six steps, the first a
+    warm-up, then one profiled step, with the launch counters zeroed before
+    and read after: no kernel may launch (the scans and the MoE run in
+    plain torch). Gates: every loss finite; the last below the first; the
+    steps' peak device memory at most TRAIN_PEAK_BYTES. The profiled step
+    is split by the op that launched each kernel: the scan (``wkv6_chunked``
+    or ``ssd_chunked``: the ops under its record_function and the backward
+    nodes of those ops; none for olmoe), ``aten::mm`` (the weight matmuls,
+    the MoE router and the head), ``aten::bmm`` (the expert products and
+    the attention einsums) and the rest."""
     import math
 
     import torch
@@ -1170,7 +1304,7 @@ def run_train_recurrent(card, counters, dev, arch) -> dict:
     from repro_torch.train import train_step as T
     from repro_torch.train.optimizer import OptimizerConfig, leaves
 
-    layers, _, _, scan = TRAIN_RECURRENT[arch]
+    layers, _, _, _, scan = TRAIN_FAMILIES[arch]
     full = get_arch(arch)
     cfg = dataclasses.replace(full, n_layers=layers)
     b, s, steps = TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS
@@ -1943,7 +2077,7 @@ def profile_ticks(cfg, params, card, slots, buf, ticks: int = 20) -> dict:
         run()
     rows = _kernel_rows(prof, ticks)
     device_ms = sum(r[0] for r in rows) / 1e3
-    return {
+    out = {
         "arch": cfg.name, "card": card, "ticks": ticks,
         "wall_ms_per_tick": wall_ms,
         "device_ms_per_tick": device_ms if rows else "not measured",
@@ -1952,6 +2086,63 @@ def profile_ticks(cfg, params, card, slots, buf, ticks: int = 20) -> dict:
         "top": [{"kernel": k[:60], "us_per_tick": us, "per_tick": n}
                 for us, n, k in rows[:8]],
     }
+    if cfg.moe is not None:
+        out["moe_block_per_tick"] = _moe_ms(prof, ticks) if rows \
+            else "not measured"
+    return out
+
+
+def profile_prefill(cfg, params, card, fn) -> dict:
+    """One prefill call of an MoE model under torch.profiler: its device
+    ms, kernels, and its MoE blocks' device ms split as _moe_ms does. Runs
+    after the launch counts are read; it gates nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof, 1)
+    if not rows:
+        return {"arch": cfg.name, "prefill": "not measured"}
+    return {"arch": cfg.name, "card": card,
+            "prefill_shape": [PREFILL_BATCH, PREFILL_LEN],
+            "device_ms_per_prefill": sum(r[0] for r in rows) / 1e3,
+            "kernels_per_prefill": sum(r[1] for r in rows),
+            "moe_block_per_prefill": _moe_ms(prof, 1),
+            "top": [{"kernel": k[:60], "ms": us / 1e3, "count": n}
+                    for us, n, k in rows[:8]]}
+
+
+def _moe_ms(prof, calls: int) -> dict:
+    """Device ms per call of the kernels launched under the model's
+    ``moe_block`` record_function: the expert products (``aten::bmm``),
+    the rest of the block (routing, dispatch, combine, the aux loss, the
+    router and shared-expert matmuls), and the block's kernels per call.
+    The record_function's own device span is left out."""
+    from torch.autograd import DeviceType
+
+    def chain(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    out = {"bmm_ms": 0.0, "rest_ms": 0.0, "kernels": 0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels \
+                or e.is_user_annotation:
+            continue
+        names = [a.name for a in chain(e)]
+        if "moe_block" not in names:
+            continue
+        key = "bmm_ms" if "aten::bmm" in names else "rest_ms"
+        out[key] += sum(k.duration for k in e.kernels) / 1e3 / calls
+        out["kernels"] += len(e.kernels) / calls
+    out["block_ms"] = out["bmm_ms"] + out["rest_ms"]
+    return out
 
 
 def _to(tree, device):

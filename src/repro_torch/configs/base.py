@@ -269,4 +269,5 @@ def list_archs() -> list[str]:
 
 def _load_all() -> None:
     from repro_torch.configs import (  # noqa: F401
-        olmo_1b, qwen3_8b, rwkv6_7b, zamba2_7b)
+        qwen3_32b, qwen3_8b, mistral_nemo_12b, olmo_1b, olmoe_1b_7b,
+        llama4_scout, rwkv6_7b, zamba2_7b)

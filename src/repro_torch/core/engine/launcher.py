@@ -1,10 +1,13 @@
 """Job launcher + in-container agent (ACAI §4.2, §4.2.1).
 
 A copy of ``repro/core/engine/launcher.py``, with its imports in
-``repro_torch.core``, and two changes: once CUDA is initialised, the runner
-waits for the card before it reads a job's end time (``_elapsed``), so a
-runtime covers the job's device work and not only its launches; and the
-default ``workroot`` is ``<TMPDIR>/acai-jobs``, not a fixed ``/tmp`` path.
+``repro_torch.core``, and three changes: once CUDA is initialised, the
+runner waits for the stream a job ran on before it reads the job's end time
+(``_elapsed``), so a runtime covers the job's device work and not only its
+launches; each ``ThreadPoolRunner`` worker runs its jobs on a CUDA stream
+of its own, so that wait covers its own job and not the other workers'
+queued work; and the default ``workroot`` is ``<TMPDIR>/acai-jobs``, not a
+fixed ``/tmp`` path.
 
 The paper provisions a Kubernetes container whose pre-installed agent
 downloads code + input file set, runs the user command, uploads the output
@@ -58,26 +61,62 @@ from repro_torch.core.engine.registry import Job, JobRegistry
 _billing_lock = threading.Lock()
 
 
-def _elapsed(t0: float, *, quiet: bool = False) -> float:
-    """``perf_counter() - t0`` once the work queued on the process's CUDA
-    devices has ended (the port's one change to the runner). A CUDA launch
-    returns before its kernel runs, so a job fn that returns with work
-    still queued would otherwise get the time of its launches as its
-    runtime, its bill and the profiler's sample. The wait covers every
-    stream of every device, so on a card shared by concurrent workers it
-    also covers the other jobs' work. Only once CUDA is initialised: a
-    CPU-only process never touches CUDA and its records are the
-    reference's. ``quiet`` (the failure paths) drops an error of the wait
-    itself: the job is failing already, and the runner must still
-    finalize it."""
+def _elapsed(t0: float, stream=None, *, quiet: bool = False) -> float:
+    """``perf_counter() - t0`` once the work queued on the job's CUDA
+    stream has ended. A CUDA launch returns before its kernel runs, so a
+    job fn that returns with work still queued would otherwise get the time
+    of its launches as its runtime, its bill and the profiler's sample.
+    ``stream`` is the stream the job ran on (its worker's, see
+    ``ThreadPoolRunner``), or None for the stream current on this thread,
+    which is the one a ``LocalRunner`` job runs on. Only that stream is
+    waited for: device work a job puts on a side stream of its own (or on
+    another device) without joining it back to its stream is not. Only once
+    CUDA is initialised: a CPU-only process never touches CUDA and its
+    records are the reference's. ``quiet`` (the failure paths) drops an
+    error of the wait itself: the job is failing already, and the runner
+    must still finalize it."""
     if torch.cuda.is_initialized():
         try:
-            for dev in range(torch.cuda.device_count()):
-                torch.cuda.synchronize(dev)
+            (stream or torch.cuda.current_stream()).synchronize()
         except RuntimeError:
             if not quiet:
                 raise
     return time.perf_counter() - t0
+
+
+@contextmanager
+def _on_stream(stream):
+    """Run the body on ``stream`` (None: on the current stream, untouched).
+    The stream first waits for the work queued on its device's default
+    stream, so that inputs made there are ready before the job reads
+    them."""
+    if stream is None:
+        yield
+        return
+    stream.wait_stream(torch.cuda.default_stream(stream.device))
+    with torch.cuda.stream(stream):
+        yield
+
+
+def _hand_over(result, stream) -> None:
+    """Mark the CUDA tensors of a job's result dict (its values, and those
+    inside lists, tuples and dicts there) as used by their device's default
+    stream (``record_stream``), when the job ran on a worker's ``stream``.
+    Such a tensor was allocated from that stream's pool. Unmarked, a caller
+    that frees it while its default-stream kernels still read it would hand
+    the memory back to the worker stream at once, where a job already
+    running on that worker could take it and write over it."""
+    if stream is None or not isinstance(result, dict):
+        return
+    todo = list(result.values())
+    while todo:
+        v = todo.pop()
+        if isinstance(v, torch.Tensor) and v.is_cuda:
+            v.record_stream(torch.cuda.default_stream(v.device))
+        elif isinstance(v, (list, tuple)):
+            todo.extend(v)
+        elif isinstance(v, dict):
+            todo.extend(v.values())
 
 
 def _gang_width(job: Job) -> int:
@@ -178,6 +217,11 @@ class LocalRunner(Runner):
         """Capture the job fn's stdout into its log buffer."""
         return redirect_stdout(log_buf)
 
+    def _job_stream(self):
+        """The CUDA stream a job runs on: None, the caller's current
+        stream, for the synchronous runner."""
+        return None
+
     def launch(self, job: Job) -> None:
         bus, reg = self.bus, self.registry
         epoch = job.epoch        # incarnation this launch belongs to
@@ -196,6 +240,7 @@ class LocalRunner(Runner):
         workdir = self.workroot / job.job_id
         (workdir / "out").mkdir(parents=True, exist_ok=True)
         log_buf = io.StringIO()
+        stream = self._job_stream()
         t0 = time.perf_counter()
         try:
             if job.spec.input_fileset and self.datalake is not None:
@@ -205,8 +250,9 @@ class LocalRunner(Runner):
                                                    workdir)
             bus.publish(TOPIC_JOB_PROGRESS,
                         {"job_id": job.job_id, "stage": "running"})
-            with self._capture(log_buf):
+            with self._capture(log_buf), _on_stream(stream):
                 result = job.spec.fn(workdir, job) if job.spec.fn else None
+            _hand_over(result, stream)
             if job.epoch != epoch:
                 # superseded while the fn ran (preempted, but it never
                 # observed the signal): the live incarnation owns the
@@ -214,7 +260,7 @@ class LocalRunner(Runner):
                 # without uploading or finalizing, but bill the compute
                 # it really consumed (same as the cooperative path)
                 _bill_segment(resolve_pricing(self.pricing, job), job,
-                              _elapsed(t0))
+                              _elapsed(t0, stream))
                 bus.publish(TOPIC_JOB_PROGRESS,
                             {"job_id": job.job_id, "stage": "superseded",
                              "epoch": epoch})
@@ -225,7 +271,7 @@ class LocalRunner(Runner):
             # the (slow) upload cannot clobber the live incarnation's
             # outputs — its staged delta is simply dropped
             delta = dict(result) if isinstance(result, dict) else {}
-            runtime = _elapsed(t0)
+            runtime = _elapsed(t0, stream)
             job.runtime = job.spec.duration if job.spec.duration is not None \
                 else runtime
             ref = self._upload_outputs(job, workdir, bus)
@@ -243,7 +289,7 @@ class LocalRunner(Runner):
             # job would hang non-terminal forever.
             if job.epoch == epoch and \
                     reg.get(job.job_id).state == JobState.RUNNING:
-                job.runtime = _elapsed(t0, quiet=True)
+                job.runtime = _elapsed(t0, stream, quiet=True)
                 self._finalize(job, log_buf.getvalue()
                                + "\nJobPreempted without a scheduler "
                                "preemption", JobState.FAILED,
@@ -251,7 +297,7 @@ class LocalRunner(Runner):
                                epoch=epoch)
                 return
             _bill_segment(resolve_pricing(self.pricing, job), job,
-                          _elapsed(t0, quiet=True))
+                          _elapsed(t0, stream, quiet=True))
             bus.publish(TOPIC_JOB_PROGRESS,
                         {"job_id": job.job_id, "stage": "preempted",
                          "epoch": epoch})
@@ -259,13 +305,13 @@ class LocalRunner(Runner):
             # the job classified its own failure as retryable (lost
             # connection, flaky dependency): FAILED, but stamped transient
             # so a retry_on="transient" policy has a real signal
-            job.runtime = _elapsed(t0, quiet=True)
+            job.runtime = _elapsed(t0, stream, quiet=True)
             self._finalize(job, log_buf.getvalue()
                            + "\n" + traceback.format_exc(), JobState.FAILED,
                            error=traceback.format_exc(), epoch=epoch,
                            transient=True)
         except Exception:  # noqa: BLE001 — user code failure => FAILED
-            job.runtime = _elapsed(t0, quiet=True)
+            job.runtime = _elapsed(t0, stream, quiet=True)
             self._finalize(job, log_buf.getvalue()
                            + "\n" + traceback.format_exc(), JobState.FAILED,
                            error=traceback.format_exc(), epoch=epoch)
@@ -406,7 +452,23 @@ class ThreadPoolRunner(LocalRunner):
     """Concurrent LocalRunner: the same agent protocol (download -> run ->
     upload -> publish), executed on a bounded pool of worker threads so the
     scheduler can keep the cluster full. ``pending``/``step`` mirror the
-    virtual runner so ``run_to_completion`` drains either transparently."""
+    virtual runner so ``run_to_completion`` drains either transparently.
+
+    Once CUDA is initialised, each worker thread runs its jobs' fns on a
+    CUDA stream of its own (on the device current when the worker first
+    needs it), which first waits for the default stream's queued work; a
+    job's runtime waits for that stream only, so it excludes the other
+    workers' queued device work. Device work a job puts on a side stream of
+    its own without joining it back is not waited for. Tensors a job
+    returns in its result dict were made on its worker's stream, which the
+    runner has waited for before the job's handle resolves, and are marked
+    as used by the default stream (``_hand_over``), so the caller may read
+    and free them there; a caller that reads them on another stream calls
+    ``record_stream`` for it. The other direction is PyTorch's usual rule:
+    a job that drops the last reference to a tensor made on another stream
+    while its own stream may still read it calls ``record_stream`` first.
+    While CUDA is not initialised no stream is made and no CUDA call is
+    made, as in the reference."""
 
     threaded = True
 
@@ -425,6 +487,15 @@ class ThreadPoolRunner(LocalRunner):
         # (pending() -> 0 while the job still runs)
         self._inflight: dict[str, int] = {}
         self._completions = 0
+        self._worker = threading.local()       # each worker's CUDA stream
+
+    def _job_stream(self):
+        if not torch.cuda.is_initialized():
+            return None
+        stream = getattr(self._worker, "stream", None)
+        if stream is None:
+            stream = self._worker.stream = torch.cuda.Stream()
+        return stream
 
     @contextmanager
     def _capture(self, log_buf: io.StringIO):

@@ -34,12 +34,17 @@
 // scan) and tot its last value, per chunk, on mma.sync m16n8k16 (bf16 in,
 // fp32 accumulate), each warp owning 16 tokens and 16 state rows:
 //     G = C B^T                                   (Q x Q, depth N)
-//     L = G * exp(cum_t - cum_j) for t >= j, else 0   (bf16, in registers)
+//     L = G * exp(cum_t - cum_j) for t >= j, else 0   (a bf16 pair, in
+//                                                       registers)
 //     y = exp(cum_t) (C S_prev) + L xd + D x      (xd = dt x, bf16)
 //     S = exp(tot) S + B^T xw                     (xw = dt exp(tot - cum_j) x)
-// Every exponent is a masked, non-positive difference. The state S is the
-// fp32 mma accumulator of the warps; S_prev is its bf16 copy in shared
-// memory. y goes back through the chunk's x tile as coalesced rows. Masked
+// Every exponent is a masked, non-positive difference. L is held as a pair
+// of bf16 values, hi + lo, and L xd runs as two products: a single bf16 L
+// (8 bits) put some outputs past the 2e-2 tolerance of tests/test_kernels.py
+// at zamba2-7b's prefill shape (4 x 2048 x 112 heads; G = C B^T sums N = 64
+// products, so L reaches about 16 where y may be below 0.1). The state S
+// is the fp32 mma accumulator of the warps; S_prev is its bf16 copy in
+// shared memory. y goes back through the chunk's x tile as coalesced rows. Masked
 // tokens get dt = 0 (decay 1, xd = 0), so they leave S unchanged. A chunk
 // is a chain of dependent steps (scan, products, decays, barriers), so the
 // walk is bound by their latency, not by the tensor cores; two CTAs share
@@ -264,7 +269,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // 2^v in one MUFU.EX2, subnormal results flushed to 0. The decays are
-// rounded to bf16 right after, so its error (about 2^-22) does not show;
+// rounded to a bf16 pair (16 bits) right after, so its error (about
+// 2^-22) does not show;
 // __expf compiled to a slower sequence here and took a third of the
 // kernel's time (PERF.md).
 __device__ __forceinline__ float ex2(float v) {
@@ -276,6 +282,15 @@ __device__ __forceinline__ float ex2(float v) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) as a bf16 pair: *h the rounded values, the return their residuals
+__device__ __forceinline__ uint32_t pack_bf16_split(float a, float b,
+                                                    uint32_t* h) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  *h = *reinterpret_cast<const uint32_t*>(&v);
+  const float2 f = __bfloat1622float2(v);
+  return pack_bf16(a - f.x, b - f.y);
 }
 
 // Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 gr + tq. An fp32
@@ -410,9 +425,9 @@ ssd_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     }
 
     // L = G 2^(cum_t - cum_j), masked to t >= j before the exponential; as
-    // bf16 A fragments over k = j
+    // bf16 A fragments over k = j, hi (lf) and lo (lr)
     const float cta = s_cum[ta], ctb = s_cum[tb];
-    uint32_t lf[CQ / 16][4];
+    uint32_t lf[CQ / 16][4], lr[CQ / 16][4];
 #pragma unroll
     for (int jp = 0; jp < CQ / 16; ++jp) {
 #pragma unroll
@@ -420,12 +435,14 @@ ssd_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         const int nt = 2 * jp + half, j = 8 * nt + 2 * tq;
         const float cj0 = s_cum[j], cj1 = s_cum[j + 1];
         const float* gv = gacc[nt];
-        lf[jp][2 * half] = pack_bf16(
+        lr[jp][2 * half] = pack_bf16_split(
             j <= ta ? gv[0] * ex2(fminf(cta - cj0, 0.f)) : 0.f,
-            j + 1 <= ta ? gv[1] * ex2(fminf(cta - cj1, 0.f)) : 0.f);
-        lf[jp][2 * half + 1] = pack_bf16(
+            j + 1 <= ta ? gv[1] * ex2(fminf(cta - cj1, 0.f)) : 0.f,
+            &lf[jp][2 * half]);
+        lr[jp][2 * half + 1] = pack_bf16_split(
             j <= tb ? gv[2] * ex2(fminf(ctb - cj0, 0.f)) : 0.f,
-            j + 1 <= tb ? gv[3] * ex2(fminf(ctb - cj1, 0.f)) : 0.f);
+            j + 1 <= tb ? gv[3] * ex2(fminf(ctb - cj1, 0.f)) : 0.f,
+            &lf[jp][2 * half + 1]);
       }
     }
 
@@ -489,6 +506,8 @@ ssd_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         ldsm_b_pair(bfr, s_xd, XLD, 16 * jp, 16 * pp, lane);
         mma_bf16(yacc[2 * pp], lf[jp], bfr[0], bfr[1]);
         mma_bf16(yacc[2 * pp + 1], lf[jp], bfr[2], bfr[3]);
+        mma_bf16(yacc[2 * pp], lr[jp], bfr[0], bfr[1]);
+        mma_bf16(yacc[2 * pp + 1], lr[jp], bfr[2], bfr[3]);
       }
     }
     // + D x, rounded once to bf16 over this warp's own rows of the x tile

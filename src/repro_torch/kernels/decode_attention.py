@@ -37,7 +37,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_GROUP = 32                  # query heads per kv head
 V_BYTES = 32 * 1024             # V a CTA holds in registers at head dim 128
-_tickets: dict = {}             # device -> int32 zeros the kernel leaves zero
+_tickets: dict = {}   # (device, stream) -> int32 zeros the kernel leaves zero
 
 
 def split_size(s: int, rows: int, elem_size: int, sms: int) -> int:
@@ -149,7 +149,7 @@ def _launch(q, k_cache, v_cache, cache_len):
     rc = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
         o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        _ticket_buffer(q.device, b * kv).data_ptr(),
+        _ticket_buffer(q.device, stream, b * kv).data_ptr(),
         _DTYPES[q.dtype], b, s, h, kv, d, split,
         q.stride(0), q.stride(1),
         k_cache.stride(0), k_cache.stride(2), k_cache.stride(1),
@@ -163,13 +163,16 @@ def _launch(q, k_cache, v_cache, cache_len):
     return o
 
 
-def _ticket_buffer(device, n: int):
-    """The per-device int32 tickets, one per (batch row, kv head), zeroed
-    once (one fill kernel when the buffer first grows) and left zero by
-    every launch, so a call enqueues no kernel but the decode kernel. Calls
-    on one device must not run concurrently on two streams."""
-    buf = _tickets.get(device)
+def _ticket_buffer(device, stream: int, n: int):
+    """The int32 tickets of one (device, stream), one per (batch row, kv
+    head), zeroed once on that stream (one fill kernel when the buffer
+    first grows) and left zero by every launch, so a call enqueues no
+    kernel but the decode kernel. Launches on one stream run in order, so
+    each counts on its own zeroed tickets; launches on two streams never
+    share a buffer, and may run at once."""
+    key = (device, stream)
+    buf = _tickets.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _tickets[device] = buf
+        _tickets[key] = buf
     return buf

@@ -83,12 +83,13 @@ def lm_logits(params, x, cfg: ArchConfig):
 
 
 def forward(params, tokens, cfg: ArchConfig, ctx: dict, states=None):
-    """Returns (logits, aux, states). aux is the auxiliary loss, a 0-d fp32
-    zero: no block of the port has one (MoE's load-balancing loss is the
-    reference's only)."""
+    """Returns (logits, aux, states). aux is the auxiliary loss summed over
+    the layers (MoE's load-balancing loss), a 0-d fp32 tensor: zero for a
+    model without MoE layers."""
     x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"])
-    x, states = T.apply_stack(params, x, cfg, ctx, states)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux, states = T.apply_stack(params, x, cfg, ctx, states)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return lm_logits(params, x, cfg), aux, states
 
 
@@ -115,13 +116,14 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: dict):
     runs on the last position only: each row's logits depend on that row
     alone, so the values are those of the reference's full-sequence head."""
     x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"])
-    x, _ = T.apply_stack(params, x, cfg, ctx)
+    x, _, _ = T.apply_stack(params, x, cfg, ctx)      # aux is not needed
     return lm_logits(params, x[:, -1:], cfg)[:, 0]
 
 
 def decode_step(params, tokens, states, cache_len, cfg: ArchConfig,
                 ctx: dict):
     """One-token decode. tokens (B, 1); states from init_decode_state,
-    updated in place. Returns (logits (B, 1, V), states)."""
+    updated in place. Returns (logits (B, 1, V), states); the aux loss is
+    dropped, as in the reference."""
     logits, _, states = forward(params, tokens, cfg, ctx, states)
     return logits, states

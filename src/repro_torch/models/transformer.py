@@ -2,7 +2,8 @@
 
 Layouts, as in the reference:
   uniform : all layers of one block kind, params stacked along dim 0
-            -> dense (olmo-1b, qwen3-8b) and rwkv (rwkv6-7b)
+            -> dense (olmo-1b, qwen3-8b), moe (olmoe-1b-7b, llama4-scout)
+               and rwkv (rwkv6-7b)
   periodic: periods of [inner_n stacked layers + one special layer], then
             trailing inner layers
             -> hybrid (zamba2-7b): (5 mamba + 1 *shared* attention block)
@@ -10,7 +11,7 @@ Layouts, as in the reference:
 
 The reference's ``lax.scan``s over layers become loops over the stacked
 dims. The decode state has the same stacking as the params:
-  dense : {"layers": (k, v)}, each (L, B, S, KV, D)
+  dense, moe: {"layers": (k, v)}, each (L, B, S, KV, D)
   rwkv  : {"layers": (wkv (L, B, H, K, K) fp32, tm_last, cm_last (L, B, 1, D))}
   hybrid: {"inner": (ssm (P, I, B, H, N, Pd) fp32, conv (P, I, B, W-1, C)),
            "single": (k, v) per attention site, each (P, B, S, KV, D),
@@ -23,8 +24,11 @@ reference remats its inner scan body (one layer); the hybrid's shared
 attention block runs outside it, as the reference's outer scan body is not
 rematerialised, and its weights gather the gradients of every site. The
 RWKV and Mamba layers take their differentiable ``wkv6_chunked`` and
-``ssd_chunked`` there, not the kernels. The VLM cross-attention block and
-MoE are not ported.
+``ssd_chunked`` there, not the kernels. Each layer returns its auxiliary
+loss beside x (MoE's load-balancing loss; None for a block without one),
+and the stack sums them, as the reference's scans carry aux; under remat
+the checkpointed layer returns both. The VLM cross-attention block is not
+ported.
 """
 from __future__ import annotations
 
@@ -41,17 +45,20 @@ from repro_torch.models import rwkv as R
 
 
 def build_layout(cfg: ArchConfig) -> dict:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported")
+    """The reference's layouts. With ``cfg.moe`` set, every layer is a
+    ``moe`` layer, as in the reference, whatever ``moe_every`` says
+    (``layer_kinds`` and ``n_params`` count dense layers between; no config
+    sets it; ROADMAP C, quirk)."""
     if cfg.family == "hybrid":
         k = cfg.hybrid_attn_every
         periods = cfg.n_layers // k
         return {"kind": "periodic", "periods": periods, "inner_n": k - 1,
                 "inner_block": "mamba", "single_block": "shared_attn",
                 "trailing": cfg.n_layers - periods * k}
-    if cfg.family in ("dense", "ssm"):
-        return {"kind": "uniform", "n": cfg.n_layers,
-                "block": "rwkv" if cfg.family == "ssm" else "dense"}
+    if cfg.family in ("dense", "moe", "ssm"):
+        block = "rwkv" if cfg.family == "ssm" else \
+            "moe" if cfg.moe is not None else "dense"
+        return {"kind": "uniform", "n": cfg.n_layers, "block": block}
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family} family is not ported")
 
@@ -61,6 +68,11 @@ def init_layer(block: str, cfg: ArchConfig, gen: torch.Generator, lead=()):
     if block in ("dense", "shared_attn"):
         return {"attn": B.init_attention(cfg, gen, lead),
                 "mlp": B.init_mlp(cfg, gen, lead),
+                "ln1": B.init_norm(cfg, lead, dev),
+                "ln2": B.init_norm(cfg, lead, dev)}
+    if block == "moe":
+        return {"attn": B.init_attention(cfg, gen, lead),
+                "moe": B.init_moe(cfg, gen, lead),
                 "ln1": B.init_norm(cfg, lead, dev),
                 "ln2": B.init_norm(cfg, lead, dev)}
     if block == "rwkv":
@@ -99,10 +111,12 @@ def unused_subtrees(cfg: ArchConfig) -> tuple[str, ...]:
 
 
 def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
-    """One layer. Returns (x, state); a decode state is updated in place."""
+    """One layer. Returns (x, state, aux); a decode state is updated in
+    place; aux is the layer's auxiliary loss, None for a block without
+    one."""
     decode = ctx["mode"] == "decode"
     train = ctx["mode"] == "train"
-    if block in ("dense", "shared_attn"):
+    if block in ("dense", "moe", "shared_attn"):
         h = B.apply_norm(p["ln1"], x, cfg)
         o, state = B.attention_block(
             p["attn"], h, cfg, rope=ctx.get("rope"),
@@ -111,7 +125,10 @@ def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
             attn_impl=ctx["attn_impl"] if train else None)
         x = x + o
         h = B.apply_norm(p["ln2"], x, cfg)
-        return x + B.mlp_block(p["mlp"], h), state
+        if block == "moe":
+            y, aux = B.moe_block(p["moe"], h, cfg)
+            return x + y, state, aux
+        return x + B.mlp_block(p["mlp"], h), state, None
     if block == "rwkv":
         wkv, tm_last, cm_last = state if decode else (None, None, None)
         h = B.apply_norm(p["ln1"], x, cfg)
@@ -124,11 +141,11 @@ def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
         if decode:       # the next token shifts in this token's normed inputs
             tm_last.copy_(h[:, -1:])
             cm_last.copy_(h2[:, -1:])
-        return x, state
+        return x, state, None
     if block == "mamba":
         h = B.apply_norm(p["ln1"], x, cfg)
         o, state = M.mamba_block(p["m"], h, cfg, state=state, train=train)
-        return x + o, state
+        return x + o, state, None
     raise NotImplementedError(block)
 
 
@@ -162,22 +179,30 @@ def _maybe_remat(fn, ctx):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
-def _run(block, stacked, n, x, cfg, ctx, states):
+def _add(total, aux):
+    return aux if total is None else total if aux is None else total + aux
+
+
+def _run(block, stacked, n, x, cfg, ctx, states, aux=None):
+    """n stacked layers; returns (x, aux), aux summed onto ``aux``."""
     if ctx["mode"] == "train":
         fwd = _maybe_remat(
-            lambda p, x: layer_fwd(block, p, x, cfg, ctx)[0], ctx)
+            lambda p, x: layer_fwd(block, p, x, cfg, ctx)[::2], ctx)
         for i in range(n):
-            x = fwd(_layer(stacked, i), x)
-        return x
+            x, a = fwd(_layer(stacked, i), x)
+            aux = _add(aux, a)
+        return x, aux
     for i in range(n):
         st = None if states is None else _layer(states, i)
-        x, _ = layer_fwd(block, _layer(stacked, i), x, cfg, ctx, st)
-    return x
+        x, _, a = layer_fwd(block, _layer(stacked, i), x, cfg, ctx, st)
+        aux = _add(aux, a)
+    return x, aux
 
 
 def apply_stack(params, x, cfg: ArchConfig, ctx: dict, states=None):
     """Run all layers. states: decode state (updated in place) or None.
-    Returns (x, states)."""
+    Returns (x, aux, states): aux is the sum of the layers' auxiliary
+    losses, a 0-d fp32 tensor, or None where no layer has one."""
     layout = build_layout(cfg)
     decode = ctx["mode"] == "decode"
 
@@ -185,20 +210,21 @@ def apply_stack(params, x, cfg: ArchConfig, ctx: dict, states=None):
         return states[key] if decode else None
 
     if layout["kind"] == "uniform":
-        x = _run(layout["block"], params["layers"], layout["n"], x, cfg, ctx,
-                 part("layers"))
-        return x, states
-    inner = layout["inner_block"]
+        x, aux = _run(layout["block"], params["layers"], layout["n"], x, cfg,
+                      ctx, part("layers"))
+        return x, aux, states
+    inner, aux = layout["inner_block"], None
     for i in range(layout["periods"]):
-        x = _run(inner, _layer(params["layers"]["inner"], i),
-                 layout["inner_n"], x, cfg, ctx,
-                 _layer(states["inner"], i) if decode else None)
-        x, _ = layer_fwd(layout["single_block"], params["shared_block"], x,
-                         cfg, ctx, _layer(states["single"], i) if decode
-                         else None)
-    x = _run(inner, params["layers"]["trailing"], layout["trailing"], x, cfg,
-             ctx, part("trailing"))
-    return x, states
+        x, aux = _run(inner, _layer(params["layers"]["inner"], i),
+                      layout["inner_n"], x, cfg, ctx,
+                      _layer(states["inner"], i) if decode else None, aux)
+        x, _, a = layer_fwd(layout["single_block"], params["shared_block"],
+                            x, cfg, ctx, _layer(states["single"], i)
+                            if decode else None)
+        aux = _add(aux, a)
+    x, aux = _run(inner, params["layers"]["trailing"], layout["trailing"], x,
+                  cfg, ctx, part("trailing"), aux)
+    return x, aux, states
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, buffer_len: int,

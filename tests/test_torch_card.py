@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions, the
-train path's scans, and the reduced models on the card against the CPU. Needs only torch and numpy, so
+train path's scans, the reduced models (MoE included) on the card against
+the CPU, decode on two streams at once and the thread runner's per-worker
+streams. Needs only torch and numpy, so
 it runs where JAX is absent; every test here is marked ``cuda`` and skips
 without a card:
 
@@ -28,6 +30,7 @@ from repro_torch.kernels import wkv6 as wkv  # noqa: E402
 from repro_torch.models import mamba as MB  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import rwkv as R  # noqa: E402
+from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.serve import decode as D  # noqa: E402
 from repro_torch.train.checkpoints import CheckpointManager  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
@@ -54,9 +57,11 @@ FLASH_CASES = [
       for shape in [(1, 100, 2, 1, 64), (2, 601, 8, 2, 80), (1, 601, 4, 1, 16),
                     (2, 300, 8, 2, 112)]
       for causal in (True, False)],
+    # llama4-scout's GQA: 40 query heads on 8 kv heads (5:1), head dim 128
+    (1, 256, 40, 8, 128, True, "float32"), (2, 512, 40, 8, 128, True, "bfloat16"),
 ]
 DECODE_SHAPES = [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 32), (3, 300, 4, 2, 128),
-                 (2, 300, 4, 4, 112)]
+                 (2, 300, 4, 4, 112), (4, 256, 40, 8, 128)]
 # cache_len of 1, of the whole buffer and of 0 (zeros), GQA 4:1, head dim 112
 DECODE_EDGE_SHAPES = [(4, 1024, 16, 16, 128), (3, 512, 8, 2, 128),
                       (3, 300, 16, 4, 112), (2, 64, 4, 1, 64)]
@@ -463,7 +468,7 @@ def test_kernel_launches_refuse_grad(card):
     assert [c.launches for c in counters] == before
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b", "olmoe-1b-7b"])
 def test_reduced_train_step_on_card_matches_cpu(card, arch):
     """fp32 loss and gradients of the reduced model on the card against the
     CPU (GQA and qk-norm with qwen3-8b; S = 1040 takes the chunked
@@ -499,7 +504,8 @@ def test_reduced_train_step_on_card_matches_cpu(card, arch):
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b", "rwkv6-7b",
-                                  "zamba2-7b"])
+                                  "zamba2-7b", "olmoe-1b-7b",
+                                  "llama4-scout-17b-a16e"])
 def test_reduced_model_on_card_matches_cpu(card, arch):
     cfg = get_arch(arch).reduced()
     cpu = M.init_params(cfg, 0, device="cpu")
@@ -598,6 +604,143 @@ def test_thread_runner_runtime_covers_queued_device_work(card, tmp_path):
     assert 1e3 * job.runtime >= spin_ms
     assert job.cost > 0
     eng.launcher.shutdown()
+
+
+def test_thread_workers_time_their_own_streams(card, tmp_path):
+    """Two workers: one job leaves a long spin queued on its worker's
+    stream and returns; the other, started while the spin is queued, runs
+    a short elementwise kernel on its own worker's stream. The short job's
+    runtime excludes the spin, the long job's covers it, and each ran on a
+    stream of its own, not the default stream. Two warm-up jobs, held
+    together by a barrier so that each worker runs one, first make each
+    worker's stream and its cached memory (a device allocation during the
+    spin could wait for it)."""
+    cycles = 400_000_000
+    spin_ms = _spin_ms(cycles)
+    assert spin_ms > 100
+    eng = AcaiEngine(runner="thread", max_workers=2, workroot=str(tmp_path))
+    spec = dict(project="p", user="u", resources={"vcpu": 1, "mem_mb": 512})
+    x = torch.ones(256, 256, device=card)
+    both, queued, streams = threading.Barrier(2), threading.Event(), {}
+
+    def warm_up(workdir, job):
+        both.wait(60)
+        (x * 2).sum()
+
+    def long_job(workdir, job):
+        streams["long"] = torch.cuda.current_stream().cuda_stream
+        torch.cuda._sleep(cycles)
+        queued.set()
+
+    def short_job(workdir, job):
+        assert queued.wait(60)
+        streams["short"] = torch.cuda.current_stream().cuda_stream
+        (x * 2).sum()
+
+    for h in [eng.submit(JobSpec(name=f"warm-{i}", fn=warm_up, **spec))
+              for i in range(2)]:
+        assert h.wait(timeout=120).value == "FINISHED", h.job.error
+    h_long = eng.submit(JobSpec(name="long", fn=long_job, **spec))
+    h_short = eng.submit(JobSpec(name="short", fn=short_job, **spec))
+    assert h_short.wait(timeout=120).value == "FINISHED", h_short.job.error
+    assert h_long.wait(timeout=120).value == "FINISHED", h_long.job.error
+    default = torch.cuda.default_stream().cuda_stream
+    assert len({streams["long"], streams["short"], default}) == 3
+    assert 1e3 * h_short.job.runtime < spin_ms / 2
+    assert 1e3 * h_long.job.runtime >= spin_ms
+    eng.launcher.shutdown()
+
+
+def test_job_output_freed_on_the_default_stream_is_not_reused_early(
+        card, tmp_path):
+    """A job's result tensor was made on its worker's stream. The caller
+    reads it on the default stream behind a long spin and frees it while a
+    second job on the same worker (one worker) is already running; that job
+    then makes a tensor of the same size and fills it. The caller's read
+    still sees the first job's values: the runner marked the result as used
+    by the default stream, so the worker stream's pool does not hand the
+    memory out again before that read has run."""
+    n = 1 << 20
+    torch.ones(1, device=card)          # CUDA initialised: workers' streams
+    eng = AcaiEngine(runner="thread", max_workers=1, workroot=str(tmp_path))
+    spec = dict(project="p", user="u", resources={"vcpu": 1, "mem_mb": 512})
+    started, freed = threading.Event(), threading.Event()
+
+    def make(workdir, job):
+        assert torch.cuda.current_stream() != torch.cuda.default_stream()
+        return {"out": torch.full((n,), 1.0, device=card)}
+
+    def overwrite(workdir, job):
+        started.set()
+        assert freed.wait(60)
+        torch.full((n,), 2.0, device=card)
+
+    h = eng.submit(JobSpec(name="make", fn=make, **spec))
+    out = h.result(timeout=120)["out"]
+    h.job.outputs.pop("out")
+    h2 = eng.submit(JobSpec(name="overwrite", fn=overwrite, **spec))
+    assert started.wait(60)
+    torch.cuda._sleep(400_000_000)      # the default stream is busy ...
+    seen = out.clone()                  # ... and reads out after the spin
+    del out
+    freed.set()
+    assert h2.wait(timeout=120).value == "FINISHED", h2.job.error
+    torch.cuda.synchronize()
+    assert bool((seen == 1.0).all())
+    eng.launcher.shutdown()
+
+
+def test_decode_on_two_streams_at_once(card):
+    """Two streams decode different inputs at once, at a shape that splits
+    each row over several CTAs (a 1024 buffer: 8 splits, merged through
+    the tickets): each output equals its one-stream output bit for bit, so
+    the two streams' launches never count on one ticket buffer."""
+    shapes = [(4, 1, 16, 128), (4, 1024, 16, 128), (4, 1024, 16, 128)]
+    inputs = [_randn(seed, shapes, "bfloat16", card) for seed in (40, 41)]
+    lens = torch.tensor([1024, 900, 700, 1000], dtype=torch.int32, device=card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert 1024 // dec.split_size(1024, 4 * 16, 2, sms) > 1
+    want = [ops.decode_attention(*ins, lens) for ins in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    got = [[], []]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for st in streams:                 # both start behind a spin, together
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(50_000_000)
+    for _ in range(20):
+        for i, (st, ins) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(st):
+                got[i].append(ops.decode_attention(*ins, lens))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for out in got[i]:
+            assert torch.equal(out, want[i])
+
+
+def test_moe_decode_tick_makes_no_host_sync(card):
+    """One decode tick of reduced olmoe-1b-7b and llama4-scout on the card
+    under ``torch.cuda.set_sync_debug_mode("error")``: routing, capacity,
+    dispatch and combine read nothing back to the host and take no shape
+    from the data (as a CUDA graph would need). The tick's context is made
+    before, since ``make_ctx`` checks the positions on the host."""
+    for arch in ("olmoe-1b-7b", "llama4-scout-17b-a16e"):
+        cfg = get_arch(arch).reduced()
+        params = M.init_params(cfg, 0, device=card)
+        states = TF.init_decode_state(cfg, 4, 16, device=card)
+        tokens = torch.tensor([[1], [2], [3], [4]], device=card)
+        cache_len = torch.tensor([0, 3, 5, 7], dtype=torch.int32, device=card)
+        ctx = M.make_ctx(cfg, 16, "decode", cache_len=cache_len, device=card)
+        M.decode_step(params, tokens, states, cache_len, cfg, ctx)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, _ = M.decode_step(params, tokens, states, cache_len, cfg,
+                                      ctx)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert logits.shape == (4, 1, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
 
 
 def test_kernels_launch_from_an_agent_thread(card, tmp_path):

@@ -15,7 +15,8 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_arch as port_arch  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
-ARCHS = ["olmo-1b", "qwen3-8b", "rwkv6-7b", "zamba2-7b"]
+ARCHS = ["olmo-1b", "qwen3-8b", "rwkv6-7b", "zamba2-7b", "olmoe-1b-7b",
+         "llama4-scout-17b-a16e"]
 
 
 def _jax_params(arch):
@@ -101,3 +102,20 @@ def test_zamba2_periodic_structure_and_shared_block():
     assert set(ours) == {"embed", "final_norm", "layers", "lm_head",
                          "shared_block"}
     assert tuple(ours["shared_block"]["ln1"]["scale"].shape) == (cfg.d_model,)
+
+
+def test_moe_subtrees_round_trip():
+    """The stacked ``moe`` subtree (router, experts) and llama4-scout's
+    nested ``moe/shared`` MLP cross the bridge both ways, bit for bit, under
+    the reference's checkpoint key paths."""
+    ref = _jax_params("llama4-scout-17b-a16e")
+    flat = convert.flatten(convert.from_numpy(ref))
+    cfg = get_arch("llama4-scout-17b-a16e").reduced()
+    m = cfg.moe
+    assert tuple(flat["layers/moe/w_gate"].shape) == (
+        cfg.n_layers, m.n_experts, cfg.d_model, m.d_ff_expert)
+    assert tuple(flat["layers/moe/shared/w_down"].shape) == (
+        cfg.n_layers, m.n_shared_experts * m.d_ff_shared, cfg.d_model)
+    back = _flatten(convert.to_numpy(convert.from_numpy(ref)))
+    for key in ("layers/moe/router", "layers/moe/shared/w_gate"):
+        np.testing.assert_array_equal(back[key], _flatten(ref)[key])

@@ -320,7 +320,8 @@ def test_ssd_strong_decay_stays_finite():
 def _chunked_bf16_mirror(x, dt, A, Bm, Cm, D, chunk=64):
     """The bf16 SSD kernel's arithmetic (csrc/mamba2_ssd.cu,
     ``ssd_chunk_kernel``) in plain torch: per chunk, G = C Bᵀ of the bf16
-    inputs in fp32; L = G exp(cum_t - cum_j), masked, rounded to bf16;
+    inputs in fp32; L = G exp(cum_t - cum_j), masked, held as a bf16 pair
+    (hi = bf16(L) and lo = bf16(L - hi), the two products summed in fp32);
     xd = dt x and xw = dt exp(tot - cum_j) x rounded to bf16; y =
     exp(cum_t) (C bf16(S)) + L xd + D x in fp32, rounded once to bf16;
     S = exp(tot) S + Bᵀ xw in fp32. x, dt: (B, S, H, P), (B, S, H)."""
@@ -344,7 +345,8 @@ def _chunked_bf16_mirror(x, dt, A, Bm, Cm, D, chunk=64):
         diff = cum[..., :, None] - cum[..., None, :]
         dec = torch.exp(torch.where(lower, diff.clamp(max=0.0),
                                     torch.full_like(diff, -float("inf"))))
-        L = bf((cc @ bc.transpose(-1, -2)) * dec)
+        L = (cc @ bc.transpose(-1, -2)) * dec
+        L = bf(L) + bf(L - bf(L))
         xd = bf(xc * dc[..., None])
         ys.append(torch.exp(cum)[..., None] * (cc @ bf(state)) + L @ xd
                   + xc * D.float()[None, :, None, None])

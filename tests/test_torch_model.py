@@ -1,6 +1,7 @@
 """The port's blocks and model against ``repro.models`` on the same inputs and
-converted weights (reduced olmo-1b, qwen3-8b, rwkv6-7b and zamba2-7b, on the
-CPU)."""
+converted weights (reduced olmo-1b, qwen3-8b, qwen3-32b, mistral-nemo-12b,
+rwkv6-7b, zamba2-7b, and the MoE configs' fp32 logits, on the CPU; the MoE
+block itself is in test_torch_moe.py)."""
 import dataclasses
 
 import pytest
@@ -24,6 +25,10 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import rwkv as R  # noqa: E402
 
 ARCHS = ["olmo-1b", "qwen3-8b"]
+# the dense configs copied with the MoE family (GQA 8:1 at full size)
+DENSE_MORE = ["qwen3-32b", "mistral-nemo-12b"]
+# the MoE family; its bf16 logits follow the rule in test_torch_moe.py
+MOE = ["olmoe-1b-7b", "llama4-scout-17b-a16e"]
 # the recurrent families; "@7" runs zamba2 with 7 layers (2 periods of
 # 2 mamba + shared attention, then 1 trailing mamba layer)
 RECURRENT = ["rwkv6-7b", "zamba2-7b", "zamba2-7b@7"]
@@ -247,13 +252,13 @@ def _forward_pair(arch, dtype):
     return _np(got), _np(want)
 
 
-@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
+@pytest.mark.parametrize("arch", ARCHS + DENSE_MORE + RECURRENT + MOE)
 def test_forward_logits_fp32(arch):
     got, want = _forward_pair(arch, "float32")
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
+@pytest.mark.parametrize("arch", ARCHS + DENSE_MORE + RECURRENT)
 def test_forward_logits_bf16(arch):
     """bf16: both frameworks round activations to 8 bits of mantissa, at
     places that differ (XLA fuses elementwise chains in fp32; PyTorch rounds
@@ -276,7 +281,7 @@ def test_forward_logits_bf16(arch):
                                atol=5e-2 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE)
 def test_cast_params_keeps_norms_fp32(arch):
     _, tcfg, _, tp = _params(arch)
     cast = convert.flatten(M.cast_params(tp, torch.bfloat16))

@@ -32,6 +32,8 @@ from repro_torch.train import optimizer as O  # noqa: E402
 from repro_torch.train import train_step as T  # noqa: E402
 
 ARCHS = ["olmo-1b", "qwen3-8b"]
+# the MoE family: loss, aux and gradients are in test_torch_moe.py
+MOE = ["olmoe-1b-7b", "llama4-scout-17b-a16e"]
 CPU = "cpu"
 # fp32 gradients: both frameworks sum the same products in other orders;
 # measured within 3.1e-6 absolute (2.5e-6 of each leaf's largest entry)
@@ -360,7 +362,7 @@ def _run_both(arch, steps, lr=1e-3, batch_fn=None, **tkw):
     return jp, js, tp, ts, metrics
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE)
 def test_train_step_matches_reference_after_3_steps(arch):
     """Params and optimizer state after 3 AdamW steps (lr 1e-3, fp32).
     AdamW's first steps move each weight by about lr * sign(g): where |g|
@@ -423,7 +425,7 @@ def test_microbatches_mean_the_per_microbatch_means(uneven):
         _assert_trees_close(g2, g1, **GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE)
 def test_remat_policies_give_equal_grads(arch):
     """remat none, full and dots recompute the same ops on the same inputs:
     equal gradients within 1e-6 of each leaf's largest entry (autograd may
