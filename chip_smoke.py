@@ -5,7 +5,9 @@
 
 Phases, in order (each logged with the script's elapsed seconds); any
 failure raises, and the script then exits non-zero without printing a
-result:
+result (the VLM and audio families' model paths run in
+chip_smoke_media.py, beside this script; their kernels are checked at
+their shapes here, in phase 3):
 
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: nvcc builds every kernel in src/repro_torch/csrc/ into build/,
@@ -20,7 +22,10 @@ result:
    which takes its scalar kernel, and in bf16, which takes its chunked
    tensor-core kernel; flash and decode attention also at llama4-scout's
    GQA of 40 query heads on 8 kv heads, head dim 128, in fp32 and bf16,
-   flash also at its 4x2048 prefill shape;
+   flash also at its 4x2048 prefill shape; flash at musicgen-large's
+   4x2048 prefill shape (32 heads on 32 of 64) in fp32 and bf16 and at
+   llama-3.2-vision-11b's (32 on 8 of 128), decode attention at their
+   serving shapes;
    bf16 SSD also at S of 1, 63, 64, 65 and 601, P of
    16, 32 and 128, N of 8 and 64, two groups; bf16 WKV6 also at S of 1, 63,
    64, 65 and 601 and K of 16, 32 and 64 on strided views of one
@@ -30,8 +35,8 @@ result:
    kernel, its plain version and, where one PyTorch call computes the same
    function (SDPA for the attention kernels, which the port never calls;
    none for WKV6 or SSD), that call, at the serving paths' shapes (flash
-   also at zamba2-7b's and llama4-scout's prefill shapes), beside the
-   card's bound;
+   also at zamba2-7b's, llama4-scout's, musicgen-large's and
+   llama-3.2-vision-11b's prefill shapes), beside the card's bound;
 4. reference: reduced olmo-1b, qwen3-8b, rwkv6-7b, zamba2-7b, olmoe-1b-7b
    and llama4-scout on the card (kernels) against the CPU (plain versions),
    fp32, prefill and decode logits; then olmo-1b, rwkv6-7b, zamba2-7b and
@@ -90,12 +95,13 @@ result:
    forward and remat recompute, and the backward nodes of those ops),
    ``aten::bmm`` (for olmoe the expert products) and the rest.
 7. checkpoints (ACAI's training jobs must survive preemption; no kernel
-   launches): olmo-1b as in the train phase, under ``TrainSupervisor``
-   saving a 14.1 GB checkpoint (fp32 params, AdamW's mu and nu) to a data
-   lake under build/ every 2 steps, with a failure injected once at step 3:
-   steps 0 and 1, a save at 2, step 2, the failure, a restore of step 2,
-   steps 2 and 3 again, a save at 4. It raises with less than 32 GB free
-   there, and deletes the lake at the end. Gates: the report (1 restart, 2
+   launches): olmo-1b as in the train phase at 8 of its 16 layers (the
+   script's time limit), under ``TrainSupervisor`` saving a 7.7 GB
+   checkpoint (fp32 params, AdamW's mu and nu) to a data lake under build/
+   every 2 steps, with a failure injected once at step 3: steps 0 and 1, a
+   save at 2, step 2, the failure, a restore of step 2, steps 2 and 3
+   again, a save at 4. It raises with less than 18 GB free there, and
+   deletes the lake at the end. Gates: the report (1 restart, 2
    checkpoints, 5 steps run, final step 4), the lake's latest step and its
    two checkpoint entries with finite losses, the latest checkpoint
    restored into a fresh template on the card bit-equal to the live state,
@@ -190,6 +196,12 @@ FLASH_CASES = [  # (b, s, h, kv, d, causal, dtype)
     # and its prefill shape
     (1, 256, 40, 8, 128, True, "float32"),
     (PREFILL_BATCH, PREFILL_LEN, 40, 8, 128, True, "bfloat16"),
+    # musicgen-large's prefill shape (32 heads on 32 of 64: the bf16
+    # kernel's 64-wide tile) in both dtypes; llama-3.2-vision-11b's (32 on
+    # 8 of 128)
+    *[(PREFILL_BATCH, PREFILL_LEN, 32, 32, 64, True, dt)
+      for dt in ("float32", "bfloat16")],
+    (PREFILL_BATCH, PREFILL_LEN, 32, 8, 128, True, "bfloat16"),
 ]
 DECODE_CASES = [  # (b, s, h, kv, d, dtype), seeded random cache_len
     *[(*shape, dt) for shape in [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 32)]
@@ -198,6 +210,10 @@ DECODE_CASES = [  # (b, s, h, kv, d, dtype), seeded random cache_len
     (2, 300, 4, 4, 112, "float32"), (4, 512, 32, 32, 112, "bfloat16"),
     # llama4-scout's GQA 40:8 at head dim 128
     (2, 300, 40, 8, 128, "float32"), (4, 256, 40, 8, 128, "bfloat16"),
+    # musicgen-large's serving shape (32 heads on 32 of 64, a buffer of
+    # 256 + 32) in both dtypes; llama-3.2-vision-11b's (32 on 8 of 128)
+    *[(4, 288, 32, 32, 64, dt) for dt in ("float32", "bfloat16")],
+    (4, 288, 32, 8, 128, "bfloat16"),
 ]
 # cache_len 1, the whole buffer, 0 (zeros) and s // 2 + 3; GQA 4:1, D = 112
 DECODE_EDGE_CASES = [(*shape, dt) for shape in [
@@ -234,9 +250,11 @@ TRAIN_FAMILIES = {"rwkv6-7b": (8, 1, 200, 2e-4, "wkv6_chunked"),
                   "zamba2-7b": (21, 7, 200, 1e-4, "ssd_chunked"),
                   "olmoe-1b-7b": (6, 1, 256, 1e-4, None)}
 TRAIN_PEAK_BYTES = 70e9
-# the checkpoint phase: supervised steps, a save every 2, a failure at step
-# 3; the lake needs two checkpoints of 14.1 GB and room
-CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_FAIL_AT, CKPT_MIN_FREE = 4, 2, 3, 32e9
+# the checkpoint phase: olmo-1b's layers (8 of 16: at 16 the phase took
+# 2.2-2.4 minutes on an H100), supervised steps, a save every 2, a
+# failure at step 3; the lake needs two checkpoints of 7.7 GB and room
+CKPT_LAYERS, CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_FAIL_AT = 8, 4, 2, 3
+CKPT_MIN_FREE = 18e9
 # the platform phase: two training jobs (one per learning rate) of this
 # many steps, the free disk it needs under build/ (two 4.7 GB saves), and
 # how far device memory may stay above its value before a job
@@ -304,7 +322,6 @@ def main() -> int:
     from repro_torch.kernels import wkv6 as wkv
     from repro_torch.launch import serve as L
     from repro_torch.models import model as M
-    from repro_torch.models import transformer as T
     from repro_torch.serve import decode as D
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -401,6 +418,11 @@ def main() -> int:
             zamba_flash = flash_times(q, k, v)        # zamba2-7b's prefill shape
         if (b, s, h, kv) == (PREFILL_BATCH, PREFILL_LEN, 40, 8):
             llama4_flash = flash_times(q, k, v)    # llama4-scout's prefill shape
+        if (b, s, h, d, dt) == (PREFILL_BATCH, PREFILL_LEN, 32, 64,
+                                "bfloat16"):
+            musicgen_flash = flash_times(q, k, v)  # musicgen-large's
+        if (b, s, h, kv) == (PREFILL_BATCH, PREFILL_LEN, 32, 8):
+            vision_flash = flash_times(q, k, v)    # llama-3.2-vision-11b's
         del got, want
     for causal in (True, False):      # views of one (B, S, 3, H, D) buffer
         fused = randn((2, 300, 3, 4, 64), torch.bfloat16).unbind(2)
@@ -421,6 +443,10 @@ def main() -> int:
                          **zamba_flash},
         "at_llama4_scout": {"shape": [PREFILL_BATCH, PREFILL_LEN, 40, 8, 128],
                             **llama4_flash},
+        "at_musicgen_large": {"shape": [PREFILL_BATCH, PREFILL_LEN, 32, 32,
+                                        64], **musicgen_flash},
+        "at_llama_3_2_vision_11b": {
+            "shape": [PREFILL_BATCH, PREFILL_LEN, 32, 8, 128], **vision_flash},
     }
 
     log("kernels: decode attention against its plain version")
@@ -597,7 +623,10 @@ def main() -> int:
     rows = (flash_row, decode_row, wkv_row, ssd_row)
     for name, row in [(r["name"], r) for r in rows] + [
             ("flash_attention at zamba2-7b's shape", zamba_flash),
-            ("flash_attention at llama4-scout's shape", llama4_flash)]:
+            ("flash_attention at llama4-scout's shape", llama4_flash),
+            ("flash_attention at musicgen-large's shape", musicgen_flash),
+            ("flash_attention at llama-3.2-vision-11b's shape",
+             vision_flash)]:
         lib = "null" if row["library_ms"] is None \
             else f"{row['library_ms']:.4f} ms"
         log(f"  {name}: {row['ms']:.4f} ms, plain "
@@ -606,56 +635,19 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
 
-    def weights(cfg):
-        """fp32 weights from seed 0 on the card (the same values each call)."""
-        params = M.init_params(cfg, 0, device=dev)
-        if cfg.name == "rwkv6-7b":
-            _enliven_rwkv(cfg, params, torch.Generator(device=dev).manual_seed(1))
-        return params
-
-    def free():
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-
     # -- 4. small reference: the card's kernels against the CPU's plain path
     phase("4. reference")
     log("reference: reduced configs, card against CPU, fp32")
     for arch in ("olmo-1b", "qwen3-8b", "rwkv6-7b", "zamba2-7b",
                  "olmoe-1b-7b", "llama4-scout-17b-a16e"):
-        cfg = get_arch(arch).reduced()
-        cpu_params = M.init_params(cfg, 0, device="cpu")
-        card_params = _to(cpu_params, dev)
-        toks = torch.from_numpy(
-            np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 37)))
-        errs = []
-        for params, where in ((cpu_params, torch.device("cpu")),
-                              (card_params, dev)):
-            pre = D.make_prefill_step(cfg, compute_dtype=torch.float32,
-                                      device=where)
-            errs.append(pre(params, {"tokens": toks}).cpu())
-            step = D.make_serve_step(cfg, 40, compute_dtype=torch.float32,
-                                     device=where)
-            states = T.init_decode_state(cfg, 2, 40, dtype=torch.float32,
-                                         device=where)
-            for t in range(6):
-                logits, states, _ = step(params, states, {
-                    "tokens": toks[:, t:t + 1],
-                    "cache_len": torch.full((2,), t, dtype=torch.int32)})
-            errs.append(logits.cpu())
-        pre_err = (errs[0] - errs[2]).abs().max().item()
-        dec_err = (errs[1] - errs[3]).abs().max().item()
-        log(f"  {arch}: prefill logits max_abs_err={pre_err:.3e}, decode "
-            f"logits max_abs_err={dec_err:.3e} (tol 1e-4)")
-        if not max(pre_err, dec_err) <= 1e-4:
-            raise AssertionError(f"{arch}: card disagrees with the CPU")
+        check_reduced(get_arch(arch).reduced(), dev)
 
     log("reference: full width at reduced depth, fp32, prefill against "
         "serving on the card (MoE at the no-drop capacity)")
     for arch, layers in (("olmo-1b", 2), ("rwkv6-7b", 2), ("zamba2-7b", 7),
                          ("olmoe-1b-7b", 2)):
         cfg = no_drop(dataclasses.replace(get_arch(arch), n_layers=layers))
-        params = weights(cfg)
+        params = weights(cfg, dev)
         rng = np.random.default_rng(2)
         prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (100, 37)]
         pre = D.make_prefill_step(cfg, compute_dtype=torch.float32)
@@ -674,9 +666,7 @@ def main() -> int:
         free()
 
     # -- 5. the slices at full width -----------------------------------------
-    counters = {"flash_attention": fa.flash_attention_bhsd,
-                "decode_attention": dec.decode_attention_bhd,
-                "wkv6": wkv.wkv6_bhsk, "mamba2_ssd": ssd.ssd_bhsp}
+    counters = launch_counters()
     totals = dict.fromkeys(counters, 0)
     for arch, shape in SLICES.items():
         phase(f"5. slice {arch}")
@@ -684,7 +674,7 @@ def main() -> int:
         cfg = dataclasses.replace(full, n_layers=SLICE_LAYERS.get(
             arch, full.n_layers))
         t0 = time.perf_counter()
-        params = M.cast_params(weights(cfg), torch.bfloat16)
+        params = M.cast_params(weights(cfg, dev), torch.bfloat16)
         free()
         moe = "" if cfg.moe is None else (
             f"; {cfg.moe.n_experts} experts of {cfg.moe.d_ff_expert}, top "
@@ -694,15 +684,15 @@ def main() -> int:
             f"{cfg.resolved_head_dim} on {cfg.n_kv_heads} kv heads, d_ff "
             f"{cfg.d_ff}, vocab {cfg.vocab_size}{moe}; weights in "
             f"{time.perf_counter() - t0:.2f} s")
-        counts, prompts, pre16, served16 = run_slice(cfg, params, card,
+        counts, batches, pre16, served16 = run_slice(cfg, params, card,
                                                      counters, shape)
         for name, n in counts.items():
             totals[name] += n
         del params
         free()
-        params = weights(cfg)              # fp32, after the counts are read
+        params = weights(cfg, dev)         # fp32, after the counts are read
         log("parity: " + json.dumps(check_parity(
-            no_drop(cfg), params, prompts, pre16, served16, card)))
+            no_drop(cfg), params, batches, pre16, served16, card)))
         del params
         free()
 
@@ -745,6 +735,78 @@ def main() -> int:
     return 0
 
 
+def launch_counters() -> dict:
+    """The kernels' wrappers by name: each counts its launches in
+    ``launches``."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import wkv6 as wkv
+    return {"flash_attention": fa.flash_attention_bhsd,
+            "decode_attention": dec.decode_attention_bhd,
+            "wkv6": wkv.wkv6_bhsk, "mamba2_ssd": ssd.ssd_bhsp}
+
+
+def weights(cfg, dev):
+    """fp32 weights from seed 0 on the card (the same values each call);
+    RWKV's zero-init leaves and the VLM's gates seeded (_enliven)."""
+    import torch
+
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, 0, device=dev)
+    if cfg.family in ("ssm", "vlm"):
+        _enliven(cfg, params, torch.Generator(device=dev).manual_seed(1))
+    return params
+
+
+def free() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def check_reduced(cfg, dev) -> None:
+    """A reduced config (its zero-init leaves seeded where the card's gates
+    need them, see _enliven) on the card (kernels) against the CPU (plain
+    versions), fp32: prefill logits on 2 rows of 37 tokens, and decode
+    logits after 6 tokens, within 1e-4."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import decode as D
+    cpu_params = M.init_params(cfg, 0, device="cpu")
+    if cfg.family == "vlm":        # gates at zero would ignore vision
+        _enliven(cfg, cpu_params, torch.Generator().manual_seed(1))
+    card_params = _to(cpu_params, dev)
+    batch = model_batch(cfg, np.random.default_rng(1), 2, 37)
+    toks = batch["tokens"]
+    errs = []
+    for params, where in ((cpu_params, torch.device("cpu")),
+                          (card_params, dev)):
+        pre = D.make_prefill_step(cfg, compute_dtype=torch.float32,
+                                  device=where)
+        errs.append(pre(params, batch).cpu())
+        step = D.make_serve_step(cfg, 40, compute_dtype=torch.float32,
+                                 device=where)
+        states = T.init_decode_state(cfg, 2, 40, dtype=torch.float32,
+                                     device=where, vision=batch.get("vision"),
+                                     params=params)
+        for t in range(6):
+            logits, states, _ = step(params, states, {
+                "tokens": toks[:, t:t + 1],
+                "cache_len": torch.full((2,), t, dtype=torch.int32)})
+        errs.append(logits.cpu())
+    pre_err = (errs[0] - errs[2]).abs().max().item()
+    dec_err = (errs[1] - errs[3]).abs().max().item()
+    log(f"  {cfg.name}: prefill logits max_abs_err={pre_err:.3e}, decode "
+        f"logits max_abs_err={dec_err:.3e} (tol 1e-4)")
+    if not max(pre_err, dec_err) <= 1e-4:
+        raise AssertionError(f"{cfg.name}: card disagrees with the CPU")
+
+
 def _enliven_rwkv(cfg, params, gen) -> None:
     """Give the leaves the reference initialises to zero (bonus u, the
     shift and decay LoRAs' second factors) small seeded values, and the
@@ -766,11 +828,19 @@ def _enliven_rwkv(cfg, params, gen) -> None:
 
 def _enliven(cfg, params, gen) -> None:
     """Seed every leaf the reference initialises to zero: RWKV's as
-    _enliven_rwkv does, the hybrid's Mamba-2 conv biases (0.1 N(0, 1)).
-    The dense and MoE families have none."""
+    _enliven_rwkv does, the hybrid's Mamba-2 conv biases (0.1 N(0, 1)), the
+    VLM's cross-attention gates (uniform in [0.5, 1.5]: at zero every
+    cross-attention layer adds nothing, and the logits ignore the vision
+    states). The dense, MoE and audio families have none."""
     import torch
     if cfg.family == "ssm":
         _enliven_rwkv(cfg, params, gen)
+        return
+    if cfg.family == "vlm":
+        single = params["layers"]["single"]
+        for key in ("gate_attn", "gate_mlp"):
+            single[key] = 0.5 + torch.rand(single[key].shape, generator=gen,
+                                           device=gen.device)
         return
     if cfg.family != "hybrid":
         return
@@ -808,25 +878,43 @@ def _moe_drops(cfg, params, tokens) -> int:
     return int((counts - cap).clamp_min(0).sum())
 
 
+def model_batch(cfg, rng, b: int, s: int) -> dict:
+    """A request batch on the host: tokens (B, S), or (B, S, K) frames of
+    codes with codebooks, from ``rng``, and the VLM's vision states (B, Nv,
+    d_src) ~ N(0, 1) in fp32, as the data pipeline draws them."""
+    import torch
+    shape = (b, s, cfg.n_codebooks) if cfg.n_codebooks else (b, s)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     shape))}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_vision_tokens, cfg.vision_dim)).astype("float32"))
+    return batch
+
+
 def launches_per_call(cfg) -> tuple[dict, dict]:
     """Kernel launches of one prefill call and of one decode tick, from the
-    model's layout: every layer runs its block's kernel once."""
+    model's layout: every layer runs its block's kernel once (the VLM's
+    cross-attention layers run none: their attention is plain torch)."""
     from repro_torch.models import transformer as T
     lay = T.build_layout(cfg)
     if lay["kind"] == "uniform" and lay["block"] in ("dense", "moe"):
         return {"flash_attention": lay["n"]}, {"decode_attention": lay["n"]}
     if lay["kind"] == "uniform" and lay["block"] == "rwkv":
         return {"wkv6": lay["n"]}, {}
-    return ({"mamba2_ssd": lay["periods"] * lay["inner_n"] + lay["trailing"],
-             "flash_attention": lay["periods"]},
+    inner = lay["periods"] * lay["inner_n"] + lay["trailing"]
+    if lay["single_block"] == "cross_attn":
+        return {"flash_attention": inner}, {"decode_attention": inner}
+    return ({"mamba2_ssd": inner, "flash_attention": lay["periods"]},
             {"decode_attention": lay["periods"]})
 
 
 def run_slice(cfg, params, card, counters, shape):
     """One model's main path in bf16: prefill, serving, and each request's
     prompt through the prefill step, with the launch counters zeroed before
-    and checked after. Returns the launch counts, the prompts, and each
-    request's prefill and served logits at its last prompt token. The
+    and checked after. Returns the launch counts, each request's prompt as
+    a batch of one row, and each request's prefill and served logits at
+    its last prompt token. The
     timed prefills and the serving run the config as it is; an MoE
     config's per-request prefills run at the no-drop capacity (no_drop),
     the function serving computes, for the parity gate. An MoE slice also
@@ -883,7 +971,8 @@ def run_slice(cfg, params, card, counters, shape):
     torch.cuda.synchronize()
     launches = check("main path", 3 + requests, res.ticks)
     if not all(bool(torch.isfinite(t).all()) for t in pre16 + res.first_logits):
-        raise AssertionError(f"{cfg.name}: non-finite prefill or served logits")
+        raise AssertionError(f"{cfg.name}: non-finite prefill or served "
+                             "logits")
 
     fed = sum(len(p) + max_new - 1 for p in prompts)
     numbers = {
@@ -904,12 +993,15 @@ def run_slice(cfg, params, card, counters, shape):
     if cfg.moe is not None:
         log("profile: " + json.dumps(profile_prefill(
             cfg, params, card, lambda: prefill(params, {"tokens": tokens}))))
-    return launches, prompts, pre16, res.first_logits
+    return launches, [{"tokens": torch.tensor([p])} for p in prompts], \
+        pre16, res.first_logits
 
 
-def check_parity(cfg, params, prompts, pre16, served16, card) -> dict:
+def check_parity(cfg, params, batches, pre16, served16, card) -> dict:
     """bf16 prefill (the prefill kernels) against bf16 serving (the decode
-    path, token by token) at each request's last prompt token.
+    path, token by token) at each request's last prompt token; ``batches``
+    hold the requests' prompts (and vision states), row by row in the
+    order of pre16 and served16.
 
     ``params`` are the fp32 weights (their embeddings are changed in place
     at the end): each prompt's fp32 prefill measures the
@@ -927,31 +1019,36 @@ def check_parity(cfg, params, prompts, pre16, served16, card) -> dict:
 
     from repro_torch.serve import decode as D
 
+    start = time.perf_counter()
     pre = D.make_prefill_step(cfg, compute_dtype=torch.float32)
-    pre32 = [pre(params, {"tokens": torch.tensor([p])})[0].float().cpu()
-             for p in prompts]
+
+    def fp32_rows():
+        return [row for b in batches for row in pre(params, b).float().cpu()]
+
+    pre32 = fp32_rows()
     rounding = [(p16 - p32).abs().max().item()
                 for p16, p32 in zip(pre16, pre32)]
     gen = torch.Generator(device=params["embed"].device).manual_seed(3)
     params["embed"].mul_(1 + 1e-6 * torch.randn(
         params["embed"].shape, generator=gen, device=gen.device))
-    moved = [(pre(params, {"tokens": torch.tensor([p])})[0].float().cpu()
-              - p32).abs().max().item() for p, p32 in zip(prompts, pre32)]
+    moved = [(p - p32).abs().max().item()
+             for p, p32 in zip(fp32_rows(), pre32)]
     out = {"arch": cfg.name, "card": card,
            "bf16_rounding_error": max(rounding),
            "fp32_change_for_1e-6_embedding_change": max(moved),
            "requests": [],
            "fields": ["bf16_max_abs_err", "limit",
                       "bf16_prefill_vs_fp32_prefill", "argmax_agree"]}
-    for r in range(len(prompts)):
+    for r in range(len(pre32)):
         err = (pre16[r] - served16[r]).abs().max().item()
         limit = max(5e-2 * pre16[r].abs().max().item(), 2 * max(rounding))
-        out["requests"].append([err, limit, rounding[r], int(
-            pre16[r].argmax() == served16[r].argmax())])
+        out["requests"].append([err, limit, rounding[r], int(torch.equal(
+            pre16[r].argmax(-1), served16[r].argmax(-1)))])
         if not err <= limit:
             raise AssertionError(f"{cfg.name} request {r}: bf16 prefill and "
                                  f"serve logits differ by {err:.3e} > "
                                  f"{limit:.3e}")
+    out["seconds"] = time.perf_counter() - start
     return out
 
 
@@ -1160,7 +1257,7 @@ def check_remat(cfg, params, batch, tc, dev) -> None:
             raise AssertionError(f"{cfg.name}: remat {remat} changes grads")
 
 
-def check_family_train_parity(card, dev) -> None:
+def check_family_train_parity(card, dev, families=None) -> None:
     """The other families' train paths at full width and reduced depth,
     fp32 (TF32 off), the zero-init leaves seeded (_enliven): rwkv6-7b with
     1 layer, zamba2-7b with 7 (one period of 5 Mamba-2 layers and the
@@ -1179,7 +1276,10 @@ def check_family_train_parity(card, dev) -> None:
     correct fp32 scans give gradients 4.4e-5 of the leaf max apart);
     params within 2 lr.
     Then, on the card alone at 1x1536, remat none, full and dots give
-    gradients within 1e-6 of each leaf's largest entry."""
+    gradients within 1e-6 of each leaf's largest entry. ``families``
+    (TRAIN_FAMILIES by default) maps each arch to its entries as
+    TRAIN_FAMILIES does (chip_smoke_media.py passes the VLM and audio
+    families: the VLM's batch carries vision states)."""
     import numpy as np
     import torch
 
@@ -1194,10 +1294,13 @@ def check_family_train_parity(card, dev) -> None:
     tc = T.TrainConfig(remat="full", compute_dtype="float32")
     oc = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=10)
     cpu = torch.device("cpu")
-    for arch, (_, layers, seq, gate, _) in TRAIN_FAMILIES.items():
+    for arch, (_, layers, seq, gate, _) in (families
+                                            or TRAIN_FAMILIES).items():
         cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
-        init = M.init_params(cfg, 0, device="cpu")
-        _enliven(cfg, init, torch.Generator().manual_seed(1))
+        # drawn on the card, then copied to the host
+        init = M.init_params(cfg, 0, device=dev)
+        _enliven(cfg, init, torch.Generator(device=dev).manual_seed(1))
+        init = _to(init, cpu)
         batch = TokenPipeline(DataConfig(vocab_size=64, seq_len=seq,
                                          global_batch=2), cfg).batch_at(0)
         log(f"train: {cfg.name} at full width, {layers} layers, fp32: one "
@@ -1235,8 +1338,10 @@ def check_family_train_parity(card, dev) -> None:
         params = M.init_params(cfg, 0, device=dev)
         _enliven(cfg, params, torch.Generator(device=dev).manual_seed(1))
         rng = np.random.default_rng(5)
-        batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 1536)),
-                                    device=dev) for k in ("tokens", "labels")}
+        batch = {k: v.to(dev) for k, v in model_batch(cfg, rng, 1,
+                                                      1536).items()}
+        batch["labels"] = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, batch["tokens"].shape), device=dev)
         check_remat(cfg, params, batch, tc, dev)
         del params
         gc.collect()
@@ -1251,16 +1356,34 @@ def train_flops(cfg, params, b: int, s: int) -> int:
     routed experts only the top k of E count, as ``n_active_params``
     counts them, and the capacity's empty slots are not model FLOPs),
     plus, per layer, the
-    sequential recurrence's 4 K V (WKV6) or 4 N P (SSD) per token and head
-    and causal attention's 2 S D per query and head (half the pairs, QK^T
-    and PV), each three times (forward, and backward at twice the
-    forward)."""
+    sequential recurrence's 4 K V (WKV6) or 4 N P (SSD) per token and head,
+    causal attention's 2 S D per query and head (half the pairs, QK^T
+    and PV) and the VLM's cross-attention's 4 Nv D (every query sees all
+    Nv vision states), each three times (forward, and backward at twice
+    the forward). The VLM's wk and wv multiply the B Nv vision states, and
+    musicgen's head has K V outputs, as its weights count them.
+    """
     from repro_torch.models import transformer as T
     from repro_torch.train.optimizer import leaves
     weights = sum(p.numel() for p in leaves(params))
     if not cfg.tie_embeddings:
         weights -= params["embed"].numel()
     lay, t = T.build_layout(cfg), b * s
+    hd = cfg.resolved_head_dim
+    if lay["kind"] == "periodic" and lay["single_block"] == "cross_attn":
+        # the VLM: the cross-attention layers' wk and wv multiply the B Nv
+        # vision states, not the tokens; the placeholder trailing layer
+        # (trailing 0) never runs; each query attends to all Nv vision
+        # states, 4 Nv D per query and head (QK^T and PV, no mask)
+        attn, nv = params["layers"]["single"]["attn"], cfg.n_vision_tokens
+        src = attn["wk"].numel() + attn["wv"].numel()
+        if not lay["trailing"]:
+            weights -= sum(p.numel()
+                           for p in leaves(params["layers"]["trailing"]))
+        dense = lay["periods"] * lay["inner_n"] + lay["trailing"]
+        return (6 * (weights - src) * t + 6 * src * b * nv
+                + 6 * dense * t * cfg.n_heads * s * hd
+                + 12 * lay["periods"] * t * cfg.n_heads * nv * hd)
     if lay["kind"] == "uniform" and lay["block"] == "moe":
         m, moe = cfg.moe, params["layers"]["moe"]
         weights -= sum(moe[k].numel() for k in ("w_gate", "w_up", "w_down")
@@ -1280,9 +1403,9 @@ def train_flops(cfg, params, b: int, s: int) -> int:
             + 6 * sites * t * cfg.n_heads * s * cfg.resolved_head_dim)
 
 
-def run_train_family(card, counters, dev, arch) -> dict:
-    """rwkv6-7b, zamba2-7b or olmoe-1b-7b at full width and TRAIN_FAMILIES'
-    depth: fp32 params (the zero-init leaves seeded), bf16 compute, remat
+def run_train_family(card, counters, dev, arch, families=None) -> dict:
+    """rwkv6-7b, zamba2-7b or olmoe-1b-7b (or another arch of ``families``,
+    TRAIN_FAMILIES by default) at full width and its depth there: fp32 params (the zero-init leaves seeded), bf16 compute, remat
     "full", AdamW (lr 1e-3, warmup 2), 4x2048 tokens a step from the
     synthetic pipeline (data vocabulary 64). Six steps, the first a
     warm-up, then one profiled step, with the launch counters zeroed before
@@ -1304,7 +1427,7 @@ def run_train_family(card, counters, dev, arch) -> dict:
     from repro_torch.train import train_step as T
     from repro_torch.train.optimizer import OptimizerConfig, leaves
 
-    layers, _, _, _, scan = TRAIN_FAMILIES[arch]
+    layers, _, _, _, scan = (families or TRAIN_FAMILIES)[arch]
     full = get_arch(arch)
     cfg = dataclasses.replace(full, n_layers=layers)
     b, s, steps = TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS
@@ -1364,9 +1487,10 @@ def run_train_family(card, counters, dev, arch) -> dict:
 
 
 def run_checkpoints(card, counters, dev) -> dict:
-    """olmo-1b at full width and depth as in run_train (fp32 params, bf16
-    compute, remat "full", AdamW lr 1e-3 with warmup 2, 4x2048 tokens of
-    the synthetic pipeline) under ``TrainSupervisor``: CKPT_STEPS steps, a
+    """olmo-1b at full width and CKPT_LAYERS layers, otherwise as in
+    run_train (fp32 params, bf16 compute, remat "full", AdamW lr 1e-3 with
+    warmup 2, 4x2048 tokens of the synthetic pipeline) under
+    ``TrainSupervisor``: CKPT_STEPS steps, a
     checkpoint every CKPT_SAVE_EVERY, a non-external ``JobPreempted`` once
     at step CKPT_FAIL_AT, in a temporary ``AcaiProject`` under build/ that
     is deleted at the end. Gates and numbers: see the module docstring."""
@@ -1387,7 +1511,7 @@ def run_checkpoints(card, counters, dev) -> dict:
     from repro_torch.train.fault import JobPreempted, TrainSupervisor
     from repro_torch.train.optimizer import OptimizerConfig, leaves, tree_map
 
-    cfg = get_arch("olmo-1b")
+    cfg = dataclasses.replace(get_arch("olmo-1b"), n_layers=CKPT_LAYERS)
     tc = T.TrainConfig(remat="full")
     oc = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=100)
     step = T.make_train_step(cfg, tc, oc, device=dev)
@@ -1516,7 +1640,8 @@ def run_checkpoints(card, counters, dev) -> dict:
         sample_bytes = sample.nbytes
         del sample
         return {
-            "arch": cfg.name, "card": card, "params": n_params,
+            "arch": cfg.name, "card": card, "layers": cfg.n_layers,
+            "params": n_params,
             "tokens_per_step": TRAIN_BATCH * TRAIN_LEN, "data": data_ref,
             "report": dataclasses.asdict(report), "losses": losses,
             "step2_loss_before": before, "step2_loss_after": after,
@@ -2044,22 +2169,27 @@ def flushed_ms(fn, iters: int, flush, per_call: int | None = None) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def profile_ticks(cfg, params, card, slots, buf, ticks: int = 20) -> dict:
+def profile_ticks(cfg, params, card, slots, buf, ticks: int = 20,
+                  vision=None) -> dict:
     """Where a decode tick's time goes, at the slice's shape (all slots at
-    position buf / 2): host wall per tick without the profiler, device
-    kernel time per tick and kernels per tick under torch.profiler, and the
-    kernels that take the most device time. Runs after the launch counts
-    are read; it gates nothing."""
+    position buf / 2; the VLM's vision K/V from ``vision``): host wall per
+    tick without the profiler, device kernel time per tick and kernels per
+    tick under torch.profiler, and the kernels that take the most device
+    time; ``profile_s``, the seconds the whole function took. Runs after
+    the launch counts are read; it gates nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as T
     from repro_torch.serve import decode as D
 
+    start = time.perf_counter()
     step = D.make_serve_step(cfg, buf)
     states = T.init_decode_state(cfg, slots, buf,
-                                 device=params["embed"].device)
-    batch = {"tokens": torch.zeros((slots, 1), dtype=torch.long),
+                                 device=params["embed"].device,
+                                 vision=vision, params=params)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    batch = {"tokens": torch.zeros((slots, 1, *books), dtype=torch.long),
              "cache_len": torch.full((slots,), buf // 2, dtype=torch.int32)}
 
     def run():
@@ -2072,8 +2202,10 @@ def profile_ticks(cfg, params, card, slots, buf, ticks: int = 20) -> dict:
     t0 = time.perf_counter()
     run()
     wall_ms = 1e3 * (time.perf_counter() - t0) / ticks
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # CPU ops are recorded only where _moe_ms reads them: with them a
+    # window of 8 ticks took 8-22 s of an H100 host's time
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if cfg.moe is not None else [])) as prof:
         run()
     rows = _kernel_rows(prof, ticks)
     device_ms = sum(r[0] for r in rows) / 1e3
@@ -2089,6 +2221,7 @@ def profile_ticks(cfg, params, card, slots, buf, ticks: int = 20) -> dict:
     if cfg.moe is not None:
         out["moe_block_per_tick"] = _moe_ms(prof, ticks) if rows \
             else "not measured"
+    out["profile_s"] = time.perf_counter() - start
     return out
 
 

@@ -2,8 +2,7 @@
 
 Every assigned architecture is a frozen ``ArchConfig``; reduced smoke-test
 variants are derived with ``.reduced()``. Configs are registered by id and
-selectable everywhere via ``--arch <id>``. Only the architectures the port
-can run are registered here.
+selectable everywhere via ``--arch <id>``.
 """
 from __future__ import annotations
 
@@ -270,4 +269,5 @@ def list_archs() -> list[str]:
 def _load_all() -> None:
     from repro_torch.configs import (  # noqa: F401
         qwen3_32b, qwen3_8b, mistral_nemo_12b, olmo_1b, olmoe_1b_7b,
-        llama4_scout, rwkv6_7b, zamba2_7b)
+        llama4_scout, rwkv6_7b, llama32_vision_11b, zamba2_7b,
+        musicgen_large)

@@ -5,7 +5,8 @@ continuous-batching loop over the one-token serve step.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 ``main()`` serves a reduced config, as the reference does; ``serve()`` is
-the loop itself and runs any config the port supports.
+the loop itself and runs any token-only config (both refuse the VLM and the
+codebook archs, as the reference's driver does).
 """
 from __future__ import annotations
 
@@ -39,8 +40,13 @@ def serve(cfg: ArchConfig, params, prompts: list[list[int]], *, slots: int,
     ``buf`` positions. Slots hold independent requests; a finished slot is
     refilled from the queue without stalling the others. A prompt is fed
     one token per tick through the decode step, then ``max_new`` tokens are
-    generated greedily."""
+    generated greedily. Token-only archs: the reference's driver refuses
+    the VLM and codebook archs, whose requests carry vision states or code
+    frames (serve them with ``serve.decode.greedy_generate``)."""
     dev = resolve_device(device)
+    if not token_only(cfg):
+        raise ValueError(f"{cfg.name}: the serving driver supports "
+                         "token-only archs")
     if not prompts or min(len(p) for p in prompts) == 0:
         raise ValueError("every request needs a non-empty prompt")
     longest = max(len(p) for p in prompts)
@@ -104,6 +110,10 @@ def serve(cfg: ArchConfig, params, prompts: list[list[int]], *, slots: int,
     return ServeResult(outputs, first_logits, ticks, time.perf_counter() - t0)
 
 
+def token_only(cfg: ArchConfig) -> bool:
+    return cfg.family != "vlm" and not cfg.n_codebooks
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b", choices=list_archs())
@@ -114,6 +124,8 @@ def main():
     args = ap.parse_args()
 
     cfg = get_arch(args.arch).reduced()
+    if not token_only(cfg):
+        raise SystemExit("demo driver supports token-only archs")
     params = M.init_params(cfg, 0, device=args.device)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, rng.integers(3, 8)).tolist()

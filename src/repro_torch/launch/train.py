@@ -8,12 +8,15 @@ and ends with the reference's ``done:`` line.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch llama-3.2-vision-11b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --full \\
         --steps 4 --seq-len 2048 --global-batch 4 --save-every 2 \\
         --workdir build/acai-train
 
 Without ``--full`` it trains the reduced config, as the reference does;
-every registered arch trains (olmo-1b, qwen3-8b, rwkv6-7b, zamba2-7b). At
+every registered arch trains (the VLM's batches carry the pipeline's
+seeded vision states, musicgen-large's (B, S, 4) code frames). At
 ``--full`` the 7B configs do not fit on one 80 GB card: fp32 params, grads
 and AdamW's ``mu`` and ``nu`` take 16 bytes a param, 121 GB for rwkv6-7b
 (7.58 B params) and 92 GB for zamba2-7b (5.74 B), before activations. The

@@ -1,13 +1,14 @@
 """Transformer blocks (the port of ``repro/models/blocks.py``): norms, RoPE,
 GQA attention (the flash and decode kernels for prefill and decode, the
-reference's XLA attention in plain PyTorch for training), the KV-cache
-insert, the SwiGLU MLP and the top-k capacity MoE on one device.
+reference's XLA attention in plain PyTorch for training), cross-attention
+(plain PyTorch, as the reference's einsums are), the KV-cache insert, the
+SwiGLU MLP and the top-k capacity MoE on one device.
 
 Plain functions over dicts of tensors. Params live in fp32 and each block
 casts a weight to the activations' dtype where the reference does
 (``.to(cd)``); weights cast once at load (``model.cast_params``) make that a
 no-op with the same values. Training keeps fp32 params and casts per call.
-Cross-attention and the MoE's expert-parallel branch are not ported yet.
+The MoE's expert-parallel branch is not ported yet.
 """
 from __future__ import annotations
 
@@ -42,12 +43,16 @@ def init_norm(cfg: ArchConfig, lead=(), device="cpu"):
     return {"scale": scale}
 
 
-def init_attention(cfg: ArchConfig, gen: torch.Generator, lead=()):
+def init_attention(cfg: ArchConfig, gen: torch.Generator, lead=(),
+                   d_src=None):
+    """d_src: the K/V source's width (cross-attention reads the vision
+    states); d_model by default."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    d_src = d_src or d
     p = {
         "wq": dense_init(gen, (*lead, d, cfg.n_heads * hd)),
-        "wk": dense_init(gen, (*lead, d, cfg.n_kv_heads * hd)),
-        "wv": dense_init(gen, (*lead, d, cfg.n_kv_heads * hd)),
+        "wk": dense_init(gen, (*lead, d_src, cfg.n_kv_heads * hd)),
+        "wv": dense_init(gen, (*lead, d_src, cfg.n_kv_heads * hd)),
         "wo": dense_init(gen, (*lead, cfg.n_heads * hd, d)),
     }
     if cfg.qk_norm:
@@ -232,8 +237,59 @@ def train_attention(q, k, v, n_heads: int, attn_impl: str):
         if attn_impl == "xla-bf16-logits" else torch.float32)
 
 
+def cross_kv(p, src, cfg: ArchConfig):
+    """Cross-attention's K and V from the source states src (B, Nv, d_src),
+    each (B, Nv, KV, D) in src's dtype: the projections, then the k-norm
+    under ``qk_norm``, as the reference's ``attention_block`` computes them
+    for ``kv_src``. Prefill and training pass the vision states cast to the
+    compute dtype; the decode state (``transformer.init_decode_state``)
+    passes them in their own dtype, as the reference's ``cross_state`` does,
+    which skips the k-norm (ROADMAP C): the port applies it there too."""
+    b, n, _ = src.shape
+    hd, cd = cfg.resolved_head_dim, src.dtype
+    k = (src @ p["wk"].to(cd)).view(b, n, cfg.n_kv_heads, hd)
+    v = (src @ p["wv"].to(cd)).view(b, n, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        k = rms_head_norm(k, p["k_norm"].to(cd))
+    return k, v
+
+
+def cross_attention(q, k, v):
+    """Non-causal attention of q (B, S, H, D) over k, v (B, Nv, KV, D),
+    query head h reading kv head h // (H / KV) as ``_gqa_expand`` maps
+    them, without expanding K and V: the G = H / KV query heads of a kv
+    head are one product's rows. fp32 scores of the operands (exact
+    products summed in fp32), fp32 softmax, the probabilities cast to v's
+    dtype before the second product -> (B, S, H, D) in v's dtype: the
+    reference's einsums on expanded K and V, value for value."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, s, kv, g, d).permute(0, 2, 3, 1, 4).reshape(
+        b, kv, g * s, d)
+    sc = _dot(qg, k.permute(0, 2, 3, 1), torch.float32) * d ** -0.5
+    p = torch.softmax(sc, dim=-1).to(v.dtype)        # (B, KV, G * S, Nv)
+    o = p @ v.transpose(1, 2)                          # (B, KV, G * S, D)
+    return o.view(b, kv, g, s, d).permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+def cross_attention_block(p, x, cfg: ArchConfig, k, v):
+    """Cross-attention sub-block on x (B, S, d) against K and V from
+    ``cross_kv`` (B, Nv, KV, D): q proj -> (q-norm) -> ``cross_attention``
+    (no RoPE, no mask) -> out proj. K and V are cast to x's dtype, as the
+    reference's decode step casts its stored vision K/V."""
+    b, s, _ = x.shape
+    hd, cd = cfg.resolved_head_dim, x.dtype
+    q = (x @ p["wq"].to(cd)).view(b, s, cfg.n_heads, hd)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"].to(cd))
+    o = cross_attention(q, k.to(cd), v.to(cd))
+    return o.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(cd)
+
+
 def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
-                    kv_cache=None, cache_len=None, attn_impl=None):
+                    kv_cache=None, cache_len=None, attn_impl=None,
+                    kv_src=None):
     """proj -> (qk-norm) -> rope -> attention -> out proj.
 
     attn_impl: None for prefill and decode, which run the kernels; train
@@ -244,8 +300,15 @@ def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
     where the new token's k, v are written into the cache in place and
     attention is the decode kernel over ``cache_len + 1`` positions.
     K and V are never GQA-expanded for the kernels: they map head h to kv
-    head h // (H / KV). Returns (out, cache).
+    head h // (H / KV). kv_src: source states (B, Nv, d_src) for
+    cross-attention, the reference's ``kv_src`` branch: K and V from
+    ``cross_kv``, no RoPE and no mask (``cross_attention_block``, plain
+    PyTorch in every mode, as the reference's einsums are). Returns (out,
+    cache).
     """
+    if kv_src is not None:
+        return cross_attention_block(p, x, cfg, *cross_kv(p, kv_src, cfg)), \
+            None
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     cd = x.dtype

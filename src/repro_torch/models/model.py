@@ -10,49 +10,64 @@ from repro_torch.models import blocks as B
 from repro_torch.models import transformer as T
 
 # leaves the reference reads in fp32 (norms, the RWKV bonus, decay base and
-# group-norm scale, the Mamba A_log, D, dt_bias and gated-norm scale)
+# group-norm scale, the Mamba A_log, D, dt_bias and gated-norm scale, the
+# cross-attention layers' tanh gates)
 FP32_KEYS = ("ln1", "ln2", "final_norm", "bonus_u", "decay_base", "ln_x",
-             "A_log", "D", "dt_bias", "gate_norm")
+             "A_log", "D", "dt_bias", "gate_norm", "gate_attn", "gate_mlp")
+# leaves kept fp32 at one place of the tree: the VLM's cross-attention K/V
+# projections, from which the decode state builds the vision K/V in the
+# vision's own dtype (the reference's cross_state multiplies fp32 vision
+# states by its fp32 wk and wv); prefill and training cast them per call
+FP32_PATHS = (("layers", "single", "attn", "wk"),
+              ("layers", "single", "attn", "wv"))
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
     """fp32 params from a seeded ``torch.Generator`` on ``device``, with the
-    reference's structure, shapes and init scales (not its random bits)."""
+    reference's structure, shapes and init scales (not its random bits).
+    With codebooks (K = ``n_codebooks``) the embedding is (K, V, d) and the
+    head (d, K V), its columns codebook-major."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    if cfg.n_codebooks:
-        raise NotImplementedError("codebook embeddings are not ported yet")
-    params = {"embed": torch.randn((cfg.vocab_size, cfg.d_model),
+    books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    params = {"embed": torch.randn((*books, cfg.vocab_size, cfg.d_model),
                                    generator=gen, device=dev) * 0.02,
               "final_norm": B.init_norm(cfg, device=dev)}
     params.update(T.init_stack(cfg, gen))
     if not cfg.tie_embeddings:
-        params["lm_head"] = B.dense_init(gen, (cfg.d_model, cfg.vocab_size))
+        params["lm_head"] = B.dense_init(
+            gen, (cfg.d_model, (cfg.n_codebooks or 1) * cfg.vocab_size))
     return params
 
 
 def cast_params(params, dtype):
     """Cast the weights that the blocks cast per call (``.to(cd)``) once, at
     load. The values are those of the reference's per-call ``.astype(cd)``;
-    the leaves of ``FP32_KEYS`` stay fp32, since the reference reads them in
-    fp32 (casting them would change their values)."""
-    out = {}
-    for key, val in params.items():
-        if key in FP32_KEYS:
-            out[key] = val
-        elif isinstance(val, dict):
-            out[key] = cast_params(val, dtype)
-        else:
-            out[key] = val.to(dtype)
-    return out
+    the leaves of ``FP32_KEYS`` and ``FP32_PATHS`` stay fp32, since the
+    reference reads them in fp32 (casting them would change their values).
+    The tree itself takes the cast leaves, each fp32 leaf dropped as soon
+    as it is cast, so that the peak holds one tree and one leaf, not both
+    trees (llama-3.2-vision-11b's fp32 weights take 39.8 GB); the tree is
+    returned."""
+    def cast(tree, path):
+        for key, val in tree.items():
+            at = (*path, key)
+            if key in FP32_KEYS or at in FP32_PATHS:
+                continue
+            tree[key] = cast(val, at) if isinstance(val, dict) \
+                else val.to(dtype)
+        return tree
+    return cast(params, ())
 
 
 def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *,
              attn_impl: str = "xla", remat: str | None = "full",
-             cache_len=None, compute_dtype=torch.bfloat16,
+             vision=None, cache_len=None, compute_dtype=torch.bfloat16,
              device="cuda") -> dict:
-    """RoPE table of ``seq_len`` rows (none for an attention-free config)
-    and, for decode, the positions ``cache_len[:, None]``. A position past
+    """RoPE table of ``seq_len`` rows (none for an attention-free config),
+    the vision states (B, Nv, d_src) that the VLM's cross-attention reads
+    in prefill and training, moved to the device, and, for decode, the
+    positions ``cache_len[:, None]``. A position past
     the table would read outside it (the reference's ``jnp.take`` gives NaN
     there), so it raises here. ``attn_impl`` and ``remat`` are read in
     "train" mode only (``blocks.train_attention``,
@@ -63,6 +78,8 @@ def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *,
     if not cfg.attention_free:
         ctx["rope"] = B.rope_table(seq_len, cfg.resolved_head_dim,
                                    cfg.rope_theta, device=dev)
+    if vision is not None:
+        ctx["vision"] = torch.as_tensor(vision, device=dev)
     if cache_len is not None:
         if cache_len.numel() and int(cache_len.max()) >= seq_len:
             raise IndexError(f"decode position {int(cache_len.max())} is "
@@ -73,13 +90,27 @@ def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *,
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype):
-    return params["embed"][tokens].to(compute_dtype)
+    """Embedding rows of tokens (B, S) in the compute dtype. With codebooks,
+    tokens (B, S, K) and the sum over k of ``embed[k][tokens[..., k]]``:
+    the reference's one-hot einsum, whose bf16 form rounds the table to
+    bf16 and the fp32 sum once; the port gathers the rows instead of
+    building the one-hot, and rounds where the einsum does."""
+    if not cfg.n_codebooks:
+        return params["embed"][tokens].to(compute_dtype)
+    books = torch.arange(cfg.n_codebooks, device=tokens.device)
+    rows = params["embed"][books, tokens].to(compute_dtype)   # (B, S, K, d)
+    return rows.float().sum(-2).to(compute_dtype)
 
 
 def lm_logits(params, x, cfg: ArchConfig):
+    """Logits (B, S, V), or (B, S, K, V) with codebooks (the head's columns
+    codebook-major, as in the reference)."""
     xf = B.apply_norm(params["final_norm"], x, cfg)
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return xf @ w.to(xf.dtype)
+    logits = xf @ w.to(xf.dtype)
+    if cfg.n_codebooks:
+        logits = logits.unflatten(-1, (cfg.n_codebooks, cfg.vocab_size))
+    return logits
 
 
 def forward(params, tokens, cfg: ArchConfig, ctx: dict, states=None):
@@ -95,7 +126,9 @@ def forward(params, tokens, cfg: ArchConfig, ctx: dict, states=None):
 
 def loss_fn(params, batch, cfg: ArchConfig, ctx: dict):
     """Next-token cross-entropy. batch: tokens (B, S) and labels (B, S),
-    labels[t] the target of position t, -100 (any negative) ignored. Logits
+    or (B, S, K) both with codebooks, labels[t] the target of position t,
+    -100 (any negative) ignored; the VLM's batch also holds its vision
+    states, which ``ctx`` carries (``make_ctx(vision=)``). Logits
     in fp32; the mean is over the valid labels (at least 1). Returns
     (loss + aux, {"loss", "aux_loss", "ntokens"})."""
     logits, aux, _ = forward(params, batch["tokens"], cfg, ctx)
@@ -112,7 +145,8 @@ def loss_fn(params, batch, cfg: ArchConfig, ctx: dict):
 
 
 def prefill(params, tokens, cfg: ArchConfig, ctx: dict):
-    """Forward over the prompt; returns last-position logits (B, V). The head
+    """Forward over the prompt; returns last-position logits (B, V), or
+    (B, K, V) with codebooks. The head
     runs on the last position only: each row's logits depend on that row
     alone, so the values are those of the reference's full-sequence head."""
     x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"])
@@ -122,8 +156,8 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: dict):
 
 def decode_step(params, tokens, states, cache_len, cfg: ArchConfig,
                 ctx: dict):
-    """One-token decode. tokens (B, 1); states from init_decode_state,
-    updated in place. Returns (logits (B, 1, V), states); the aux loss is
-    dropped, as in the reference."""
+    """One-token decode. tokens (B, 1), or (B, 1, K) with codebooks; states
+    from init_decode_state, updated in place. Returns (logits (B, 1, V) or
+    (B, 1, K, V), states); the aux loss is dropped, as in the reference."""
     logits, _, states = forward(params, tokens, cfg, ctx, states)
     return logits, states

@@ -2,10 +2,12 @@
 
 Layouts, as in the reference:
   uniform : all layers of one block kind, params stacked along dim 0
-            -> dense (olmo-1b, qwen3-8b), moe (olmoe-1b-7b, llama4-scout)
-               and rwkv (rwkv6-7b)
+            -> dense (olmo-1b, qwen3-8b; musicgen-large, over frames of
+               codes), moe (olmoe-1b-7b, llama4-scout) and rwkv (rwkv6-7b)
   periodic: periods of [inner_n stacked layers + one special layer], then
             trailing inner layers
+            -> vlm (llama-3.2-vision-11b): (4 dense + 1 cross-attention)
+               x 8, the cross-attention layers stacked (periods,)
             -> hybrid (zamba2-7b): (5 mamba + 1 *shared* attention block)
                x 13 + 3 mamba, the attention weights shared by all sites
 
@@ -16,19 +18,23 @@ dims. The decode state has the same stacking as the params:
   hybrid: {"inner": (ssm (P, I, B, H, N, Pd) fp32, conv (P, I, B, W-1, C)),
            "single": (k, v) per attention site, each (P, B, S, KV, D),
            "trailing": (ssm, conv) with a leading max(trailing, 1) dim}
+  vlm   : {"inner": (k, v), each (P, I, B, S, KV, D),
+           "single": the vision K/V (k, v), each (P, B, Nv, KV, D), built
+                     once from params and vision and never written,
+           "trailing": (k, v) with a leading max(trailing, 1) dim}
 Every layer updates its slice of the decode state in place (the reference
 returns new arrays; in place saves a copy of every cache and state per layer
 and tick). Train mode runs every layout here. Each stacked layer (dense,
 rwkv, an inner or trailing mamba layer) runs under ``ctx["remat"]``, as the
-reference remats its inner scan body (one layer); the hybrid's shared
-attention block runs outside it, as the reference's outer scan body is not
-rematerialised, and its weights gather the gradients of every site. The
-RWKV and Mamba layers take their differentiable ``wkv6_chunked`` and
-``ssd_chunked`` there, not the kernels. Each layer returns its auxiliary
-loss beside x (MoE's load-balancing loss; None for a block without one),
-and the stack sums them, as the reference's scans carry aux; under remat
-the checkpointed layer returns both. The VLM cross-attention block is not
-ported.
+reference remats its inner scan body (one layer); the special layer of a
+period (the hybrid's shared attention block, the VLM's cross-attention
+layer) runs outside it, as the reference's outer scan body is not
+rematerialised, and the shared block's weights gather the gradients of
+every site. The RWKV and Mamba layers take their differentiable
+``wkv6_chunked`` and ``ssd_chunked`` there, not the kernels. Each layer
+returns its auxiliary loss beside x (MoE's load-balancing loss; None for a
+block without one), and the stack sums them, as the reference's scans carry
+aux; under remat the checkpointed layer returns both.
 """
 from __future__ import annotations
 
@@ -49,18 +55,17 @@ def build_layout(cfg: ArchConfig) -> dict:
     ``moe`` layer, as in the reference, whatever ``moe_every`` says
     (``layer_kinds`` and ``n_params`` count dense layers between; no config
     sets it; ROADMAP C, quirk)."""
-    if cfg.family == "hybrid":
-        k = cfg.hybrid_attn_every
+    if cfg.family in ("vlm", "hybrid"):
+        vlm = cfg.family == "vlm"
+        k = cfg.cross_attn_every if vlm else cfg.hybrid_attn_every
         periods = cfg.n_layers // k
         return {"kind": "periodic", "periods": periods, "inner_n": k - 1,
-                "inner_block": "mamba", "single_block": "shared_attn",
+                "inner_block": "dense" if vlm else "mamba",
+                "single_block": "cross_attn" if vlm else "shared_attn",
                 "trailing": cfg.n_layers - periods * k}
-    if cfg.family in ("dense", "moe", "ssm"):
-        block = "rwkv" if cfg.family == "ssm" else \
-            "moe" if cfg.moe is not None else "dense"
-        return {"kind": "uniform", "n": cfg.n_layers, "block": block}
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family} family is not ported")
+    block = "rwkv" if cfg.family == "ssm" else \
+        "moe" if cfg.moe is not None else "dense"
+    return {"kind": "uniform", "n": cfg.n_layers, "block": block}
 
 
 def init_layer(block: str, cfg: ArchConfig, gen: torch.Generator, lead=()):
@@ -75,6 +80,13 @@ def init_layer(block: str, cfg: ArchConfig, gen: torch.Generator, lead=()):
                 "moe": B.init_moe(cfg, gen, lead),
                 "ln1": B.init_norm(cfg, lead, dev),
                 "ln2": B.init_norm(cfg, lead, dev)}
+    if block == "cross_attn":        # tanh-gated; the gates start at zero
+        return {"attn": B.init_attention(cfg, gen, lead, d_src=cfg.vision_dim),
+                "mlp": B.init_mlp(cfg, gen, lead),
+                "ln1": B.init_norm(cfg, lead, dev),
+                "ln2": B.init_norm(cfg, lead, dev),
+                "gate_attn": torch.zeros(lead, device=dev),
+                "gate_mlp": torch.zeros(lead, device=dev)}
     if block == "rwkv":
         return {"tm": R.init_rwkv_layer(cfg, gen, lead),
                 "ln1": B.init_norm(cfg, lead, dev),
@@ -91,19 +103,25 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator):
         return {"layers": init_layer(layout["block"], cfg, gen,
                                      (layout["n"],))}
     inner = layout["inner_block"]
-    return {"layers": {
+    out = {"layers": {
         "inner": init_layer(inner, cfg, gen,
                             (layout["periods"], layout["inner_n"])),
         # the reference keeps one trailing layer even when there are none
         "trailing": init_layer(inner, cfg, gen,
-                               (max(layout["trailing"], 1),))},
-        "shared_block": init_layer("shared_attn", cfg, gen)}
+                               (max(layout["trailing"], 1),))}}
+    if layout["single_block"] == "cross_attn":   # one per period
+        out["layers"]["single"] = init_layer("cross_attn", cfg, gen,
+                                             (layout["periods"],))
+    else:                                        # one block, shared
+        out["shared_block"] = init_layer("shared_attn", cfg, gen)
+    return out
 
 
 def unused_subtrees(cfg: ArchConfig) -> tuple[str, ...]:
     """Param subtrees (``convert.flatten`` paths) that the layout holds but
-    never runs: the hybrid's placeholder trailing layer when no layer
-    trails, which the reference keeps and ``jax.grad`` gives zeros."""
+    never runs: the periodic layouts' placeholder trailing layer when no
+    layer trails (the hybrid's and the VLM's), which the reference keeps
+    and ``jax.grad`` gives zeros."""
     layout = build_layout(cfg)
     if layout["kind"] == "periodic" and layout["trailing"] == 0:
         return ("layers/trailing",)
@@ -129,6 +147,19 @@ def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
             y, aux = B.moe_block(p["moe"], h, cfg)
             return x + y, state, aux
         return x + B.mlp_block(p["mlp"], h), state, None
+    if block == "cross_attn":
+        h = B.apply_norm(p["ln1"], x, cfg)
+        if decode:       # the vision K/V of the state, never written
+            o = B.cross_attention_block(p["attn"], h, cfg, *state)
+        else:            # the vision states, cast to the compute dtype first
+            o, _ = B.attention_block(p["attn"], h, cfg,
+                                     kv_src=ctx["vision"].to(h.dtype))
+        # tanh of the fp32 gate, then cast, as the reference does
+        x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * o
+        h = B.apply_norm(p["ln2"], x, cfg)
+        x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * \
+            B.mlp_block(p["mlp"], h)
+        return x, state, None
     if block == "rwkv":
         wkv, tm_last, cm_last = state if decode else (None, None, None)
         h = B.apply_norm(p["ln1"], x, cfg)
@@ -214,13 +245,15 @@ def apply_stack(params, x, cfg: ArchConfig, ctx: dict, states=None):
                       ctx, part("layers"))
         return x, aux, states
     inner, aux = layout["inner_block"], None
+    cross = layout["single_block"] == "cross_attn"
     for i in range(layout["periods"]):
         x, aux = _run(inner, _layer(params["layers"]["inner"], i),
                       layout["inner_n"], x, cfg, ctx,
                       _layer(states["inner"], i) if decode else None, aux)
-        x, _, a = layer_fwd(layout["single_block"], params["shared_block"],
-                            x, cfg, ctx, _layer(states["single"], i)
-                            if decode else None)
+        single = _layer(params["layers"]["single"], i) if cross \
+            else params["shared_block"]
+        x, _, a = layer_fwd(layout["single_block"], single, x, cfg, ctx,
+                            _layer(states["single"], i) if decode else None)
         aux = _add(aux, a)
     x, aux = _run(inner, params["layers"]["trailing"], layout["trailing"], x,
                   cfg, ctx, part("trailing"), aux)
@@ -228,10 +261,15 @@ def apply_stack(params, x, cfg: ArchConfig, ctx: dict, states=None):
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, buffer_len: int,
-                      dtype=torch.bfloat16, device="cpu"):
+                      dtype=torch.bfloat16, device="cpu", vision=None,
+                      params=None):
     """Zeroed decode state for the whole stack: KV caches and last-token and
     conv states in ``dtype`` (bf16 by default, as in the reference),
-    recurrent wkv and SSM states in fp32."""
+    recurrent wkv and SSM states in fp32. The VLM's cross-attention layers
+    hold the vision K/V instead, which need ``vision`` (B, Nv, d_src) and
+    ``params``: each period's ``blocks.cross_kv`` of vision in its own
+    dtype (the pipeline's fp32), cast to ``dtype``, as the reference's
+    ``cross_state``, with its missing k-norm applied (ROADMAP C)."""
     layout = build_layout(cfg)
 
     def zeros(*shape, dt=dtype):
@@ -259,16 +297,29 @@ def init_decode_state(cfg: ArchConfig, batch: int, buffer_len: int,
     if layout["kind"] == "uniform":
         maker = rwkv_state if layout["block"] == "rwkv" else attn_state
         return {"layers": maker(layout["n"])}
-    return {"inner": mamba_state(layout["periods"], layout["inner_n"]),
-            "single": attn_state(layout["periods"]),
-            "trailing": mamba_state(max(layout["trailing"], 1))}
+    if layout["single_block"] == "shared_attn":
+        return {"inner": mamba_state(layout["periods"], layout["inner_n"]),
+                "single": attn_state(layout["periods"]),
+                "trailing": mamba_state(max(layout["trailing"], 1))}
+    if vision is None or params is None:
+        raise ValueError(f"{cfg.name}: the decode state needs vision and "
+                         "params for its cross-attention layers")
+    vision = torch.as_tensor(vision, device=device)
+    single = params["layers"]["single"]["attn"]
+    kvs = [B.cross_kv(_layer(single, i), vision, cfg)
+           for i in range(layout["periods"])]
+    return {"inner": attn_state(layout["periods"], layout["inner_n"]),
+            "single": tuple(torch.stack([kv[j] for kv in kvs]).to(dtype)
+                            for j in range(2)),
+            "trailing": attn_state(max(layout["trailing"], 1))}
 
 
 def reset_slot(states, s: int) -> None:
     """Zero slot ``s``'s recurrent state in place, for a new request: the
     RWKV wkv state and both last-token tensors, the Mamba SSM and conv
     states. KV caches are left as they are, since ``cache_len`` masks what a
-    new request has not written."""
+    new request has not written. (The VLM's vision K/V belong to a request;
+    the serving driver refuses the VLM.)"""
     if "layers" in states:
         if len(states["layers"]) == 3:     # rwkv: (wkv, tm_last, cm_last)
             for t in states["layers"]:

@@ -11,7 +11,7 @@ kernel's output has no ``grad_fn``) cannot pass as a zero gradient. Two
 kinds of leaves get zero gradients, as ``jax.grad`` gives: zero-size leaves
 (OLMo's non-parametric norm sentinel), which hold no value, and the leaves
 of the subtrees the layout never runs (``transformer.unused_subtrees``: the
-hybrid's placeholder trailing layer when no layer trails).
+hybrid's and the VLM's placeholder trailing layer when no layer trails).
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ class TrainConfig:
 
 def make_loss_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda"):
     """loss_fn(params, batch) -> (loss, metrics) in train mode; batch holds
-    tensors on ``device``."""
+    tensors on ``device``: tokens and labels, and the VLM's vision."""
     cd = torch.bfloat16 if tcfg.compute_dtype == "bfloat16" else torch.float32
     dev = resolve_device(device)
 
@@ -55,7 +55,8 @@ def make_loss_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda"):
                               if p.dtype == torch.float32 else p, params)
         ctx = M.make_ctx(cfg, batch["tokens"].shape[1], "train",
                          attn_impl=tcfg.attn_impl, remat=tcfg.remat,
-                         compute_dtype=cd, device=dev)
+                         vision=batch.get("vision"), compute_dtype=cd,
+                         device=dev)
         return M.loss_fn(params, batch, cfg, ctx)
 
     return loss_fn
@@ -63,10 +64,11 @@ def make_loss_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda"):
 
 def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda"):
     """grad_fn(params, batch) -> (loss, metrics, grads), grads shaped like
-    params. With ``microbatches`` k > 1 the batch is split into k equal
-    row blocks: loss and grads are the mean of the per-microbatch means
-    (not a token-weighted mean), summed in fp32, and the metrics are the
-    last microbatch's, as in the reference."""
+    params. With ``microbatches`` k > 1 the batch (every entry, vision
+    included) is split into k equal row blocks: loss and grads are the
+    mean of the per-microbatch means (not a token-weighted mean), summed in
+    fp32, and the metrics are the last microbatch's, as in the
+    reference."""
     loss_fn = make_loss_fn(cfg, tcfg, device=device)
     unused = tuple(f"{path}/" for path in TF.unused_subtrees(cfg))
 

@@ -1,9 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions, the
-train path's scans, the reduced models (MoE included) on the card against
-the CPU, decode on two streams at once and the thread runner's per-worker
-streams. Needs only torch and numpy, so
-it runs where JAX is absent; every test here is marked ``cuda`` and skips
-without a card:
+train path's scans, the reduced models (MoE, VLM and audio included) on the
+card against the CPU, decode on two streams at once and the thread runner's
+per-worker streams. Needs only torch and numpy, so it runs where JAX is
+absent; every test here is marked ``cuda`` and skips without a card:
 
     python -m pytest -m cuda tests/test_torch_card.py
 """
@@ -59,9 +58,14 @@ FLASH_CASES = [
       for causal in (True, False)],
     # llama4-scout's GQA: 40 query heads on 8 kv heads (5:1), head dim 128
     (1, 256, 40, 8, 128, True, "float32"), (2, 512, 40, 8, 128, True, "bfloat16"),
+    # musicgen-large's heads: 32 on 32 kv heads of 64 (the bf16 kernel's
+    # 64-wide tile); llama-3.2-vision-11b's: 32 on 8 of 128
+    *[(1, 512, 32, 32, 64, True, dt) for dt in ("float32", "bfloat16")],
+    (1, 256, 32, 8, 128, True, "bfloat16"),
 ]
 DECODE_SHAPES = [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 32), (3, 300, 4, 2, 128),
-                 (2, 300, 4, 4, 112), (4, 256, 40, 8, 128)]
+                 (2, 300, 4, 4, 112), (4, 256, 40, 8, 128),
+                 (4, 288, 32, 32, 64), (4, 288, 32, 8, 128)]
 # cache_len of 1, of the whole buffer and of 0 (zeros), GQA 4:1, head dim 112
 DECODE_EDGE_SHAPES = [(4, 1024, 16, 16, 128), (3, 512, 8, 2, 128),
                       (3, 300, 16, 4, 112), (2, 64, 4, 1, 64)]
@@ -521,6 +525,44 @@ def test_reduced_model_on_card_matches_cpu(card, arch):
                                       device=dev).cpu().numpy())
     np.testing.assert_allclose(outs[2], outs[0], rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(outs[3], outs[1])
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large"])
+def test_reduced_media_model_on_card_matches_cpu(card, arch):
+    """Reduced llama-3.2-vision-11b (its cross-attention gates set to 1, so
+    the vision states count) and musicgen-large (4 codebooks), fp32, on the
+    card (flash and decode kernels) against the CPU (plain versions): the
+    prefill step's logits, and the serve step's logits over 6 teacher-forced
+    tokens with the vision K/V in the decode state."""
+    cfg = get_arch(arch).reduced()
+    cpu = M.init_params(cfg, 0, device="cpu")
+    if cfg.family == "vlm":
+        for gate in ("gate_attn", "gate_mlp"):
+            cpu["layers"]["single"][gate].fill_(1.0)
+    gpu = _to(cpu, card)
+    rng = np.random.default_rng(1)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 37, *books)))
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_vision_tokens, cfg.vision_dim)).astype(np.float32))
+    outs = []
+    for params, dev in ((cpu, "cpu"), (gpu, card)):
+        pre = D.make_prefill_step(cfg, compute_dtype=torch.float32, device=dev)
+        outs.append(_np(pre(params, batch)))
+        step = D.make_serve_step(cfg, 8, compute_dtype=torch.float32,
+                                 device=dev)
+        states = TF.init_decode_state(cfg, 2, 8, dtype=torch.float32,
+                                      device=dev, vision=batch.get("vision"),
+                                      params=params)
+        for t in range(6):
+            logits, states, _ = step(params, states, {
+                "tokens": toks[:, t:t + 1],
+                "cache_len": torch.full((2,), t, dtype=torch.int32)})
+        outs.append(_np(logits))
+    np.testing.assert_allclose(outs[2], outs[0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(outs[3], outs[1], rtol=1e-4, atol=1e-4)
 
 
 def test_checkpoint_round_trip_on_card(card, tmp_path):

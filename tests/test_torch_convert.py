@@ -1,6 +1,7 @@
 """Weight bridge: JAX params -> port tensors -> numpy is bit-exact, keeps the
 checkpoint key paths, and the port's own init has the reference's
-structure."""
+structure (every family: the VLM's ``layers/single`` with its stacked 0-d
+gates, musicgen's (K, V, d) embedding included)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -16,7 +17,7 @@ from repro_torch.configs.base import get_arch as port_arch  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 ARCHS = ["olmo-1b", "qwen3-8b", "rwkv6-7b", "zamba2-7b", "olmoe-1b-7b",
-         "llama4-scout-17b-a16e"]
+         "llama4-scout-17b-a16e", "llama-3.2-vision-11b", "musicgen-large"]
 
 
 def _jax_params(arch):

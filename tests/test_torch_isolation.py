@@ -135,3 +135,33 @@ def test_chip_smoke_fails_alone(tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_media_fails_without_a_card(no_card):
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke_media.py")],
+                          env=_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_media_fails_without_chip_smoke(tmp_path):
+    """The media script takes chip_smoke.py's helpers: alone in a
+    directory it fails without printing a result."""
+    shutil.copy(ROOT / "chip_smoke_media.py", tmp_path / "chip_smoke_media.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "chip_smoke_media.py"],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_smoke_media.py"])
+def test_smoke_scripts_do_not_name_jax(script):
+    for line in (ROOT / script).read_text().splitlines():
+        words = line.replace(",", " ").split()
+        if words[:1] in (["import"], ["from"]):
+            assert words[1].split(".")[0] not in ("jax", "repro",
+                                                  "networkx"), line

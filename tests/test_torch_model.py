@@ -29,6 +29,11 @@ ARCHS = ["olmo-1b", "qwen3-8b"]
 DENSE_MORE = ["qwen3-32b", "mistral-nemo-12b"]
 # the MoE family; its bf16 logits follow the rule in test_torch_moe.py
 MOE = ["olmoe-1b-7b", "llama4-scout-17b-a16e"]
+# the VLM and audio families; their blocks, logits and serving are in
+# test_torch_vlm_audio.py
+MEDIA = ["llama-3.2-vision-11b", "musicgen-large"]
+# the VLM's cross-attention K/V projections, which cast_params keeps fp32
+CROSS_KV = ("layers/single/attn/wk", "layers/single/attn/wv")
 # the recurrent families; "@7" runs zamba2 with 7 layers (2 periods of
 # 2 mamba + shared attention, then 1 trailing mamba layer)
 RECURRENT = ["rwkv6-7b", "zamba2-7b", "zamba2-7b@7"]
@@ -281,32 +286,41 @@ def test_forward_logits_bf16(arch):
                                atol=5e-2 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE)
+@pytest.mark.parametrize("arch", ARCHS + MOE + MEDIA)
 def test_cast_params_keeps_norms_fp32(arch):
+    """Norms (and the VLM's tanh gates and cross-attention K/V
+    projections) stay fp32; every other leaf, the codebook embedding and
+    head included, is cast."""
     _, tcfg, _, tp = _params(arch)
     cast = convert.flatten(M.cast_params(tp, torch.bfloat16))
     for key, val in cast.items():
-        norm = key.split("/")[0] == "final_norm" or "/ln" in key
-        assert val.dtype == (torch.float32 if norm else torch.bfloat16), key
+        keep = key.split("/")[0] == "final_norm" or "/ln" in key \
+            or key.split("/")[-1] in ("gate_attn", "gate_mlp") \
+            or key in CROSS_KV
+        assert val.dtype == (torch.float32 if keep else torch.bfloat16), key
 
 
 def test_cast_params_keeps_fp32_read_leaves():
     """The leaves the reference reads in fp32 stay fp32 at load: norms, the
     RWKV bonus u, decay base and group-norm scale, the Mamba A_log, D,
     dt_bias and gated-norm scale (the bonus and A_log would lose bits in
-    bf16). Everything else is cast."""
+    bf16), the VLM's tanh gates and its cross-attention K/V projections
+    (the decode state multiplies the fp32 vision states by them).
+    Everything else is cast."""
     fp32 = {"bonus_u", "decay_base", "ln_x", "A_log", "D", "dt_bias",
-            "gate_norm", "scale", "_np"}
-    for arch in ARCHS + RECURRENT[:2]:
+            "gate_norm", "scale", "_np", "bias", "gate_attn", "gate_mlp"}
+    for arch in ARCHS + RECURRENT[:2] + MEDIA:
         params = M.init_params(port_arch(arch).reduced(), 0, device="cpu")
         params["final_norm"]["scale"] = torch.full((64,), 1.1)
+        before = convert.flatten(params)      # the leaves before the cast
         for key, val in convert.flatten(M.cast_params(params,
                                                       torch.bfloat16)).items():
             leaf = key.split("/")[-1]
-            want = torch.float32 if leaf in fp32 else torch.bfloat16
+            keep = leaf in fp32 or key in CROSS_KV
+            want = torch.float32 if keep else torch.bfloat16
             assert val.dtype == want, (arch, key)
-            if leaf in fp32:
-                assert torch.equal(val, convert.flatten(params)[key]), key
+            if keep:
+                assert torch.equal(val, before[key]), key
 
 
 def test_rwkv_shift_lora_init_scale_follows_reference():

@@ -181,6 +181,22 @@ def test_greedy_generate_shapes():
     assert bool((out >= 0).all()) and bool((out < tcfg.vocab_size).all())
 
 
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large"])
+def test_greedy_generate_shapes_with_vision_and_codebooks(arch):
+    """test_greedy_generate_shapes (bf16) with vision states (the VLM) and
+    with frames of 4 codebooks (musicgen): (B, new) and (B, new, K)."""
+    tcfg = port_arch(arch).reduced()
+    params = M.init_params(tcfg, 0, device=CPU)
+    books = (tcfg.n_codebooks,) if tcfg.n_codebooks else ()
+    prompt = torch.from_numpy(_tokens(1, (2, 5, *books), tcfg.vocab_size))
+    vision = torch.randn(2, tcfg.n_vision_tokens, tcfg.vision_dim) \
+        if tcfg.family == "vlm" else None
+    out = D.greedy_generate(tcfg, params, prompt, 4, vision=vision,
+                            device=CPU)
+    assert out.shape == (2, 4, *books)
+    assert bool((out >= 0).all()) and bool((out < tcfg.vocab_size).all())
+
+
 @pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_driver_outputs_equal_each_prompt_alone(arch):
     """Continuous batching (3 slots, 5 requests of different lengths, slots

@@ -34,6 +34,10 @@ from repro_torch.train import train_step as T  # noqa: E402
 ARCHS = ["olmo-1b", "qwen3-8b"]
 # the MoE family: loss, aux and gradients are in test_torch_moe.py
 MOE = ["olmoe-1b-7b", "llama4-scout-17b-a16e"]
+# the VLM and audio families (the pipeline's batches carry the vision
+# states and code frames); their loss and gradients are in
+# test_torch_vlm_audio.py
+MEDIA = ["llama-3.2-vision-11b", "musicgen-large"]
 CPU = "cpu"
 # fp32 gradients: both frameworks sum the same products in other orders;
 # measured within 3.1e-6 absolute (2.5e-6 of each leaf's largest entry)
@@ -41,10 +45,20 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def _params(arch):
-    """Reduced config in both packages and the reference's params (numpy)."""
+    """Reduced config in both packages and the reference's params (numpy),
+    the VLM's cross-attention gates (zero at init, so that the vision
+    states would not matter) seeded in [0.5, 1.5]."""
     cfg, tcfg = get_arch(arch).reduced(), port_arch(arch).reduced()
-    return cfg, tcfg, jax.tree.map(np.asarray, JM.init_params(
-        cfg, jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(9)
+
+    def seed(tree):
+        return {k: seed(v) if isinstance(v, dict)
+                else rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+                if k in ("gate_attn", "gate_mlp") else v
+                for k, v in tree.items()}
+
+    return cfg, tcfg, seed(jax.tree.map(np.asarray, JM.init_params(
+        cfg, jax.random.PRNGKey(0))))
 
 
 def _batch(seed, b, s, vocab, ignore=0.2):
@@ -362,7 +376,7 @@ def _run_both(arch, steps, lr=1e-3, batch_fn=None, **tkw):
     return jp, js, tp, ts, metrics
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE)
+@pytest.mark.parametrize("arch", ARCHS + MOE + MEDIA)
 def test_train_step_matches_reference_after_3_steps(arch):
     """Params and optimizer state after 3 AdamW steps (lr 1e-3, fp32).
     AdamW's first steps move each weight by about lr * sign(g): where |g|
