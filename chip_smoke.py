@@ -36,7 +36,21 @@ their shapes here, in phase 3):
    function (SDPA for the attention kernels, which the port never calls;
    none for WKV6 or SSD), that call, at the serving paths' shapes (flash
    also at zamba2-7b's, llama4-scout's, musicgen-large's and
-   llama-3.2-vision-11b's prefill shapes), beside the card's bound;
+   llama-3.2-vision-11b's prefill shapes), beside the card's bound (the
+   bounds' arithmetic is the autotuner's ``KernelSpec.cost``); then the
+   autotuner's knobs (5–20 s): each bf16 chunked WKV6 and SSD
+   instance's registers, spills, shared memory and CTAs per SM; every rung
+   of each kernel's knob (flash's ``group``, decode's ``split``, WKV6's
+   ``value_tile``, SSD's ``state_tile``) at its first serving shape, timed
+   as the tuner times a candidate and held against the fp32 plain version
+   within tests/test_kernels.py's bf16 tolerance, flash's every group
+   bit-equal to its default; then
+   ``autotune_all`` at ``SERVING_SHAPES`` (core/provision/autotune.py),
+   the cache written to build/autotune_cache.json, one ``autotune:`` JSON
+   line an entry (default and tuned config and us, speedup, roofline
+   ceiling and fraction, max_err against tol, candidates, the card). The
+   step's launches are taken off the counters again: the kernel table's
+   launches are the main paths' alone;
 4. reference: reduced olmo-1b, qwen3-8b, rwkv6-7b, zamba2-7b, olmoe-1b-7b
    and llama4-scout on the card (kernels) against the CPU (plain versions),
    fp32, prefill and decode logits; then olmo-1b, rwkv6-7b, zamba2-7b and
@@ -159,6 +173,13 @@ import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the kernels' device time (the kernel table's, tools/attention_ab.py's and
+# the autotuner's); kernel_rows also splits the profiles of ticks and steps,
+# and tests/test_torch_timing.py reads launches_of here
+from repro_torch.kernels.timing import (  # noqa: E402
+    flushed_ms, kernel_count, kernel_rows as _kernel_rows, launches_of,
+    l2_flush_buffer)
 
 # H100 SXM data sheet: dense bf16 tensor-core rate, fp32 rate outside the
 # tensor cores, HBM3 bandwidth (all at the full 700 W power limit)
@@ -168,10 +189,6 @@ TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-5)}   # tests/test_kernels
 # tests/test_kernels.py's fp32 tolerances for the recurrences
 TOL_WKV6 = {"bfloat16": (2e-2, 2e-2), "float32": (2e-4, 2e-4)}
 TOL_SSD = {"bfloat16": (2e-2, 2e-2), "float32": (5e-4, 5e-4)}
-# the spin kernels at both ends of every profiled window (see _profiled),
-# and the calls profiled to count a function's kernels (kernel_count)
-GUARD_CYCLES, GUARD_KERNEL = 20_000_000, "spin_kernel"
-REF_CALLS = 5
 
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 FLASH_CASES = [  # (b, s, h, kv, d, causal, dtype)
@@ -310,11 +327,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.configs.base import get_arch
+    from repro_torch.core.provision import autotune as AT
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
@@ -353,7 +370,7 @@ def main() -> int:
     # -- 3. kernels against their plain versions ----------------------------
     phase("3. kernels")
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.zeros(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
+    flush = l2_flush_buffer(dev)
 
     def time_ms(fn, iters, per_call=None):
         return flushed_ms(fn, iters, flush, per_call)
@@ -383,6 +400,8 @@ def main() -> int:
         return max(t_ops, t_bytes) * 1e3, \
             "operations" if t_ops >= t_bytes else "bytes"
 
+    dtype_name = {v: k for k, v in dtypes.items()}
+
     def bshd_to_bhsd(*ts):
         return [t.permute(0, 2, 1, 3) for t in ts]
 
@@ -400,9 +419,9 @@ def main() -> int:
                 qh, kh, vh, is_causal=True, enable_gqa=h != kv), 10),
         }
         row["bound_ms"], row["bound_by"] = bound(
-            4 * d * b * h * (s * (s + 1) // 2),
-            (2 * b * s * h * d + 2 * b * s * kv * d) * q.element_size(),
-            "bfloat16")
+            *AT.KERNELS["flash_attention"].cost(
+                {"b": b, "s": s, "h": h, "kv": kv, "d": d,
+                 "dtype": dtype_name[q.dtype]}), "bfloat16")
         return row
 
     log("kernels: flash attention against its plain version")
@@ -491,11 +510,10 @@ def main() -> int:
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask), 50),
     }
-    # each valid position's k and v read once per kv head; q, o, cache_len
     decode_row["bound_ms"], decode_row["bound_by"] = bound(
-        4 * h * d * valid,
-        (2 * valid * kv * d + 2 * q.numel()) * q.element_size()
-        + 4 * lens.numel(), dt)
+        *AT.KERNELS["decode_attention"].cost(
+            {"b": b, "s": s, "h": h, "kv": kv, "d": d, "dtype": dt},
+            valid=valid), dt)
     del q, k, v, kc, vc, qh, kh, vh, got, want
 
     def wkv6_inputs(b, s, h, k, dt, logw_lo=-7.0, logw_hi=-0.7, views=False):
@@ -552,13 +570,9 @@ def main() -> int:
         "library_ms": None,     # no single PyTorch call computes WKV6
     }
     log("  one bf16 WKV6 call: one CUDA kernel (profiler, in its timing)")
-    # r, k, v read and y written in bf16, logw read in fp32, u once;
-    # 4 K^2 FLOP per token and head (y and the state update)
-    n_el = b * s * h * k
     wkv_row["bound_ms"], wkv_row["bound_by"] = bound(
-        4 * k * k * b * s * h,
-        n_el * (4 * r.element_size() + logw.element_size())
-        + u.numel() * u.element_size(), dt)
+        *AT.KERNELS["rwkv6"].cost(
+            {"b": b, "s": s, "h": h, "k": k, "dtype": dt}), dt)
     for dt in ("float32", "bfloat16"):       # the scalar and chunked kernels
         r, kk, v, logw, u = wkv6_inputs(1, 512, 2, 64, dt,
                                         float(np.log(0.3)), float(np.log(3.0)))
@@ -608,12 +622,9 @@ def main() -> int:
         "library_ms": None,     # no single PyTorch call computes the SSD scan
     }
     log("  one bf16 SSD call: one CUDA kernel (profiler, in its timing)")
-    # x read and y written in bf16, dt in fp32, B and C once per group,
-    # A and D once; 4 N P FLOP per token and head (state update and y)
     ssd_row["bound_ms"], ssd_row["bound_by"] = bound(
-        4 * n * p * b * s * h,
-        2 * x.numel() * x.element_size() + dtv.numel() * dtv.element_size()
-        + 2 * Bm.numel() * Bm.element_size() + 2 * 4 * h, dt)
+        *AT.KERNELS["mamba2_ssd"].cost(
+            {"b": b, "s": s, "h": h, "p": p, "n": n, "g": g, "dtype": dt}), dt)
     for dt in ("float32", "bfloat16"):       # the scalar and chunked kernels
         args = ssd_inputs(1, 512, 4, 64, 1, 64, dt, strong=True)
         compare(f"strong decay, dt A in (-8, -0.1), b=1 s=512 h=4 p=64 n=64 "
@@ -634,6 +645,9 @@ def main() -> int:
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
     del flush
     torch.cuda.empty_cache()
+    phase("3. kernels: autotune")
+    run_autotune(card, dev)
+    free()
 
     # -- 4. small reference: the card's kernels against the CPU's plain path
     phase("4. reference")
@@ -733,6 +747,67 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def run_autotune(card, dev) -> None:
+    """Phase 3's autotune step (see the module docstring): each bf16
+    chunked instance's registers, spills, shared memory and CTAs per SM;
+    every rung of each kernel's knob at its first serving shape against
+    the fp32 plain version, flash's group bit-equal to its default; then
+    ``autotune_all`` at the serving shapes into a cache under build/, one
+    ``autotune:`` line an entry. Its launches are put back on the
+    counters, so no main-path count holds them."""
+    import torch
+
+    from repro_torch.core.provision import autotune as AT
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import wkv6 as wkv
+    t0 = time.perf_counter()
+    counters = launch_counters()
+    before = {name: fn.launches for name, fn in counters.items()}
+    for name, info in (("rwkv6 value_tile", wkv.chunk_kernel_info),
+                       ("mamba2_ssd state_tile", ssd.chunk_kernel_info)):
+        for tile in (32, 64):
+            log(f"autotune: {name} {tile}: "
+                f"{json.dumps(info(tile, dev))} [{card}]")
+    for kernel, shapes in AT.SERVING_SHAPES.items():
+        spec, shape = AT.KERNELS[kernel], shapes[0]
+        args, want = spec.build(shape, 0, dev)
+        (knob, ladder), = AT.ladders_of(spec, shape).items()
+        default = AT.seed_config(spec, shape)
+        base = spec.call(default, *args)
+        measure = AT.default_measure(spec, args, dev)
+        for value in ladder:
+            got = spec.call({knob: value}, *args)
+            torch.cuda.synchronize()
+            err = AT.output_err(got, want)
+            same = _bits_equal(got, base)
+            diff = (got.float() - base.float()).abs().max().item()
+            us = measure({knob: value}) * 1e6
+            log(f"  {kernel} {AT.shape_key(shape)} {knob}={value}: "
+                f"{us:.2f} us, max_err={err:.3e} (tol {spec.tol}), "
+                f"bit-equal to {knob}={default[knob]}: {same} (max |diff| "
+                f"{diff:.3e})")
+            if not err <= spec.tol:
+                raise AssertionError(f"{kernel} at {knob}={value} disagrees "
+                                     f"with its plain version")
+            if kernel == "flash_attention" and not same:
+                raise AssertionError(f"flash attention's group {value} "
+                                     f"changed the output's bits")
+            del got
+        del args, want, base, measure
+        free()
+    cache = AT.TuningCache(str(ROOT / "build" / "autotune_cache.json"))
+    for entry in AT.autotune_all(device=dev, shapes=AT.SERVING_SHAPES,
+                                 cache=cache):
+        log("autotune: " + json.dumps({**entry, "card": card}))
+    cache.save()
+    launched = {}
+    for name, fn in counters.items():
+        launched[name] = fn.launches - before[name]
+        fn.launches = before[name]
+    log(f"autotune: {time.perf_counter() - t0:.1f} s, launches (not the "
+        f"main path's) {json.dumps(launched)}; cache {cache.path}")
 
 
 def launch_counters() -> dict:
@@ -2071,102 +2146,6 @@ def _device_ms_by_op(prof, scan=None) -> dict:
             key = "rest"
         out[key] += sum(k.duration for k in e.kernels) / 1e3
     return out
-
-
-def _kernel_rows(prof, calls: int) -> list:
-    """(device us, launches, name) per call of each CUDA kernel in a
-    profile, largest first. CPU-op rows are left out: their device time is
-    their child kernels', which have rows of their own; so are the device
-    spans of record_function annotations, which cover kernels that have
-    rows of their own."""
-    from torch.autograd import DeviceType
-    rows = [(e.self_device_time_total / calls, e.count / calls, e.key)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and not e.is_user_annotation]
-    return sorted(rows, reverse=True)
-
-
-def _profiled(fn, iters: int = 1) -> list:
-    """_kernel_rows, in totals, of iters calls of fn, between two spin
-    kernels of about 10 ms each (``torch.cuda._sleep``), which are left out
-    of the rows. On some cards the profiler dropped the first or the last
-    kernel records of a window (a whole one-call window, or one flush of a
-    timed one); the spins take the window's edges."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(GUARD_CYCLES)
-        for _ in range(iters):
-            fn()
-        torch.cuda._sleep(GUARD_CYCLES)
-        torch.cuda.synchronize()
-    return [row for row in _kernel_rows(prof, 1) if GUARD_KERNEL not in row[2]]
-
-
-def launches_of(rows, calls: int) -> dict:
-    """{kernel name: launches per call} from the _kernel_rows totals of
-    ``calls`` calls. The profiler may have dropped one record of a kernel;
-    a kernel whose records are not whole launches per call, short of at
-    most one, raises, so a kernel that ran on only some of the calls is
-    never rounded away."""
-    out = {}
-    for _, n, name in rows:
-        n = round(n)
-        per = -(-n // calls)
-        if n < per * calls - 1:
-            raise AssertionError(f"{name} ran {n} times in {calls} calls")
-        out[name] = per
-    return out
-
-
-def kernel_count(fn) -> int:
-    """CUDA kernels that one call of fn runs, from the profiler over
-    REF_CALLS calls."""
-    return sum(launches_of(_profiled(fn, REF_CALLS), REF_CALLS).values())
-
-
-def flushed_ms(fn, iters: int, flush, per_call: int | None = None) -> float:
-    """Mean device time (ms) of fn's kernels per call, each call after
-    flushing the L2 cache with ``flush.bitwise_xor_(1)`` on a tensor larger
-    than the L2 (the serving path finds its inputs cold). Kernel durations
-    come from the profiler, so the host's time to enqueue a short kernel is
-    not counted; the flush's kernels, named by profiling the flush alone,
-    are left out, and fn must run none of them. With ``per_call``, one call
-    of fn must run exactly that many kernels. A window counts only if it
-    holds exactly iters flushes and iters times fn's kernels per call (the
-    profiler drops records now and then); the time is the median of three
-    windows that count (one window in some tens read 36% slow), out of at
-    most six, or of those that count if fewer do; none raises."""
-    def flush_l2():
-        flush.bitwise_xor_(1)
-
-    fn()                                                        # warm-up
-    launches = launches_of(_profiled(fn, REF_CALLS), REF_CALLS)
-    if per_call is not None and sum(launches.values()) != per_call:
-        raise AssertionError(f"one call runs {sum(launches.values())} CUDA "
-                             f"kernels, not {per_call}")
-    for _ in range(3):
-        flush_names = {name for _, _, name in _profiled(flush_l2)}
-        if flush_names:
-            break
-    if flush_names & set(launches):
-        raise AssertionError("a timed function runs the L2 flush's kernel, "
-                             "so its time cannot be told apart")
-    times = []
-    for _ in range(6):
-        rows = _profiled(lambda: (flush_l2(), fn()), iters)
-        flushes = sum(n for _, n, name in rows if name in flush_names)
-        kernels = [(us, n) for us, n, name in rows if name not in flush_names]
-        if flush_names and flushes == iters * len(flush_names) and \
-                sum(n for _, n in kernels) == iters * sum(launches.values()):
-            times.append(sum(us for us, _ in kernels) / iters / 1e3)
-            if len(times) == 3:
-                break
-    if not times:
-        raise AssertionError("the profiler's timed windows lost kernel "
-                             "records six times")
-    return sorted(times)[len(times) // 2]
 
 
 def profile_ticks(cfg, params, card, slots, buf, ticks: int = 20,

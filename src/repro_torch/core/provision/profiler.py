@@ -155,9 +155,8 @@ class LogLinearModel:
 class Profiler:
     """Drives profiling fleets through the engine and serves predictions.
 
-    ``prior`` (any object with the reference's ``RooflinePrior``
-    interface; the port has no roofline module yet) supplies analytical
-    cold-start estimates: ``predict_for_pool`` serves the
+    ``prior`` (a ``roofline.prior.RooflinePrior``, or any object with its
+    interface) supplies analytical cold-start estimates: ``predict_for_pool`` serves the
     prior whenever no fitted model exists for the template, so placement
     on a cold cluster scores real physics instead of ``1.0``-second
     defaults. ``recency_halflife`` (observation count) makes online

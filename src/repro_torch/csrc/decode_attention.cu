@@ -29,8 +29,9 @@
 // cache fits one split writes its output directly. A row with no valid
 // position gives zeros (the Pallas kernel's finite -1e30 mask averages all
 // of V there; the model always has at least one position). The wrapper picks
-// the split length (`decode_attention.split_size`) and allocates the
-// scratch; the kernel allocates nothing.
+// the split length (`decode_attention.split_size`, or the caller's `split`,
+// the autotuner's knob) and allocates the scratch; the kernel allocates
+// nothing.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>

@@ -15,7 +15,8 @@
 // producer warp issues TMA loads. CTAs run in groups of (b, h) pairs whose
 // K and V fit the L2 cache together (each K/V tile is read once per query
 // tile, so a wave spread over all heads would stream them from device
-// memory); inside a group the longest causal rows go first. Q is loaded
+// memory; `default_group`, or the caller's `group`, the autotuner's knob);
+// inside a group the longest causal rows go first. Q is loaded
 // once; K and V tiles of 128 keys flow through a 2-stage ring in shared
 // memory guarded by full/empty mbarriers. All tiles are 64-column chunks of
 // 128-byte rows in TMA's 128-byte swizzle. S = Q K^T is a wgmma with both
@@ -736,11 +737,22 @@ bool make_map(CUtensorMap* map, const void* base, int D, int nh, int S, int B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// (b, h) pairs a CTA group of the bf16 kernel when the caller gives none:
+// their K and V (padded to 128 dims) within 16 MB of the 50 MB L2, counting
+// the H / KV query heads of a kv head once, at most B * H
+// (flash_attention.default_group mirrors it)
+int default_group(int B, int S, int H, int KV) {
+  const long long kv_bytes = 4LL * S * 128;
+  return (int)std::min<long long>(
+      (long long)B * H,
+      std::max<long long>(1, (16LL << 20) / kv_bytes * (H / KV)));
+}
+
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         Strides qs, Strides ks, Strides vs, Strides os, int B,
                         int S, int H, int KV, int D, int causal, float scale,
-                        cudaStream_t stream) {
+                        int group, cudaStream_t stream) {
   constexpr size_t smem = sizeof(wg::Smem<DP>) + 1024;   // + alignment slack
   static std::atomic<bool> smem_set[MAX_DEVICES];
   const cudaError_t attr = allow_smem(
@@ -756,11 +768,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
     return cudaErrorInvalidValue;
   const long long ctas = (long long)B * H * ((S + wg::BM - 1) / wg::BM);
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // (b, h) pairs per group: their K and V (padded to 128 dims) within
-  // 16 MB of the 50 MB L2, counting the H / KV query heads of a kv head once
-  const long long kv_bytes = 4LL * S * 128;
-  const int group = (int)std::min<long long>(
-      B * H, std::max<long long>(1, (16LL << 20) / kv_bytes * (H / KV)));
+  if (group == 0) group = default_group(B, S, H, KV);
+  if (group < 1 || group > B * H) return cudaErrorInvalidValue;
   wg::flash_wgmma_kernel<DP><<<(unsigned)ctas, wg::THREADS, smem, stream>>>(
       qm, km, vm, om, S, H, KV, causal, scale * 1.4426950408889634f,
       (sq ? 1 : 0) | (sk ? 2 : 0) | (sv ? 4 : 0) | (so ? 8 : 0), group);
@@ -769,30 +778,41 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+// The bf16 kernel's (b, h) pairs a CTA group at group = 0.
+extern "C" int flash_attention_group(int B, int S, int H, int KV) {
+  return default_group(B, S, H, KV);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, ordered
 // (batch, sequence, head). For bf16 the caller guarantees 16-byte aligned
 // bases and strides (TMA); a map cuTensorMapEncodeTiled refuses gives
-// cudaErrorInvalidValue. Returns a cudaError_t as int (0 = launched).
+// cudaErrorInvalidValue. group (bf16 only): (b, h) pairs a CTA group, 1 to
+// B * H, or 0 for flash_attention_group's rule; it orders the CTAs and
+// leaves the output's bits as they are. Returns a cudaError_t as int
+// (0 = launched).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int S, int H, int KV, int D, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-    long long o_sh, int causal, float scale, int device, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || KV < 1 || H % KV != 0 || D < 1 || D > 128)
+    long long o_sh, int causal, float scale, int group, int device,
+    void* stream) {
+  if (B < 1 || S < 1 || H < 1 || KV < 1 || H % KV != 0 || D < 1 || D > 128 ||
+      (dtype != 1 && group != 0))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_ARGS q, k, v, o, qs, ks, vs, os, B, S, H, KV, D, causal, scale, st
+#define FLASH_ARGS q, k, v, o, qs, ks, vs, os, B, S, H, KV, D, causal, scale
   if (dtype == 0) {
-    err = D <= 64 ? launch_f32<64>(FLASH_ARGS) : launch_f32<128>(FLASH_ARGS);
+    err = D <= 64 ? launch_f32<64>(FLASH_ARGS, st)
+                  : launch_f32<128>(FLASH_ARGS, st);
   } else if (dtype == 1) {
-    err = D <= 64    ? launch_bf16<64>(FLASH_ARGS)
-          : D <= 112 ? launch_bf16<112>(FLASH_ARGS)
-                     : launch_bf16<128>(FLASH_ARGS);
+    err = D <= 64    ? launch_bf16<64>(FLASH_ARGS, group, st)
+          : D <= 112 ? launch_bf16<112>(FLASH_ARGS, group, st)
+                     : launch_bf16<128>(FLASH_ARGS, group, st);
 #undef FLASH_ARGS
   } else {
     return (int)cudaErrorInvalidValue;

@@ -25,9 +25,10 @@
 // order, so here a loop inside the block walks the chunks (or tokens) in
 // time order, and no exponent is ever positive.
 //
-// bf16 design (`ssd_chunk_kernel`). One CTA of 4 warps per (b, h, tile of
-// 64 state columns); columns of the state and of y are independent, so a
-// tile costs only a recomputed C B^T. The CTA walks chunks of Q = 64 tokens;
+// bf16 design (`ssd_chunk_kernel_64` and `_32`). One CTA of 4 warps per (b, h, tile
+// of PT state columns); columns of the state and of y are independent, so a
+// tile costs only a recomputed C B^T. PT is 64 unless the caller asks for
+// 32 (the autotuner's `state_tile`; both are instances of the template). The CTA walks chunks of Q = 64 tokens;
 // chunk c+1's x, B, C and dt are in flight (cp.async, 16-byte copies of
 // rows at the model's strides, zero-filled past S, N and P) while chunk c
 // computes. With cum the inclusive prefix sum of dt A over the chunk (a warp
@@ -48,7 +49,9 @@
 // tokens get dt = 0 (decay 1, xd = 0), so they leave S unchanged. A chunk
 // is a chain of dependent steps (scan, products, decays, barriers), so the
 // walk is bound by their latency, not by the tensor cores; two CTAs share
-// an SM (84.5 KB of shared memory each).
+// an SM at PT = 64 (84,480 B of shared memory each). At PT = 32 a CTA needs
+// 64,000 B, so three share an SM (its launch bounds ask the compiler for
+// registers that allow it).
 //
 // fp32 design (`ssd_fwd_kernel`, the scalar kernel). One block per (b, h)
 // walks the recurrence in time order: thread p owns column p of the state
@@ -194,11 +197,12 @@ cudaError_t launch_scalar(const void* x, const void* dt, const float* A,
 
 constexpr int CQ = 64;            // tokens per chunk
 constexpr int CN = 64;            // state rows in the tiles (N zero-padded)
-constexpr int PT = 64;            // state columns per CTA (P zero-padded)
+constexpr int DEFAULT_PT = 64;    // state columns per CTA unless asked (the
+                                  // template's PT: 32 or 64, P zero-padded)
 constexpr int TC_THREADS = 128;   // 4 warps: 16 tokens and 16 state rows each
 constexpr int PAD = 8;            // bf16 elements of padding per tile row, so
                                   // that 8 rows' 16-byte pieces hit 8 banks
-constexpr int XLD = PT + PAD;     // row stride of the x, xd, xw, state tiles
+                                  // (rows of 72 or 40 elements both do)
 constexpr int NLD = CN + PAD;     // row stride of the B and C tiles
 constexpr int MAX_DEVICES = 64;
 constexpr unsigned FULL = 0xffffffffu;
@@ -207,8 +211,12 @@ constexpr float LOG2E = 1.4426950408889634f;
 typedef __nv_bfloat16 bf16;
 
 // Shared memory of one CTA, in bytes: two stages of (x, B, C, dt), then the
-// xd and xw tiles, the bf16 state copy and one cum row per warp.
+// xd and xw tiles, the bf16 state copy and one cum row per warp. XLD is the
+// row stride of the x, xd, xw and state tiles. 84,480 B at PT = 64, 64,000 B
+// at PT = 32.
+template <int PT>
 struct TcLayout {
+  static constexpr int XLD = PT + PAD;
   static constexpr int X = CQ * XLD * 2;
   static constexpr int BC = CQ * NLD * 2;
   static constexpr int STAGE = X + 2 * BC + CQ * 4;
@@ -300,13 +308,16 @@ __device__ __forceinline__ uint32_t pack_bf16_split(float a, float b,
 // Warp w owns tokens and state rows 16 w .. 16 w + 15. Every warp runs the
 // same straight-line code: the causal tiles above the diagonal are formed
 // and masked to zero rather than skipped, which keeps each phase one block
-// of instructions the compiler can interleave.
-__global__ void __launch_bounds__(TC_THREADS)
-ssd_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ A, const bf16* __restrict__ Bm,
-                 const bf16* __restrict__ Cm, const float* __restrict__ D,
-                 bf16* __restrict__ y, Args a) {
-  using Lay = TcLayout;
+// of instructions the compiler can interleave. The body of both instances
+// (ssd_chunk_kernel_64 and ssd_chunk_kernel_32 below).
+template <int PT>
+__device__ __forceinline__ void ssd_chunk(
+    const bf16* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ A, const bf16* __restrict__ Bm,
+    const bf16* __restrict__ Cm, const float* __restrict__ D,
+    bf16* __restrict__ y, const Args& a) {
+  using Lay = TcLayout<PT>;
+  constexpr int XLD = Lay::XLD;
   constexpr int PTILES = PT / 8;          // accumulator tiles of 8 columns
   constexpr int XCH = PT / 8;             // 16-byte pieces per x row
   constexpr int NCH = CN / 8;             // 16-byte pieces per B or C row
@@ -465,7 +476,7 @@ ssd_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 
     // xd = dt x and xw = dt 2^(tot - cum_j) x as bf16 tiles: this thread
     // takes tokens lane and lane + 32 (whose dt and cum it holds) and the
-    // warp's PT / 4 columns
+    // warp's PT / 4 columns, PT / 32 pieces of 8 (one at PT = 32)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int j = lane + 32 * r;
@@ -562,30 +573,82 @@ ssd_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// The 64-column instance keeps the launch bounds it has always had (181
+// registers); the 32-column one asks for three CTAs an SM (at most 168
+// registers), which its 64,000 B of shared memory allow. A minimum of one
+// CTA an SM on the 64-column instance gave it 252 registers instead.
+__global__ void __launch_bounds__(TC_THREADS)
+ssd_chunk_kernel_64(const bf16* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const bf16* __restrict__ Bm,
+                    const bf16* __restrict__ Cm, const float* __restrict__ D,
+                    bf16* __restrict__ y, Args a) {
+  ssd_chunk<64>(x, dt, A, Bm, Cm, D, y, a);
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 3)
+ssd_chunk_kernel_32(const bf16* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const bf16* __restrict__ Bm,
+                    const bf16* __restrict__ Cm, const float* __restrict__ D,
+                    bf16* __restrict__ y, Args a) {
+  ssd_chunk<32>(x, dt, A, Bm, Cm, D, y, a);
+}
+
+template <int PT>
+auto chunk_kernel() {
+  if constexpr (PT == 32)
+    return ssd_chunk_kernel_32;
+  else
+    return ssd_chunk_kernel_64;
+}
+
 // cudaFuncSetAttribute holds only for the device that is current when it is
-// called, so the kernel's shared-memory limit is set once per device (two
+// called, so each instance's shared-memory limit is set once per device (two
 // threads racing here both set it, which is harmless).
-cudaError_t launch_chunked(const void* x, const void* dt, const float* A,
-                           const void* Bm, const void* Cm, const float* D,
-                           void* y, int B, const Args& a, cudaStream_t stream) {
+template <int PT>
+cudaError_t allow_smem() {
   static std::atomic<bool> done[MAX_DEVICES];
-  constexpr int bytes = TcLayout::BYTES;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES || !done[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(ssd_chunk_kernel,
+    err = cudaFuncSetAttribute(chunk_kernel<PT>(),
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
+                               TcLayout<PT>::BYTES);
     if (err != cudaSuccess) return err;
     if (dev < MAX_DEVICES) done[dev].store(true, std::memory_order_release);
   }
+  return cudaSuccess;
+}
+
+template <int PT>
+cudaError_t launch_chunked(const void* x, const void* dt, const float* A,
+                           const void* Bm, const void* Cm, const float* D,
+                           void* y, int B, const Args& a, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<PT>();
+  if (err != cudaSuccess) return err;
   const int grid = B * a.H * ((a.P + PT - 1) / PT);
-  ssd_chunk_kernel<<<grid, TC_THREADS, bytes, stream>>>(
+  const auto kernel = chunk_kernel<PT>();
+  kernel<<<grid, TC_THREADS, TcLayout<PT>::BYTES, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(dt), A,
       static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), D,
       static_cast<bf16*>(y), a);
   return cudaGetLastError();
+}
+
+// registers and local bytes a thread, dynamic shared memory a CTA and CTAs
+// per SM of one instance on the current device
+template <int PT>
+cudaError_t instance_info(int* info) {
+  cudaError_t err = allow_smem<PT>();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, chunk_kernel<PT>());
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = TcLayout<PT>::BYTES;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[3], chunk_kernel<PT>(), TC_THREADS, TcLayout<PT>::BYTES);
 }
 
 }  // namespace
@@ -594,17 +657,20 @@ cudaError_t launch_chunked(const void* x, const void* dt, const float* A,
 // chunked tensor-core kernel, which needs P and N multiples of 8 and
 // 16-byte aligned bases and strides). dt is float32; A and D are float32
 // (H,), contiguous. Strides are in elements, ordered (batch, sequence, head
-// or group). Returns a cudaError_t as int (0 = launched).
+// or group). state_tile (bf16 only): the state columns a CTA, 32 or 64, or
+// 0 for 64. Returns a cudaError_t as int (0 = launched).
 extern "C" int ssd_fwd(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* D, void* y, int dtype, int B, int S,
     int H, int G, int P, int N, long long x_sb, long long x_ss, long long x_sh,
     long long dt_sb, long long dt_ss, long long dt_sh, long long b_sb,
     long long b_ss, long long b_sg, long long c_sb, long long c_ss,
-    long long c_sg, long long y_sb, long long y_ss, long long y_sh, int device,
-    void* stream) {
+    long long c_sg, long long y_sb, long long y_ss, long long y_sh,
+    int state_tile, int device, void* stream) {
+  if (dtype == 1 && state_tile == 0) state_tile = DEFAULT_PT;
   if (B < 1 || S < 1 || H < 1 || G < 1 || H % G != 0 || P < 1 || P > PMAX ||
-      N < 1 || N > NMAX)
+      N < 1 || N > NMAX || (dtype != 1 && state_tile != 0) ||
+      (dtype == 1 && state_tile != 32 && state_tile != 64))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -617,9 +683,19 @@ extern "C" int ssd_fwd(
     err = launch_scalar(x, dt, Af, Bm, Cm, Df, y, B, a, st);
   } else if (dtype == 1) {
     if (P % 8 != 0 || N % 8 != 0) return (int)cudaErrorInvalidValue;
-    err = launch_chunked(x, dt, Af, Bm, Cm, Df, y, B, a, st);
+    err = state_tile == 32 ? launch_chunked<32>(x, dt, Af, Bm, Cm, Df, y, B, a, st)
+                           : launch_chunked<64>(x, dt, Af, Bm, Cm, Df, y, B, a, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// The chunked kernel's instance for state_tile (32 or 64) on the current
+// device: info[0] registers a thread, info[1] local (spilled) bytes a
+// thread, info[2] dynamic shared memory a CTA, info[3] CTAs per SM.
+extern "C" int ssd_chunk_info(int state_tile, int* info) {
+  if (state_tile == 32) return (int)instance_info<32>(info);
+  if (state_tile == 64) return (int)instance_info<64>(info);
+  return (int)cudaErrorInvalidValue;
 }

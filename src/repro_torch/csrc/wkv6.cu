@@ -21,11 +21,13 @@
 // the block walks the chunks (or tokens) in time order, and no exponent is
 // ever positive.
 //
-// bf16 design (`wkv6_chunk_kernel`). One CTA of 4 warps per (b, h, tile of
-// VT = 64 value columns), so 256 CTAs at rwkv6-7b's shape, 2 per SM by
-// shared memory (110,592 B each; 238 registers a thread, no spills): one
-// wave. 32-column tiles (512 CTAs, each recomputing the decays) ran in two
-// waves and were slower (PERF.md). It walks chunks of Q = 64
+// bf16 design (`wkv6_chunk_kernel<VT>`). One CTA of 4 warps per (b, h, tile
+// of VT value columns). VT is 64 unless the caller asks for 32 (the
+// autotuner's `value_tile`; both are instances of the template): at 64,
+// 256 CTAs at rwkv6-7b's shape, 2 per SM by shared memory (110,592 B each;
+// 238 registers a thread, no spills): one wave; at 32, 512 CTAs of
+// 98,304 B, each recomputing its (b, h)'s decays, still 2 per SM. It walks
+// chunks of Q = 64
 // tokens; chunk c+1's r, k, v and logw are in flight (cp.async, 16-byte
 // copies of rows at the model's strides, zero-filled past S and K) while
 // chunk c computes. The decay is per channel, so the intra-chunk decay does
@@ -206,13 +208,14 @@ cudaError_t launch_scalar(const void* r, const void* k, const void* v,
 
 constexpr int CQ = 64;            // tokens per chunk
 constexpr int CK = 64;            // channels in the tiles (K zero-padded)
-constexpr int VT = 64;            // value columns per CTA (K zero-padded)
+constexpr int DEFAULT_VT = 64;    // value columns per CTA unless asked (the
+                                  // template's VT: 32 or 64, K zero-padded)
 constexpr int SUB = 16;           // tokens per warp's sub-chunk
 constexpr int TC_THREADS = 128;   // 4 warps, one sub-chunk each
 constexpr int PAD = 8;            // 16-bit elements of padding per tile row,
                                   // so that 8 rows' 16-byte pieces hit 8 banks
+                                  // (rows of 72 or 40 elements both do)
 constexpr int RLD = CK + PAD;     // row stride of the r, k and kt tiles
-constexpr int VLD = VT + PAD;     // row stride of the v and state tiles
 constexpr int WLD = CK + 8;       // row stride (floats) of the logw/cum tile:
                                   // 8 rows' float2 pieces hit 16 banks apart
 constexpr int MAX_DEVICES = 64;
@@ -224,7 +227,11 @@ typedef __nv_bfloat16 bf16;
 // Shared memory of one CTA, in bytes: two stages of (r, k, v, logw), the
 // chunk's kt tile (fp16) and the fp16 copy of the state. The logw tile of a
 // stage becomes that chunk's cum in place, and its v tile fp16 in place.
+// VLD is the row stride of the v and state tiles. 110,592 B at VT = 64,
+// 98,304 B at VT = 32.
+template <int VT>
 struct TcLayout {
+  static constexpr int VLD = VT + PAD;
   static constexpr int R = CQ * RLD * 2;
   static constexpr int K = R;
   static constexpr int V = CQ * VLD * 2;
@@ -316,11 +323,13 @@ __device__ __forceinline__ int level_boundary(int p, int hs) {
 // 2tq+9 at col gr. Warp w owns tokens (rows of y) 16 w .. 16 w + 15 in
 // phase B, fragment rows gr and gr + 8 being tokens gr and 15 - gr, and
 // state rows (channels) 16 w .. 16 w + 15 in phase C, in order.
+template <int VT>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 wkv6_chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const float* __restrict__ logw,
                   const float* __restrict__ u, bf16* __restrict__ y, Args a) {
-  using Lay = TcLayout;
+  using Lay = TcLayout<VT>;
+  constexpr int VLD = Lay::VLD;
   constexpr int NT = VT / 8;              // accumulator tiles of 8 columns
   constexpr int KCH = CK / 8;             // 16-byte pieces per r or k row
   constexpr int VCH = VT / 8;             // 16-byte pieces per v row
@@ -718,29 +727,52 @@ wkv6_chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
 }
 
 // cudaFuncSetAttribute holds only for the device that is current when it is
-// called, so the kernel's shared-memory limit is set once per device (two
+// called, so each instance's shared-memory limit is set once per device (two
 // threads racing here both set it, which is harmless).
-cudaError_t launch_chunked(const void* r, const void* k, const void* v,
-                           const void* logw, const float* u, void* y, int B,
-                           const Args& a, cudaStream_t stream) {
+template <int VT>
+cudaError_t allow_smem() {
   static std::atomic<bool> done[MAX_DEVICES];
-  constexpr int bytes = TcLayout::BYTES;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES || !done[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(wkv6_chunk_kernel,
+    err = cudaFuncSetAttribute(wkv6_chunk_kernel<VT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
+                               TcLayout<VT>::BYTES);
     if (err != cudaSuccess) return err;
     if (dev < MAX_DEVICES) done[dev].store(true, std::memory_order_release);
   }
+  return cudaSuccess;
+}
+
+template <int VT>
+cudaError_t launch_chunked(const void* r, const void* k, const void* v,
+                           const void* logw, const float* u, void* y, int B,
+                           const Args& a, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<VT>();
+  if (err != cudaSuccess) return err;
   const int grid = B * a.H * ((a.K + VT - 1) / VT);
-  wkv6_chunk_kernel<<<grid, TC_THREADS, bytes, stream>>>(
+  wkv6_chunk_kernel<VT><<<grid, TC_THREADS, TcLayout<VT>::BYTES, stream>>>(
       static_cast<const bf16*>(r), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(logw), u,
       static_cast<bf16*>(y), a);
   return cudaGetLastError();
+}
+
+// registers and local bytes a thread, dynamic shared memory a CTA and CTAs
+// per SM of one instance on the current device
+template <int VT>
+cudaError_t instance_info(int* info) {
+  cudaError_t err = allow_smem<VT>();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, wkv6_chunk_kernel<VT>);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = TcLayout<VT>::BYTES;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[3], wkv6_chunk_kernel<VT>, TC_THREADS, TcLayout<VT>::BYTES);
 }
 
 int check_args(int B, int S, int H, int K) {
@@ -769,20 +801,37 @@ extern "C" int wkv6_fwd(
 }
 
 // bfloat16 r, k, v, y (the chunked tensor-core kernel), with the arguments
-// of wkv6_fwd; it needs K a multiple of 8 and 16-byte aligned bases and
-// strides of r, k, v, logw and y.
+// of wkv6_fwd and value_tile, the value columns a CTA: 32 or 64, or 0 for
+// 64. It needs K a multiple of 8 and 16-byte aligned bases and strides of
+// r, k, v, logw and y.
 extern "C" int wkv6_chunk_fwd(
     const void* r, const void* k, const void* v, const void* logw,
     const void* u, void* y, int B, int S, int H, int K,
     long long r_sb, long long r_ss, long long r_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long w_sb, long long w_ss, long long w_sh,
-    long long y_sb, long long y_ss, long long y_sh, int device, void* stream) {
-  if (check_args(B, S, H, K) || K % 8 != 0) return (int)cudaErrorInvalidValue;
+    long long y_sb, long long y_ss, long long y_sh, int value_tile,
+    int device, void* stream) {
+  if (value_tile == 0) value_tile = DEFAULT_VT;
+  if (check_args(B, S, H, K) || K % 8 != 0 ||
+      (value_tile != 32 && value_tile != 64))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Args a{r_sb, r_ss, r_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                w_sb, w_ss, w_sh, y_sb, y_ss, y_sh, S, H, K};
-  return (int)launch_chunked(r, k, v, logw, static_cast<const float*>(u), y, B,
-                             a, static_cast<cudaStream_t>(stream));
+  const float* uf = static_cast<const float*>(u);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(value_tile == 32
+                   ? launch_chunked<32>(r, k, v, logw, uf, y, B, a, st)
+                   : launch_chunked<64>(r, k, v, logw, uf, y, B, a, st));
+}
+
+// The chunked kernel's instance for value_tile (32 or 64) on the current
+// device: info[0] registers a thread, info[1] local (spilled) bytes a
+// thread, info[2] dynamic shared memory a CTA, info[3] CTAs per SM.
+extern "C" int wkv6_chunk_info(int value_tile, int* info) {
+  if (value_tile == 32) return (int)instance_info<32>(info);
+  if (value_tile == 64) return (int)instance_info<64>(info);
+  return (int)cudaErrorInvalidValue;
 }

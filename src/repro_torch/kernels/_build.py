@@ -74,6 +74,21 @@ def build(names=SOURCES, *, verbose: bool = False) -> dict[str, str]:
     return logs
 
 
+def kernel_info(lib: ctypes.CDLL, fn: str, knob: int, device=None) -> dict:
+    """What ``lib.fn(knob, int[4])`` reports of a kernel instance on the
+    card ``device`` (the current one by default): registers a thread, local
+    (spilled) bytes a thread, dynamic shared memory a CTA, and CTAs a
+    streaming multiprocessor holds at once."""
+    import torch
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn)(knob, info)
+    if rc != 0:
+        raise RuntimeError(f"{fn}({knob}) failed: cudaError {rc}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "ctas_per_sm"), info))
+
+
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use, with
     ``argtypes`` and ``restype`` set from ``signatures``

@@ -14,6 +14,10 @@ about 10 us at 3.35 TB/s. The kernel reads only positions below
 its strides, with no transposed copy, in 16-byte copies (so the caches'
 base and strides must be 16-byte aligned).
 
+Its knob, ``split`` (cache positions a CTA), is shared by the bf16 and
+fp32 kernels; ``None`` keeps ``split_size``'s rule, and the autotuner
+(``core/provision/autotune.py``) searches the others.
+
 ``decode_attention_bhd`` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors. ``decode_attention_bhd.launches`` counts
 kernel launches (one per call).
@@ -37,6 +41,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_GROUP = 32                  # query heads per kv head
 V_BYTES = 32 * 1024             # V a CTA holds in registers at head dim 128
+SMEM_CAP = 96 * 1024            # dynamic shared memory a CTA may ask
+KGROUPS = 8                     # keys in flight per pass of the score loop
 _tickets: dict = {}   # (device, stream) -> int32 zeros the kernel leaves zero
 
 
@@ -53,6 +59,37 @@ def split_size(s: int, rows: int, elem_size: int, sms: int) -> int:
     while split > 32 and -(-s // split) * rows < 2 * sms:
         split //= 2
     return split
+
+
+def max_split(elem_size: int) -> int:
+    """The most positions a CTA takes: the V rows its registers hold at
+    head dim 128, 128 in bf16 and 64 in fp32 (``max_split`` in
+    csrc/decode_attention.cu's ``launch``)."""
+    return V_BYTES // (MAX_HEAD_DIM * elem_size)
+
+
+def smem_bytes(split: int, d: int, group: int, elem_size: int) -> int:
+    """A CTA's dynamic shared memory (``smem_bytes`` in
+    csrc/decode_attention.cu): its K rows, q, the scores and the P V
+    partials."""
+    return split * d * elem_size + 4 * (group * MAX_HEAD_DIM + group * split
+                                        + KGROUPS * MAX_HEAD_DIM)
+
+
+def check_split(split, d: int, group: int, elem_size: int) -> None:
+    """Raise ValueError unless ``split`` is None or a split the kernel
+    takes for head dim ``d``, ``group`` query heads a kv head and elements
+    of ``elem_size`` bytes: 1 to ``max_split`` positions, within
+    ``SMEM_CAP`` of shared memory."""
+    if split is None:
+        return
+    if not 1 <= split <= max_split(elem_size):
+        raise ValueError(f"split {split} is not within 1 .. "
+                         f"{max_split(elem_size)} positions a CTA")
+    if smem_bytes(split, d, group, elem_size) > SMEM_CAP:
+        raise ValueError(f"split {split} needs "
+                         f"{smem_bytes(split, d, group, elem_size)} B of "
+                         f"shared memory, more than {SMEM_CAP}")
 
 
 def check_cache_layout(name, t):
@@ -75,7 +112,9 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len):
     """Plain PyTorch version. q: (B, H, D); caches (B, KV, S, D); cache_len
     (B,). fp32 math, scale 1/sqrt(D); positions >= cache_len[b] are masked,
     and a row with no valid position gives zeros (the Pallas kernel's finite
-    mask averages all of V there; the model never asks for such a row)."""
+    mask averages all of V there; the model never asks for such a row). It
+    has no knob: on CPU tensors the wrapper checks a ``split`` it is given
+    and ignores it."""
     b, h, d = q.shape
     kv, s = k_cache.shape[1], k_cache.shape[2]
     qf = q.float().reshape(b, kv, h // kv, 1, d) * d ** -0.5
@@ -91,12 +130,13 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len):
     return o.reshape(b, h, d).to(q.dtype)
 
 
-def decode_attention_bhd(q, k_cache, v_cache, cache_len):
+def decode_attention_bhd(q, k_cache, v_cache, cache_len, *, split=None):
     """q: (B, H, D); caches (B, KV, S, D); cache_len (B,) -> (B, H, D).
 
     Any strides are accepted as long as the head dim is contiguous; on the
     card the caches' base and strides must also be 16-byte aligned
-    (``check_cache_layout``)."""
+    (``check_cache_layout``). ``split``: cache positions a CTA, None for
+    ``split_size``'s rule."""
     refuse_grad("decode attention", "decode_attention_plain", q, k_cache,
                 v_cache)
     b, h, d = q.shape
@@ -106,17 +146,18 @@ def decode_attention_bhd(q, k_cache, v_cache, cache_len):
         raise ValueError(f"bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k_cache.shape)} v{tuple(v_cache.shape)} "
                          f"cache_len{tuple(cache_len.shape)}")
+    check_split(split, d, h // k_cache.shape[1], q.element_size())
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
     if q.device.type != "cuda":
         raise ValueError(f"no decode attention for device {q.device}")
-    return _launch(q, k_cache, v_cache, cache_len)
+    return _launch(q, k_cache, v_cache, cache_len, split)
 
 
 decode_attention_bhd.launches = 0
 
 
-def _launch(q, k_cache, v_cache, cache_len):
+def _launch(q, k_cache, v_cache, cache_len, split):
     b, h, d = q.shape
     kv, s = k_cache.shape[1], k_cache.shape[2]
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
@@ -137,8 +178,9 @@ def _launch(q, k_cache, v_cache, cache_len):
             raise ValueError(f"{name}'s head dim must be contiguous")
     check_cache_layout("k_cache", k_cache)
     check_cache_layout("v_cache", v_cache)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    split = split_size(s, b * kv, q.element_size(), sms)
+    if split is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        split = split_size(s, b * kv, q.element_size(), sms)
     nsplit = -(-s // split)
     part_acc = torch.empty(b * h * nsplit * d, dtype=torch.float32,
                            device=q.device)

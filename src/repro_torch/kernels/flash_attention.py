@@ -13,6 +13,13 @@ the model's (B, S, H, D) activations are never transposed or GQA-expanded;
 TMA needs 16-byte aligned bases and strides (``check_tma_layout``). fp32
 inputs take a scalar fp32 kernel.
 
+The bf16 kernel's one knob, ``group``, is the number of (b, h) pairs whose
+CTAs run together so that their K and V share the L2 cache; it changes
+only the order of the CTAs, so the output is the same bits for every
+value. ``None`` keeps the kernel's own rule (``default_group``); the
+autotuner (``core/provision/autotune.py``) searches the others. The fp32
+kernel has no knob.
+
 ``flash_attention_bhsd`` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors. ``flash_attention_bhsd.launches`` counts
 kernel launches.
@@ -31,16 +38,41 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "flash_attention_fwd": (
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12
-        + [_I, ctypes.c_float, _I, _P], _I),
+        + [_I, ctypes.c_float, _I, _I, _P], _I),
+    "flash_attention_group": ([_I] * 4, _I),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+L2_GROUP_BYTES = 16 << 20    # the K and V a CTA group keeps in the 50 MB L2
+
+
+def default_group(b: int, s: int, h: int, kv: int) -> int:
+    """The bf16 kernel's own (b, h) pairs a CTA group (``group`` 0 in C,
+    ``flash_attention_group`` in csrc/flash_attention.cu): as many pairs as
+    keep their K and V, padded to 128 dims, within 16 MB of the L2,
+    counting the H / KV query heads of a kv head once, at most B * H. At
+    olmo-1b's and zamba2-7b's 4 x 2048 prefills that is 16."""
+    kv_bytes = 4 * s * 128
+    return min(b * h, max(1, L2_GROUP_BYTES // kv_bytes * (h // kv)))
+
+
+def check_group(group, b: int, h: int, dtype) -> None:
+    """Raise ValueError unless ``group`` is None or a (b, h) pair count the
+    bf16 kernel takes, 1 to B * H; the fp32 kernel takes none."""
+    if group is None:
+        return
+    if dtype != torch.bfloat16:
+        raise ValueError(f"only the bf16 flash kernel has a group knob "
+                         f"(got group={group} for {dtype} inputs)")
+    if not 1 <= group <= b * h:
+        raise ValueError(f"group {group} is not within 1 .. B * H = {b * h}")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True):
     """Plain PyTorch version. q: (B, H, S, D); k, v: (B, KV, S, D); fp32
     math, scale 1/sqrt(D), output in q's dtype. Query head h reads kv head
-    h // (H / KV)."""
+    h // (H / KV). It has no knob: on CPU tensors the wrapper checks a
+    ``group`` it is given and ignores it."""
     b, h, s, d = q.shape
     kv = k.shape[1]
     qf = q.float().reshape(b, kv, h // kv, s, d) * d ** -0.5
@@ -79,28 +111,30 @@ def _map_strides(t):
     return [t.stride(dim) if t.shape[dim] > 1 else pad for dim in (0, 2, 1)]
 
 
-def flash_attention_bhsd(q, k, v, *, causal: bool = True):
+def flash_attention_bhsd(q, k, v, *, causal: bool = True, group=None):
     """q: (B, H, S, D); k, v: (B, KV, S, D) with H % KV == 0 -> (B, H, S, D).
 
     Any strides are accepted as long as the head dim is contiguous; the
-    output has q's memory layout."""
+    output has q's memory layout. ``group`` (bf16 only): (b, h) pairs a CTA
+    group, None for ``default_group``'s rule."""
     refuse_grad("flash attention", "flash_attention_plain", q, k, v)
     b, h, s, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (s, d) \
             or h % k.shape[1]:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
+    check_group(group, b, h, q.dtype)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for device {q.device}")
-    return _launch(q, k, v, causal)
+    return _launch(q, k, v, causal, group or 0)
 
 
 flash_attention_bhsd.launches = 0
 
 
-def _launch(q, k, v, causal):
+def _launch(q, k, v, causal, group):
     b, h, s, d = q.shape
     kv = k.shape[1]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -123,7 +157,7 @@ def _launch(q, k, v, causal):
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         _DTYPES[q.dtype], b, s, h, kv, d, *strides,
-        int(causal), d ** -0.5, q.device.index or 0, stream)
+        int(causal), d ** -0.5, group, q.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel failed to launch: "
                            f"cudaError {rc}")

@@ -26,6 +26,13 @@ applies one ``exp(dt_t A) <= 1`` per token, and the chunked kernel and the
 plain version form each decay as ``exp(cum_t - cum_j)`` of a masked,
 non-positive difference. All take any S >= 1.
 
+The bf16 kernel's knob, ``state_tile``, is the state columns (of P) a CTA
+takes (32 or 64: each is a template instance of the kernel, and P is
+zero-padded up to a multiple of the tile); ``None`` keeps 64, and the
+autotuner (``core/provision/autotune.py``) searches the other. A 32-column
+tile recomputes each chunk's C Bᵀ in twice as many CTAs, each with less
+shared memory and fewer registers. The fp32 kernel has no knob.
+
 ``ssd_bhsp`` launches a kernel for CUDA tensors and takes the plain version
 only for CPU tensors. ``ssd_bhsp.launches`` counts kernel launches.
 """
@@ -41,12 +48,29 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "ssd_fwd": ([_P] * 7 + [_I] * 7 + [_L] * 15 + [_I, _P], _I),
+    "ssd_fwd": ([_P] * 7 + [_I] * 7 + [_L] * 15 + [_I, _I, _P], _I),
+    "ssd_chunk_info": ([_I, _P], _I),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_STATE = 64
 PLAIN_CHUNK = 64     # tokens per chunk of the plain version
+STATE_TILES = (32, 64)   # the bf16 kernel's instances; 64 unless asked
+DEFAULT_STATE_TILE = 64
+
+
+def check_state_tile(state_tile, dtype) -> None:
+    """Raise ValueError unless ``state_tile`` is None or one of the bf16
+    kernel's tiles; the fp32 kernel has none. Both tiles fit every P the
+    kernel takes (P is zero-padded to a multiple of the tile)."""
+    if state_tile is None:
+        return
+    if dtype != torch.bfloat16:
+        raise ValueError(f"only the bf16 SSD kernel has a state_tile knob "
+                         f"(got state_tile={state_tile} for {dtype} inputs)")
+    if state_tile not in STATE_TILES:
+        raise ValueError(f"state_tile {state_tile} is not one of "
+                         f"{STATE_TILES}")
 
 
 def ssd_plain(x, dt, A, Bm, Cm, D):
@@ -56,7 +80,9 @@ def ssd_plain(x, dt, A, Bm, Cm, D):
     Chunk-parallel, in fp32, in a form that cannot overflow: within a chunk
     the decay from token j to token t >= j is exp(cum_t - cum_j), the
     difference (a sum of dt A <= 0) masked with ``torch.where`` before the
-    exp. The last chunk may be short. Output in x's dtype."""
+    exp. The last chunk may be short. Output in x's dtype. It has no knob:
+    on CPU tensors the wrapper checks a ``state_tile`` it is given and
+    ignores it."""
     b, h, s, p_ = x.shape
     reps = h // Bm.shape[1]
     Bh = Bm.float().repeat_interleave(reps, dim=1)            # (B, H, S, N)
@@ -104,12 +130,13 @@ def check_layout(name, t):
                              f"bf16 kernel needs")
 
 
-def ssd_bhsp(x, dt, A, Bm, Cm, D):
+def ssd_bhsp(x, dt, A, Bm, Cm, D, *, state_tile=None):
     """x: (B, H, S, P); dt: (B, H, S); A, D: (H,); Bm, Cm: (B, G, S, N) ->
     y (B, H, S, P) in x's dtype.
 
     Any strides are accepted as long as the P and N dims are contiguous;
-    the output has x's memory layout."""
+    the output has x's memory layout. ``state_tile`` (bf16 only): state
+    columns a CTA, None for 64."""
     refuse_grad("the SSD kernel", "ssd_plain", x, dt, A, Bm, Cm, D)
     b, h, s, p_ = x.shape
     if x.dim() != 4 or tuple(dt.shape) != (b, h, s) \
@@ -119,17 +146,18 @@ def ssd_bhsp(x, dt, A, Bm, Cm, D):
         raise ValueError(f"bad shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
                          f"A{tuple(A.shape)} B{tuple(Bm.shape)} "
                          f"C{tuple(Cm.shape)} D{tuple(D.shape)}")
+    check_state_tile(state_tile, x.dtype)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, Bm, Cm, D)
     if x.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {x.device}")
-    return _launch(x, dt, A, Bm, Cm, D)
+    return _launch(x, dt, A, Bm, Cm, D, state_tile or 0)
 
 
 ssd_bhsp.launches = 0
 
 
-def _launch(x, dt, A, Bm, Cm, D):
+def _launch(x, dt, A, Bm, Cm, D, state_tile):
     b, h, s, p_ = x.shape
     g, n = Bm.shape[1], Bm.shape[3]
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
@@ -161,8 +189,16 @@ def _launch(x, dt, A, Bm, Cm, D):
         Bm.stride(0), Bm.stride(2), Bm.stride(1),
         Cm.stride(0), Cm.stride(2), Cm.stride(1),
         y.stride(0), y.stride(2), y.stride(1),
-        x.device.index or 0, stream)
+        state_tile, x.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"SSD kernel failed to launch: cudaError {rc}")
     ssd_bhsp.launches += 1
     return y
+
+
+def chunk_kernel_info(state_tile: int, device=None) -> dict:
+    """The bf16 kernel's instance for ``state_tile`` on the card: its
+    registers a thread, local (spilled) bytes a thread, dynamic shared
+    memory a CTA, and CTAs a streaming multiprocessor holds at once."""
+    return _build.kernel_info(_build.load("mamba2_ssd", _SIGNATURES),
+                              "ssd_chunk_info", state_tile, device)

@@ -18,6 +18,7 @@ import numpy as np  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.core.acai import AcaiEngine, AcaiProject  # noqa: E402
+from repro_torch.core.provision import autotune as AT  # noqa: E402
 from repro_torch.core.engine.registry import JobSpec  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
@@ -470,6 +471,113 @@ def test_kernel_launches_refuse_grad(card):
         with pytest.raises(RuntimeError, match=plain):
             fn(*args)
     assert [c.launches for c in counters] == before
+
+
+# the autotuner's knobs at a small shape (the reference's smoke shapes)
+# and at serving-like ones (the serving widths, shorter or fewer rows)
+KNOB_SHAPES = {
+    "flash_attention": [
+        AT.SMOKE_SHAPES["flash_attention"][0],
+        {"b": 2, "s": 1024, "h": 16, "kv": 16, "d": 128, "dtype": "bfloat16"}],
+    "decode_attention": [
+        AT.SMOKE_SHAPES["decode_attention"][0],
+        {"b": 4, "s": 1024, "h": 16, "kv": 16, "d": 128, "dtype": "bfloat16"}],
+    "rwkv6": [AT.SMOKE_SHAPES["rwkv6"][0],
+              {"b": 2, "s": 1024, "h": 64, "k": 64, "dtype": "bfloat16"}],
+    "mamba2_ssd": [
+        AT.SMOKE_SHAPES["mamba2_ssd"][0],
+        {"b": 2, "s": 1024, "h": 112, "p": 64, "n": 64, "dtype": "bfloat16"}],
+}
+KNOB_CASES = [(k, i) for k in sorted(KNOB_SHAPES) for i in (0, 1)]
+
+
+@pytest.mark.parametrize("kernel,which", KNOB_CASES)
+def test_every_knob_rung_matches_plain(card, kernel, which):
+    """Each rung of a kernel's ladder against the fp32 plain version within
+    tests/test_kernels.py's bf16 tolerance; flash's group only orders the
+    CTAs, so each group gives the default's bits."""
+    spec, shape = AT.KERNELS[kernel], KNOB_SHAPES[kernel][which]
+    args, want = spec.build(shape, 3, card)
+    (knob, ladder), = AT.ladders_of(spec, shape).items()
+    base = spec.call(AT.seed_config(spec, shape), *args)
+    for value in ladder:
+        assert AT.legal(spec, shape, {knob: value})
+        got = spec.call({knob: value}, *args)
+        torch.cuda.synchronize()
+        assert AT.output_err(got, want) <= spec.tol, (knob, value)
+        if kernel == "flash_attention":
+            assert torch.equal(got.view(torch.int16), base.view(torch.int16))
+
+
+@pytest.mark.parametrize("kernel", sorted(KNOB_SHAPES))
+def test_no_knob_launches_the_default_bit_for_bit(card, kernel):
+    """A call without a knob launches what the autotuner seeds at: the
+    same bits as the knob set to ``seed_config``'s value."""
+    spec, shape = AT.KERNELS[kernel], KNOB_SHAPES[kernel][1]
+    args, _ = spec.build(shape, 4, card)
+    (knob, _), = AT.ladders_of(spec, shape).items()
+    none = spec.call({knob: None}, *args)
+    default = spec.call(AT.seed_config(spec, shape), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(none.view(torch.int16), default.view(torch.int16))
+
+
+def test_flash_group_rule_is_the_kernels(card):
+    lib = _build.load("flash_attention", fa._SIGNATURES)
+    for b, s, h, kv in [(4, 2048, 16, 16), (4, 2048, 32, 32), (4, 2048, 40, 8),
+                        (1, 100, 2, 1), (2, 65536, 8, 8), (1, 16, 64, 8)]:
+        assert lib.flash_attention_group(b, s, h, kv) == \
+            fa.default_group(b, s, h, kv)
+
+
+def test_knobs_on_fp32_raise_but_decodes_split(card):
+    """The fp32 flash, WKV6 and SSD kernels have no knob; decode's split
+    is shared by both dtypes (up to 64 positions in fp32)."""
+    counters = (fa.flash_attention_bhsd, dec.decode_attention_bhd,
+                wkv.wkv6_bhsk, ssd.ssd_bhsp)
+    for kernel in ("flash_attention", "rwkv6", "mamba2_ssd"):
+        spec = AT.KERNELS[kernel]
+        shape = dict(AT.SMOKE_SHAPES[kernel][0], dtype="float32")
+        args, _ = spec.build(shape, 5, card)
+        (knob, ladder), = AT.ladders_of(
+            spec, AT.SMOKE_SHAPES[kernel][0]).items()
+        before = [c.launches for c in counters]
+        with pytest.raises(ValueError, match="only the bf16"):
+            spec.call({knob: ladder[0]}, *args)
+        assert [c.launches for c in counters] == before
+    spec = AT.KERNELS["decode_attention"]
+    shape = dict(AT.SMOKE_SHAPES["decode_attention"][0], dtype="float32")
+    args, want = spec.build(shape, 5, card)
+    for split in (32, 64):
+        got = spec.call({"split": split}, *args)
+        torch.cuda.synchronize()
+        assert AT.output_err(got, want) <= 2e-5
+    with pytest.raises(ValueError, match="within 1 .. 64"):
+        spec.call({"split": 128}, *args)
+
+
+def test_chunked_instances_on_the_card(card):
+    """The 32- and 64-column instances of the bf16 WKV6 and SSD kernels:
+    their shared memory, and at least the two CTAs an SM that their
+    launch bounds ask for."""
+    for info, smem in ((wkv.chunk_kernel_info, {32: 98304, 64: 110592}),
+                       (ssd.chunk_kernel_info, {32: 64000, 64: 84480})):
+        for tile, nbytes in smem.items():
+            got = info(tile, card)
+            assert got["smem_bytes"] == nbytes
+            assert got["ctas_per_sm"] >= 2 and got["registers"] <= 255
+
+
+@pytest.mark.parametrize("kernel", sorted(KNOB_SHAPES))
+def test_autotune_on_the_card_picks_a_winner_within_tol(card, kernel):
+    shape = AT.SMOKE_SHAPES[kernel][0]
+    entry = AT.autotune(kernel, shape, device=card)
+    assert entry["mode"] == "cuda"
+    assert entry["family"] == torch.cuda.get_device_name(card)
+    assert entry["max_err"] <= entry["tol"]
+    assert entry["default_config"] == AT.seed_config(AT.KERNELS[kernel],
+                                                     shape)
+    assert entry["us"] > 0 and entry["roofline_fraction"] > 0
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b", "olmoe-1b-7b"])

@@ -18,11 +18,12 @@ projection), one CUDA kernel per call, and WKV6 at rwkv6-7b's prefill
 shape (B=4, S=2048, 64 heads of 64) on the model's views (r, k and v each
 a (B, S, H, K) view of its own projection, fp32 logw), one CUDA kernel per
 call. ``--only`` keeps the lines whose names start with one of the given
-prefixes (flash, decode, ssd, wkv6). Every time comes from
-chip_smoke.py's ``flushed_ms`` (the kernels' device time per call from
-torch.profiler, the L2 cache flushed before each call), the one timing of
-the repo. Prints one JSON line per
-root, then the card's name and power limit.
+prefixes (flash, decode, ssd, wkv6). Every time comes from this checkout's
+``repro_torch/kernels/timing.py`` ``flushed_ms`` (the kernels' device time
+per call from torch.profiler, the L2 cache flushed before each call), the
+one timing of the repo, loaded from its file so that each root's
+``repro_torch`` is the one imported. Prints one JSON line per root, then
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -36,16 +37,21 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def measure(root: Path, only: list[str]) -> dict:
-    sys.path[:0] = [str(root / "src"), str(REPO)]
+    import importlib.util
+    sys.path[:0] = [str(root / "src")]
     import torch
     import torch.nn.functional as F
 
-    from chip_smoke import flushed_ms
     from repro_torch.kernels import ops
+    spec = importlib.util.spec_from_file_location(
+        "timing", REPO / "src" / "repro_torch" / "kernels" / "timing.py")
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+    flushed_ms = timing.flushed_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.zeros(64 * 2**20, dtype=torch.int32, device=dev)
+    flush = timing.l2_flush_buffer(dev)
 
     def randn(shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
