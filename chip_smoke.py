@@ -154,6 +154,45 @@ their shapes here, in phase 3):
    time, save and restore seconds, device memory before, at peak and
    after, launches, and the eval job's tokens/s. The eval job's launches
    count in the kernel table's main-path launches.
+9. durable (the control plane's journal, crash recovery and the subprocess
+   runner, whose detached worker process runs the jobs and outlives the
+   engine): ``AcaiPlatform(root, runner="subprocess", durable=True)`` over
+   a root under build/ that it deletes at the end, with the jobs of
+   ``repro_torch/examples/card_jobs.py`` (a job that crosses the process
+   boundary must be importable). A probe job starts the worker, initialises
+   CUDA there and finds the kernel libraries of phase 2 built. Then four
+   steps:
+   (1) two olmo-1b training jobs at full width and 4 of 16 layers (lr 3e-3
+   and 1e-4, 6 steps of 4x2048, each printing ``[[acai:final_loss=...]]``)
+   and a serve job (olmo-1b in bf16 at full width and depth, 4 of phase 5's
+   requests) go in at once and run on three threads and three streams of
+   the worker. Gates: all FINISHED; their runs overlap; three streams, none
+   the default stream; each log holds only its own lines; ``find_min``
+   names the train job with the smaller final loss; each train job's
+   runtime at least the sum of its synchronized steps; the serve job's own
+   launch counters exactly 16 flash launches per prefill call and 16
+   decode launches per tick (they count in the kernel table's main-path
+   launches). (2) A 12-step training job writes a progress file after each
+   step; after step 2 the engine dies (store closed, socket dropped, no
+   shutdown), and a new platform over the root recovers it: adopted 1,
+   requeued 0; the job settles once, at epoch 0, and its marker file has
+   one line. (3) The same job again; after step 2 the worker (the pid in
+   ``worker.json``) is killed with SIGKILL and the engine dies. Gates:
+   within 10 s the card's ``memory.used`` is back within 0.5 GB of its
+   value before the phase (nvidia-smi's per-process list does not name
+   the worker's pid on the card's machine; this process holds still
+   through the phase, so the card's memory above that value is the
+   worker's); a new platform recovers with requeued 1 and a new worker
+   runs epoch 1 to FINISHED; the re-run's first loss equals the first
+   loss of (2)'s run within 1e-6 relative. (4) Shutdown: every worker pid exits within 30 s,
+   and the card's ``memory.used`` is back within 0.5 GB of its value
+   before the phase. It prints a ``durable:`` JSON line: the worker's
+   spawn-to-ready seconds, each job's engine runtime beside its own
+   synchronized time, each recovery's seconds and report, the time from
+   the SIGKILL to the card freeing the worker's memory, and the worker's
+   memory (the card's ``memory.used`` above its value before the phase)
+   once CUDA is ready, at its peak, between jobs and before the
+   shutdown.
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -277,6 +316,11 @@ CKPT_MIN_FREE = 18e9
 # how far device memory may stay above its value before a job
 PLATFORM_LRS, PLATFORM_STEPS, PLATFORM_MIN_FREE = (3e-3, 1e-4), 8, 12e9
 MEMORY_RETURN_BYTES = 0.5e9
+# the durable phase: olmo-1b's layers in its training jobs, the steps of the
+# two overlapping jobs and of the job that outlives its engine and worker,
+# and the number of phase 5's olmo-1b requests its serve job serves
+DURABLE_LAYERS, DURABLE_STEPS, DURABLE_RECOVER_STEPS = 4, 6, 12
+DURABLE_REQUESTS = 4
 # per model: slots, cache buffer, requests, new tokens each, prompt lengths;
 # SLICE_LAYERS cuts a model's depth (llama4-scout's 48 layers take 215 GB
 # in bf16; 2 layers, 6.47 B params, take 12.9 GB)
@@ -733,6 +777,14 @@ def main() -> int:
     for name, n in engine["launches"].items():
         totals[name] += n
     log("engine: " + json.dumps(engine))
+    free()
+
+    # -- 9. the durable control plane and the subprocess runner ----------------
+    phase("9. durable")
+    durable = run_durable(card)
+    for name, n in durable["launches"].items():
+        totals[name] += n
+    log("durable: " + json.dumps(durable))
 
     for row in rows:
         row["launches"] = totals[row["name"]]
@@ -2041,6 +2093,321 @@ def run_platform(card, counters, dev) -> dict:
         return numbers
     finally:
         if eng is not None:
+            eng.launcher.shutdown()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def slice_prompts(cfg, shape) -> list:
+    """Phase 5's requests of ``cfg`` at ``shape`` (run_slice draws them
+    from seed 0 after its 4x2048 prefill batch)."""
+    import numpy as np
+    _, _, requests, _, prompt_lens = shape
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN))
+    return [rng.integers(0, cfg.vocab_size,
+                         rng.integers(prompt_lens[0], prompt_lens[1] + 1)
+                         ).tolist() for _ in range(requests)]
+
+
+def gpu_memory_used() -> int:
+    """The card's ``memory.used`` from nvidia-smi, in MiB."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return int(out.strip().splitlines()[0])
+
+
+def _reap(pid: int, timeout: float) -> bool:
+    """Wait up to ``timeout`` s for the child ``pid`` to exit (and reap
+    it); True once it has."""
+    import os
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            if os.waitpid(pid, os.WNOHANG)[0] == pid:
+                return True
+        except ChildProcessError:
+            try:
+                os.kill(pid, 0)
+            except ProcessLookupError:
+                return True             # not our child, and gone
+        if time.perf_counter() > deadline:
+            return False
+        time.sleep(0.05)
+
+
+class MemorySampler(threading.Thread):
+    """The card's largest ``memory.used`` (nvidia-smi, MiB), read every
+    0.25 s while it runs."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.stop = threading.Event()
+        self.peak = gpu_memory_used()
+
+    def run(self):
+        while not self.stop.wait(0.25):
+            self.peak = max(self.peak, gpu_memory_used())
+
+
+def run_durable(card) -> dict:
+    """Phase 9 (see the module docstring): the durable control plane and
+    the subprocess runner on the card, through
+    ``AcaiPlatform(root, runner="subprocess", durable=True)`` under build/:
+    overlapping jobs in one worker, the engine's death, the worker's death
+    and a shutdown. Its jobs are ``repro_torch/examples/card_jobs.py``'s,
+    since a job that crosses the process boundary must be importable."""
+    import math
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.acai import AcaiPlatform
+    from repro_torch.core.engine.handle import JobHandle
+    from repro_torch.core.engine.registry import JobSpec
+    from repro_torch.examples import card_jobs as CJ
+
+    cfg = get_arch("olmo-1b")
+    slots, buf, _, max_new, _ = SLICES["olmo-1b"]
+    per_call, per_tick = launches_per_call(cfg)
+    prompts = slice_prompts(cfg, SLICES["olmo-1b"])[:DURABLE_REQUESTS]
+    workdir = Path(tempfile.mkdtemp(prefix="acai-durable-",
+                                    dir=ROOT / "build"))
+    train = {"arch": cfg.name, "layers": DURABLE_LAYERS, "batch": TRAIN_BATCH,
+             "seq": TRAIN_LEN}
+    live = []               # the platforms whose engines still run
+    pids = set()
+    sampler = None
+
+    def platform():
+        plat = AcaiPlatform(workdir, runner="subprocess", durable=True,
+                            quota_k=4)
+        t0 = time.perf_counter()
+        admin = plat.create_project(plat.admin_token, "smoke")
+        eng = plat.engine(admin)
+        live.append(eng)
+        return plat, admin, eng, time.perf_counter() - t0
+
+    def spec(name, fn, **args):
+        return JobSpec(name=name, project="", user="", fn=fn, args=args,
+                       resources={"vcpu": 8, "mem_mb": 8192})
+
+    def finished(h, timeout=300):
+        state = h.wait(timeout=timeout)
+        if state.value != "FINISHED":
+            raise AssertionError(f"{h.job_id} ({h.job.spec.name}) ended "
+                                 f"{state.value}: {h.job.error}")
+        return h.job
+
+    def die(eng):
+        """The engine's process dies: its store closes and its socket
+        drops, and nothing is shut down."""
+        eng.store.close()
+        eng.launcher._disconnect()
+        live.remove(eng)
+
+    def after_step(path, step, timeout=180):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            if path.exists() and len(path.read_text().splitlines()) > step:
+                return
+            time.sleep(0.05)
+        raise AssertionError(f"{path} never reached step {step}")
+
+    def own_lines(job):
+        lines = job.outputs["log"].splitlines()
+        tagged = [ln for ln in lines if ln.startswith("job-")]
+        return tagged, all(ln.startswith(f"{job.job_id} ") for ln in tagged)
+
+    # nvidia-smi's per-process list (--query-compute-apps) did not name the
+    # worker's pid on the card's machine (it listed one process, pid 1), so
+    # the worker's memory is read off the card's memory.used, beside which
+    # this process holds still through the phase
+    mem_before = gpu_memory_used()
+
+    def worker_mib():
+        return gpu_memory_used() - mem_before
+
+    numbers = {"card": card, "arch": cfg.name, "train_layers": DURABLE_LAYERS,
+               "requests": len(prompts), "memory_used_before_mib": mem_before}
+    try:
+        # -- 1. overlapping jobs in one worker ---------------------------
+        t0 = time.perf_counter()
+        plat, admin, eng, _ = platform()
+        proj = plat.project(admin)
+        probe = plat.submit_job(admin, spec("probe", CJ.probe_job))
+        up_s = time.perf_counter() - t0         # the launch waited for it
+        probe = finished(probe, timeout=120)
+        ready_s = time.perf_counter() - t0
+        pid = probe.outputs["pid"]
+        pids.add(pid)
+        log(f"durable: worker {pid} up in {up_s:.2f} s, CUDA and the kernel "
+            f"libraries ready in {ready_s:.2f} s ({probe.outputs['device']})")
+        ready_mib = worker_mib()
+        if not ready_mib >= 256:
+            raise AssertionError(f"the card's memory.used moved {ready_mib} "
+                                 f"MiB with the worker's CUDA context")
+        sampler = MemorySampler()
+        sampler.start()
+        handles = [plat.submit_job(admin, spec(
+            f"train-lr{lr}", CJ.train_job, lr=lr, steps=DURABLE_STEPS,
+            **train)) for lr in PLATFORM_LRS]
+        handles.append(plat.submit_job(admin, spec(
+            "serve", CJ.serve_job, arch=cfg.name, prompts=prompts,
+            slots=slots, buf=buf, max_new=max_new)))
+        jobs = [finished(h) for h in handles]
+        *trains, serve = jobs
+        between = worker_mib()
+        outs = [j.outputs for j in jobs]
+        if not max(o["started"] for o in outs) < \
+                min(o["ended"] for o in outs):
+            raise AssertionError("the three jobs did not overlap: " + str(
+                [(o["started"], o["ended"]) for o in outs]))
+        streams = [o["stream"] for o in outs]
+        if len(set(streams)) != 3 or outs[0]["default_stream"] in streams:
+            raise AssertionError(f"the jobs' streams {streams} are not three "
+                                 f"of their own")
+        for j in jobs:
+            tagged, own = own_lines(j)
+            want = DURABLE_STEPS if j in trains else 1
+            if not own or len(tagged) != want:
+                raise AssertionError(f"{j.job_id}'s log holds other lines: "
+                                     f"{tagged}")
+        losses = {j.job_id: j.outputs["losses"][-1] for j in trains}
+        if not all(math.isfinite(x) for j in trains
+                   for x in j.outputs["losses"]):
+            raise AssertionError(f"non-finite training loss: {losses}")
+        best = proj.metadata.find_min("final_loss", kind="job")
+        if best != min(losses, key=losses.get):
+            raise AssertionError(f"find_min named {best}, final losses "
+                                 f"{losses}")
+        for j in trains:
+            if not j.runtime >= sum(j.outputs["step_s"]):
+                raise AssertionError(
+                    f"{j.job_id}: engine runtime {j.runtime} s < its "
+                    f"synchronized steps' {sum(j.outputs['step_s'])} s")
+        out = serve.outputs
+        want = {k: out["prefill_calls"] * per_call.get(k, 0)
+                + out["ticks"] * per_tick.get(k, 0) for k in launch_counters()}
+        if out["launches"] != want or not out["outputs_ok"]:
+            raise AssertionError(f"serve job: launches {out['launches']}, "
+                                 f"expected {want}; outputs ok "
+                                 f"{out['outputs_ok']}")
+        numbers.update({
+            "worker_up_s": up_s, "spawn_to_ready_s": ready_s,
+            "jobs": {j.job_id: {
+                "name": j.spec.name, "runtime_s": j.runtime,
+                "own_s": sum(j.outputs["step_s"]) if j in trains
+                else j.outputs["serve_s"], "cpu_pricing_cost": j.cost}
+                for j in jobs},
+            "step_ms": {j.job_id: [1e3 * s for s in j.outputs["step_s"]]
+                        for j in trains},
+            "final_losses": losses, "best": best,
+            "serve_ticks": out["ticks"], "serve_tokens_per_s":
+                out["tokens_per_s"], "launches": out["launches"]})
+
+        # -- 2. the engine dies, the worker runs on ----------------------
+        marker = workdir / "marker-engine.txt"
+        progress = workdir / "progress-engine.txt"
+        h = plat.submit_job(admin, spec(
+            "train-engine-death", CJ.train_job, lr=PLATFORM_LRS[0],
+            steps=DURABLE_RECOVER_STEPS, progress=str(progress),
+            marker=str(marker), **train))
+        jid = h.job_id
+        after_step(progress, 2)
+        die(eng)
+        del plat, eng
+        plat2, admin2, eng2, recover_s = platform()
+        rep2 = eng2.recovery
+        if (rep2.adopted, rep2.requeued) != (1, 0):
+            raise AssertionError(f"after the engine's death: {rep2}")
+        job = finished(JobHandle(eng2.registry.get(jid), eng2))
+        if job.epoch != 0 or marker.read_text().splitlines() != \
+                [f"{jid} 0"]:
+            raise AssertionError(f"{jid} settled at epoch {job.epoch}, "
+                                 f"marker {marker.read_text()!r}")
+        first_loss = job.outputs["losses"][0]
+        numbers["engine_death"] = {
+            "recovery_s": recover_s, "report": dataclasses.asdict(rep2),
+            "runtime_s": job.runtime, "own_s": sum(job.outputs["step_s"]),
+            "step_ms": [1e3 * s for s in job.outputs["step_s"]]}
+
+        # -- 3. the worker dies too ---------------------------------------
+        marker = workdir / "marker-worker.txt"
+        progress = workdir / "progress-worker.txt"
+        h = plat2.submit_job(admin2, spec(
+            "train-worker-death", CJ.train_job, lr=PLATFORM_LRS[0],
+            steps=DURABLE_RECOVER_STEPS, progress=str(progress),
+            marker=str(marker), **train))
+        jid = h.job_id
+        after_step(progress, 2)
+        victim = json.loads((eng2.launcher.dir / "worker.json")
+                            .read_text())["pid"]
+        held = worker_mib()
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        die(eng2)
+        del plat2, eng2
+        while worker_mib() > MEMORY_RETURN_BYTES / 2**20:
+            if time.perf_counter() - t_kill > 10:
+                raise AssertionError(f"the card still holds {worker_mib()} "
+                                     f"MiB of the killed worker {victim} "
+                                     f"after 10 s ({held} MiB before)")
+            time.sleep(0.1)
+        freed_s = time.perf_counter() - t_kill
+        _reap(victim, 10)
+        plat3, admin3, eng3, recover3_s = platform()
+        rep3 = eng3.recovery
+        if (rep3.requeued, rep3.adopted) != (1, 0):
+            raise AssertionError(f"after the worker's death: {rep3}")
+        job = finished(JobHandle(eng3.registry.get(jid), eng3))
+        if job.epoch != 1 or marker.read_text().splitlines() != \
+                [f"{jid} 1"]:
+            raise AssertionError(f"{jid} settled at epoch {job.epoch}, "
+                                 f"marker {marker.read_text()!r}")
+        rerun_loss = job.outputs["losses"][0]
+        if not abs(rerun_loss - first_loss) <= 1e-6 * abs(first_loss):
+            raise AssertionError(f"the re-run's first loss {rerun_loss} is "
+                                 f"not step 2's {first_loss}")
+        pid3 = job.outputs["pid"]
+        pids.update((victim, pid3))
+        before_shutdown = worker_mib()
+        numbers["worker_death"] = {
+            "killed_pid": victim, "killed_held_mib": held,
+            "kill_to_free_s": freed_s, "recovery_s": recover3_s,
+            "report": dataclasses.asdict(rep3), "runtime_s": job.runtime,
+            "own_s": sum(job.outputs["step_s"]),
+            "step_ms": [1e3 * s for s in job.outputs["step_s"]],
+            "first_loss": first_loss, "rerun_first_loss": rerun_loss}
+
+        # -- 4. shutdown --------------------------------------------------
+        t0 = time.perf_counter()
+        eng3.launcher.shutdown()
+        live.remove(eng3)
+        gone = {p: _reap(p, 30) for p in pids}
+        if not all(gone.values()):
+            raise AssertionError(f"workers still alive 30 s after the "
+                                 f"shutdown: {gone}")
+        shutdown_s = time.perf_counter() - t0
+        mem_after = gpu_memory_used()
+        if not mem_after - mem_before <= MEMORY_RETURN_BYTES / 2**20:
+            raise AssertionError(f"the card's memory.used is {mem_after} MiB "
+                                 f"after the phase, {mem_before} MiB before")
+        numbers.update({
+            "worker_used_mib": {"ready": ready_mib,
+                                "peak": sampler.peak - mem_before,
+                                "between_jobs": between,
+                                "before_shutdown": before_shutdown},
+            "shutdown_s": shutdown_s, "memory_used_after_mib": mem_after,
+            "worker_pids": sorted(pids)})
+        return numbers
+    finally:
+        if sampler is not None:
+            sampler.stop.set()
+        for eng in live:
             eng.launcher.shutdown()
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -2,7 +2,9 @@
 
 Every assigned architecture is a frozen ``ArchConfig``; reduced smoke-test
 variants are derived with ``.reduced()``. Configs are registered by id and
-selectable everywhere via ``--arch <id>``.
+selectable everywhere via ``--arch <id>``. Unlike the reference, a lookup
+imports the config modules on every call (``_load_all``), so threads that
+look up configs at once, as concurrent jobs do, each find them all.
 """
 from __future__ import annotations
 
@@ -253,20 +255,23 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 def get_arch(name: str) -> ArchConfig:
-    if not _REGISTRY:
-        _load_all()
+    _load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def list_archs() -> list[str]:
-    if not _REGISTRY:
-        _load_all()
+    _load_all()
     return sorted(_REGISTRY)
 
 
 def _load_all() -> None:
+    """Import every config module, each of which registers itself. Run on
+    every lookup, not only while the registry is empty as the reference
+    does: a thread that found it part-filled by another thread's imports
+    would miss a config, where the import statement waits for a module
+    another thread is importing (ROADMAP C)."""
     from repro_torch.configs import (  # noqa: F401
         qwen3_32b, qwen3_8b, mistral_nemo_12b, olmo_1b, olmoe_1b_7b,
         llama4_scout, rwkv6_7b, llama32_vision_11b, zamba2_7b,

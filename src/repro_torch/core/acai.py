@@ -1,9 +1,7 @@
 """ACAI facade: credential server + project workspaces + SDK surface.
 
-A copy of ``repro/core/acai.py``, with its imports in ``repro_torch.core``.
-The durable control plane (``durable=``) and the subprocess runner are not
-copied yet (ROADMAP A5): asking for either raises ``NotImplementedError``
-instead of building an engine without it.
+A copy of ``repro/core/acai.py``, with its imports in ``repro_torch.core``
+and the default ``workroot`` of its runners in the temporary directory.
 
 Mirrors the paper's public surface (§3.1, §3.4, §4.1): a global admin
 creates projects; each project has an admin user who creates member users;
@@ -104,23 +102,33 @@ class AcaiEngine:
                  quarantine_threshold: int = 3,
                  user_failure_budget: Optional[int] = None,
                  checkpoint_interval: Optional[float] = None,
-                 durable: Optional[str | Path] = None):
-        # the durable control plane (``durable=<dir>``: the write-ahead
-        # journal, snapshot store and recovery of the paper's Redis-backed
-        # engine state) is not ported yet; ``store``, ``journal`` and
-        # ``recovery`` stay None, as in a reference engine without it; its
-        # ``snapshot_every`` and ``recover`` options come with it (ROADMAP A5).
+                 durable: Optional[str | Path] = None,
+                 snapshot_every: int = 1000,
+                 recover: bool = True):
+        # durable control plane: ``durable=<dir>`` turns on the
+        # write-ahead journal + snapshot store (the paper's Redis-backed
+        # engine state). Every submit/transition/preempt/resize records
+        # through it, the event stream persists, and building an engine
+        # over a non-empty state dir recovers: terminal jobs adopt as-is,
+        # non-terminal ones re-queue as new epochs with their checkpoint
+        # progress intact (``self.recovery`` holds the report).
         # ``workroot`` defaults to <TMPDIR>/acai-jobs, not the reference's
         # fixed /tmp/acai-jobs
+        store = journal = None
+        had_state = False
         if durable is not None:
-            raise NotImplementedError(
-                "durable=: the durable control plane (journal, snapshot "
-                "store, recovery) is not ported yet (ROADMAP A5)")
-        self.store = self.journal = self.recovery = None
-        self.bus = EventBus()
+            from repro_torch.core.engine.durable import FileStore, Journal
+            store = FileStore(durable)
+            journal = Journal(store, snapshot_every=snapshot_every)
+            had_state = journal.has_state()
+        self.store = store
+        self.journal = journal
+        self.recovery = None
+        self.bus = EventBus(store=store)
         self.datalake = datalake
         self.registry = JobRegistry(
-            metadata=datalake.metadata if datalake else None)
+            metadata=datalake.metadata if datalake else None,
+            journal=journal)
         runner = runner or ("virtual" if virtual else "local")
         if runner == "virtual":
             self.launcher = VirtualRunner(
@@ -137,9 +145,12 @@ class AcaiEngine:
                                         datalake=datalake, pricing=pricing,
                                         workroot=workroot)
         elif runner == "subprocess":
-            raise NotImplementedError(
-                "runner='subprocess': the subprocess runner is part of the "
-                "durable control plane, which is not ported yet (ROADMAP A5)")
+            from repro_torch.core.engine.durable.runner import \
+                SubprocessRunner
+            self.launcher = SubprocessRunner(self.registry, self.bus,
+                                             datalake=datalake,
+                                             pricing=pricing,
+                                             workdir=workroot)
         else:
             raise ValueError(f"unknown runner {runner!r}")
         catalog = pricing if isinstance(pricing, dict) else None
@@ -173,6 +184,21 @@ class AcaiEngine:
         self.cluster = cluster
         self.monitor = JobMonitor(self.bus, registry=self.registry)
         self.pricing = pricing
+        if journal is not None:
+            from repro_torch.core.engine.durable import (
+                attach_terminal_recorder, snapshot_state)
+            from repro_torch.core.engine.durable.recovery import recover as \
+                _recover
+            self.launcher.journal = journal
+            self.scheduler.journal = journal
+            journal.snapshot_source = lambda: snapshot_state(self)
+            # subscribed after the scheduler + monitor: by the time a
+            # terminal event reaches the recorder, the runner's finalize
+            # has committed outputs/billing, so the ``final`` journal
+            # record carries authoritative values
+            attach_terminal_recorder(self.bus, journal, self.registry)
+            if recover and had_state:
+                self.recovery = _recover(self)
 
     @property
     def pools(self) -> dict[str, Cluster]:
@@ -296,12 +322,9 @@ class AcaiPlatform:
         self._backfill = backfill
         self._usage_halflife = usage_halflife
         # durable=True journals each project engine's state under
-        # <root>/<project>/state in the reference; refused here, before
-        # any project exists, rather than building non-durable engines
-        if durable:
-            raise NotImplementedError(
-                "durable=True: the durable control plane is not ported "
-                "yet (ROADMAP A5)")
+        # <root>/<project>/state, so a fresh process over the same root
+        # (the CLI) recovers jobs instead of starting empty
+        self._durable = durable
 
     # -- credential server ----------------------------------------------
     @property
@@ -330,7 +353,9 @@ class AcaiPlatform:
             cluster_nodes=self._cluster_nodes,
             policy=self._policy, backfill=self._backfill,
             usage_halflife=self._usage_halflife,
-            workroot=str(self.root / name / "jobs"))
+            workroot=str(self.root / name / "jobs"),
+            durable=(self.root / name / "state") if self._durable
+            else None)
         return self.create_user(None, name, f"{name}-admin", _admin=True)
 
     def create_user(self, admin_token: Optional[str], project: str,

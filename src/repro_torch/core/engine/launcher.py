@@ -3,8 +3,8 @@
 A copy of ``repro/core/engine/launcher.py``, with its imports in
 ``repro_torch.core``, and three changes: once CUDA is initialised, the
 runner waits for the stream a job ran on before it reads the job's end time
-(``_elapsed``), so a runtime covers the job's device work and not only its
-launches; each ``ThreadPoolRunner`` worker runs its jobs on a CUDA stream
+(``jobthread.elapsed``), so a runtime covers the job's device work and not
+only its launches; each ``ThreadPoolRunner`` worker runs its jobs on a CUDA stream
 of its own, so that wait covers its own job and not the other workers'
 queued work; and the default ``workroot`` is ``<TMPDIR>/acai-jobs``, not a
 fixed ``/tmp`` path.
@@ -34,13 +34,12 @@ from __future__ import annotations
 import heapq
 import io
 import os
-import sys
 import tempfile
 import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager, redirect_stdout
+from contextlib import redirect_stdout
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -51,6 +50,7 @@ from repro_torch.core.engine.events import (EventBus, TOPIC_CONTAINER_STATUS,
 from repro_torch.core.engine.lifecycle import (IllegalTransition, JobPreempted,
                                                JobState, TERMINAL_STATES,
                                                TransientJobError)
+from repro_torch.core.engine import jobthread
 from repro_torch.core.engine.logparse import parse_log
 from repro_torch.core.engine.registry import Job, JobRegistry
 
@@ -59,43 +59,6 @@ from repro_torch.core.engine.registry import Job, JobRegistry
 # zombie (superseded) worker and the live incarnation's finalize can
 # race the read-modify-write and silently drop a segment without this
 _billing_lock = threading.Lock()
-
-
-def _elapsed(t0: float, stream=None, *, quiet: bool = False) -> float:
-    """``perf_counter() - t0`` once the work queued on the job's CUDA
-    stream has ended. A CUDA launch returns before its kernel runs, so a
-    job fn that returns with work still queued would otherwise get the time
-    of its launches as its runtime, its bill and the profiler's sample.
-    ``stream`` is the stream the job ran on (its worker's, see
-    ``ThreadPoolRunner``), or None for the stream current on this thread,
-    which is the one a ``LocalRunner`` job runs on. Only that stream is
-    waited for: device work a job puts on a side stream of its own (or on
-    another device) without joining it back to its stream is not. Only once
-    CUDA is initialised: a CPU-only process never touches CUDA and its
-    records are the reference's. ``quiet`` (the failure paths) drops an
-    error of the wait itself: the job is failing already, and the runner
-    must still finalize it."""
-    if torch.cuda.is_initialized():
-        try:
-            (stream or torch.cuda.current_stream()).synchronize()
-        except RuntimeError:
-            if not quiet:
-                raise
-    return time.perf_counter() - t0
-
-
-@contextmanager
-def _on_stream(stream):
-    """Run the body on ``stream`` (None: on the current stream, untouched).
-    The stream first waits for the work queued on its device's default
-    stream, so that inputs made there are ready before the job reads
-    them."""
-    if stream is None:
-        yield
-        return
-    stream.wait_stream(torch.cuda.default_stream(stream.device))
-    with torch.cuda.stream(stream):
-        yield
 
 
 def _hand_over(result, stream) -> None:
@@ -250,7 +213,7 @@ class LocalRunner(Runner):
                                                    workdir)
             bus.publish(TOPIC_JOB_PROGRESS,
                         {"job_id": job.job_id, "stage": "running"})
-            with self._capture(log_buf), _on_stream(stream):
+            with self._capture(log_buf), jobthread.on_stream(stream):
                 result = job.spec.fn(workdir, job) if job.spec.fn else None
             _hand_over(result, stream)
             if job.epoch != epoch:
@@ -260,7 +223,7 @@ class LocalRunner(Runner):
                 # without uploading or finalizing, but bill the compute
                 # it really consumed (same as the cooperative path)
                 _bill_segment(resolve_pricing(self.pricing, job), job,
-                              _elapsed(t0, stream))
+                              jobthread.elapsed(t0, stream))
                 bus.publish(TOPIC_JOB_PROGRESS,
                             {"job_id": job.job_id, "stage": "superseded",
                              "epoch": epoch})
@@ -271,7 +234,7 @@ class LocalRunner(Runner):
             # the (slow) upload cannot clobber the live incarnation's
             # outputs — its staged delta is simply dropped
             delta = dict(result) if isinstance(result, dict) else {}
-            runtime = _elapsed(t0, stream)
+            runtime = jobthread.elapsed(t0, stream)
             job.runtime = job.spec.duration if job.spec.duration is not None \
                 else runtime
             ref = self._upload_outputs(job, workdir, bus)
@@ -289,7 +252,7 @@ class LocalRunner(Runner):
             # job would hang non-terminal forever.
             if job.epoch == epoch and \
                     reg.get(job.job_id).state == JobState.RUNNING:
-                job.runtime = _elapsed(t0, stream, quiet=True)
+                job.runtime = jobthread.elapsed(t0, stream, quiet=True)
                 self._finalize(job, log_buf.getvalue()
                                + "\nJobPreempted without a scheduler "
                                "preemption", JobState.FAILED,
@@ -297,7 +260,7 @@ class LocalRunner(Runner):
                                epoch=epoch)
                 return
             _bill_segment(resolve_pricing(self.pricing, job), job,
-                          _elapsed(t0, stream, quiet=True))
+                          jobthread.elapsed(t0, stream, quiet=True))
             bus.publish(TOPIC_JOB_PROGRESS,
                         {"job_id": job.job_id, "stage": "preempted",
                          "epoch": epoch})
@@ -305,13 +268,13 @@ class LocalRunner(Runner):
             # the job classified its own failure as retryable (lost
             # connection, flaky dependency): FAILED, but stamped transient
             # so a retry_on="transient" policy has a real signal
-            job.runtime = _elapsed(t0, stream, quiet=True)
+            job.runtime = jobthread.elapsed(t0, stream, quiet=True)
             self._finalize(job, log_buf.getvalue()
                            + "\n" + traceback.format_exc(), JobState.FAILED,
                            error=traceback.format_exc(), epoch=epoch,
                            transient=True)
         except Exception:  # noqa: BLE001 — user code failure => FAILED
-            job.runtime = _elapsed(t0, stream, quiet=True)
+            job.runtime = jobthread.elapsed(t0, stream, quiet=True)
             self._finalize(job, log_buf.getvalue()
                            + "\n" + traceback.format_exc(), JobState.FAILED,
                            error=traceback.format_exc(), epoch=epoch)
@@ -416,38 +379,6 @@ class LocalRunner(Runner):
         self.bus.publish(TOPIC_CONTAINER_STATUS, msg)
 
 
-class _ThreadLocalStdout(io.TextIOBase):
-    """Dispatches writes to a per-thread buffer, falling back to the real
-    stdout. ``contextlib.redirect_stdout`` swaps the process-global
-    ``sys.stdout``, so concurrent agents would capture each other's logs;
-    this proxy keeps each worker's job log isolated."""
-
-    def __init__(self, fallback):
-        self.fallback = fallback
-        self._local = threading.local()
-
-    def push(self, buf) -> None:
-        self._local.buf = buf
-
-    def pop(self) -> None:
-        self._local.buf = None
-
-    def _target(self):
-        return getattr(self._local, "buf", None) or self.fallback
-
-    def write(self, s) -> int:
-        return self._target().write(s)
-
-    def flush(self) -> None:
-        self._target().flush()
-
-    def writable(self) -> bool:
-        return True
-
-
-_stdout_proxy_lock = threading.Lock()
-
-
 class ThreadPoolRunner(LocalRunner):
     """Concurrent LocalRunner: the same agent protocol (download -> run ->
     upload -> publish), executed on a bounded pool of worker threads so the
@@ -497,17 +428,9 @@ class ThreadPoolRunner(LocalRunner):
             stream = self._worker.stream = torch.cuda.Stream()
         return stream
 
-    @contextmanager
     def _capture(self, log_buf: io.StringIO):
-        with _stdout_proxy_lock:
-            if not isinstance(sys.stdout, _ThreadLocalStdout):
-                sys.stdout = _ThreadLocalStdout(sys.stdout)
-            proxy = sys.stdout
-        proxy.push(log_buf)
-        try:
-            yield
-        finally:
-            proxy.pop()
+        """Capture this worker thread's stdout only."""
+        return jobthread.capture_stdout(log_buf)
 
     def launch(self, job: Job) -> None:
         # fresh checkpoint signal per incarnation: a relaunched preempted

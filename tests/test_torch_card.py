@@ -1,11 +1,13 @@
 """The port's CUDA kernels on the card, against their plain versions, the
 train path's scans, the reduced models (MoE, VLM and audio included) on the
-card against the CPU, decode on two streams at once and the thread runner's
-per-worker streams. Needs only torch and numpy, so it runs where JAX is
-absent; every test here is marked ``cuda`` and skips without a card:
+card against the CPU, decode on two streams at once, the thread runner's
+per-worker streams and the subprocess runner's wait for its job's stream.
+Needs only torch and numpy, so it runs where JAX is absent; every test here
+is marked ``cuda`` and skips without a card:
 
     python -m pytest -m cuda tests/test_torch_card.py
 """
+import os
 import threading
 import time
 
@@ -754,6 +756,38 @@ def test_thread_runner_runtime_covers_queued_device_work(card, tmp_path):
     assert 1e3 * job.runtime >= spin_ms
     assert job.cost > 0
     eng.launcher.shutdown()
+
+
+def test_subprocess_runner_runtime_covers_queued_device_work(card, tmp_path):
+    """A job in the subprocess runner's worker process enqueues a spin and
+    returns without a sync: its engine runtime and bill still cover the
+    spin, because the worker waits for the job's stream before it reads
+    the end time (the reference's worker reads it at once; ROADMAP C). A
+    probe job first initialises CUDA in the worker and finds the kernel
+    libraries built, so the spin job runs on a stream of its own, not the
+    default stream."""
+    from repro_torch.examples import card_jobs as CJ
+    cycles = 400_000_000
+    spin_ms = _spin_ms(cycles)
+    assert spin_ms > 100
+    _build.build()
+    eng = AcaiEngine(runner="subprocess", workroot=str(tmp_path / "w"))
+    spec = dict(project="p", user="u", resources={"vcpu": 1, "mem_mb": 512})
+    try:
+        probe = eng.submit(JobSpec(name="probe", fn=CJ.probe_job, **spec))
+        assert probe.wait(timeout=300).value == "FINISHED", probe.job.error
+        h = eng.submit(JobSpec(name="spin", fn=CJ.cuda_sleep_job,
+                               args={"cycles": cycles}, **spec))
+        assert h.wait(timeout=300).value == "FINISHED", h.job.error
+        pid = eng.launcher._worker_pid()
+    finally:
+        eng.launcher.shutdown()
+    out = h.job.outputs
+    assert probe.job.outputs["pid"] == pid != os.getpid()
+    assert out["stream"] != out["default_stream"]
+    assert out["enqueue_ms"] < spin_ms / 2
+    assert 1e3 * h.job.runtime >= spin_ms
+    assert h.job.cost > 0
 
 
 def test_thread_workers_time_their_own_streams(card, tmp_path):

@@ -12,6 +12,8 @@ import dataclasses
 import importlib
 import json
 import math
+import os
+import time
 import types
 
 import numpy as np
@@ -381,14 +383,64 @@ def test_pricing_catalogs_match_reference():
             assert p.job_cost(res, 1234.5) == r.job_cost(res, 1234.5)
 
 
-@pytest.mark.parametrize("option", ["durable", "subprocess"])
-def test_engine_refuses_unported_options(option, tmp_path):
+def test_durable_engine_recovers_its_jobs(tmp_path):
+    """``durable=`` journals the engine: a second engine over the same
+    state, after the first died mid-run, adopts the finished job as it was
+    and re-queues the running one as a new epoch, as the reference's
+    does."""
+    out = {}
+    for name, P in PACKAGES.items():
+        def engine():
+            return P.acai.AcaiEngine(virtual=True, durable=tmp_path / name,
+                                     cluster=_cluster(P, 2.0), quota_k=10)
+        eng = engine()
+        done = eng.submit(_spec(P, "done", 2.0))
+        running = eng.submit(_spec(P, "running", 50.0))
+        eng.launcher.step()
+        assert running.job.state.value == "RUNNING"
+        eng.store.close()
+        eng2 = engine()
+        rep = eng2.recovery
+        _drain(eng2)
+        jobs = [eng2.registry.get(h.job_id) for h in (done, running)]
+        out[name] = ((rep.jobs_total, rep.terminal, rep.requeued),
+                     [(j.state.value, j.epoch, j.runtime, j.cost)
+                      for j in jobs])
+        eng2.store.close()
+    assert out["repro_torch"] == out["repro"]
+    assert out["repro_torch"][0] == (2, 1, 1)
+    assert [j[:2] for j in out["repro_torch"][1]] == [("FINISHED", 0),
+                                                      ("FINISHED", 1)]
+
+
+def test_subprocess_runner_runs_a_job(tmp_path):
+    """``runner="subprocess"`` runs a job in a worker process of its own,
+    which exits when the runner shuts it down."""
     P = PACKAGES["repro_torch"]
-    kw = {"durable": tmp_path / "state"} if option == "durable" \
-        else {"runner": "subprocess"}
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        P.acai.AcaiEngine(**kw)
-    assert not (tmp_path / "state").exists()
+    jobs = importlib.import_module("repro_torch.core.engine.durable.jobs")
+    eng = P.acai.AcaiEngine(runner="subprocess",
+                            workroot=str(tmp_path / "w"))
+    h = eng.submit(P.registry.JobSpec(
+        name="e", project="p", user="u", fn=jobs.echo_job,
+        args={"msg": "hi"}, resources={"vcpu": 1.0}))
+    try:
+        assert h.wait(timeout=60).value == "FINISHED", h.job.error
+        pid = eng.launcher._worker_pid()
+    finally:
+        eng.launcher.shutdown()
+    assert h.job.outputs["echo"] == "hi"
+    assert h.job.outputs["log"] == "echo: hi\n"
+    assert pid is not None and pid != os.getpid()
+    deadline = time.monotonic() + 15
+    while time.monotonic() < deadline:
+        try:
+            if os.waitpid(pid, os.WNOHANG)[0] == pid:
+                break
+        except ChildProcessError:
+            break               # reaped already
+        time.sleep(0.05)
+    else:
+        raise AssertionError(f"worker {pid} still alive after shutdown")
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ checkpoints on one root. Also: log isolation on the thread runner, what a
 finished job keeps, the credential checks, the options not ported yet and
 the port's quickstart."""
 import gc
+import importlib
 import threading
 import time
 import weakref
@@ -368,12 +369,31 @@ def test_bad_token_raises_auth_error(call, tmp_path):
     assert len(plat.engine(admin).registry.all_jobs()) == 0
 
 
-def test_platform_refuses_options_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        port_acai.AcaiPlatform(tmp_path / "durable", durable=True)
-    plat = port_acai.AcaiPlatform(tmp_path / "sub", runner="subprocess")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        plat.create_project(plat.admin_token, "p")
+def test_durable_platform_recovers_a_project_engine(tmp_path):
+    """``AcaiPlatform(durable=True)`` journals each project's engine under
+    ``<root>/<project>/state``: a second platform over the same root
+    recovers the first one's job into the project's engine, with its
+    outputs, as the reference's does."""
+    out = {}
+    for pkg, acai, registry in (("repro", ref_acai, ref_registry),
+                                ("repro_torch", port_acai, port_registry)):
+        echo = importlib.import_module(
+            f"{pkg}.core.engine.durable.jobs").echo_job
+        plat = acai.AcaiPlatform(tmp_path / pkg, durable=True)
+        admin = plat.create_project(plat.admin_token, "p")
+        h = plat.submit_job(admin, registry.JobSpec(
+            name="e", project="", user="", fn=echo, args={"msg": "kept"}))
+        assert h.wait(timeout=30).value == "FINISHED"
+        plat.engine(admin).store.close()
+        plat2 = acai.AcaiPlatform(tmp_path / pkg, durable=True)
+        eng2 = plat2.engine(plat2.create_project(plat2.admin_token, "p"))
+        rep, job = eng2.recovery, eng2.registry.get(h.job_id)
+        out[pkg] = ((rep.jobs_total, rep.terminal, rep.requeued),
+                    job.state.value, job.epoch, job.outputs["echo"],
+                    job.outputs["log"], job.spec.fn.__qualname__)
+        eng2.store.close()
+    assert out["repro_torch"] == out["repro"]
+    assert out["repro_torch"][:4] == ((1, 1, 0), "FINISHED", 0, "kept")
 
 
 def test_quickstart_runs_on_the_cpu(tmp_path, capsys):
