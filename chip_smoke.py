@@ -59,8 +59,10 @@ their shapes here, in phase 3):
    the logits' range (olmoe at the no-drop capacity, see no_drop);
 5. slices, one per model at full width from seeded random weights (bf16
    compute), freed before the next: olmo-1b (flash and decode attention),
-   rwkv6-7b (WKV6), zamba2-7b (Mamba-2 SSD, and flash and decode attention
-   at head dim 112 in the shared block), olmoe-1b-7b (64 experts, top-8,
+   rwkv6-7b (WKV6), zamba2-7b at 39 of its 81 layers (6 periods of 5
+   Mamba-2 layers and the shared block, and 3 trailing; Mamba-2 SSD, and
+   flash and decode attention at head dim 112 in the shared block),
+   olmoe-1b-7b (64 experts, top-8,
    all 16 layers; flash and decode attention) and llama4-scout at 2 of its
    48 layers (16 experts, top-1 and a shared expert; flash and decode
    attention at GQA 40:8). Each runs the prefill step on 4
@@ -109,12 +111,12 @@ their shapes here, in phase 3):
    forward and remat recompute, and the backward nodes of those ops),
    ``aten::bmm`` (for olmoe the expert products) and the rest.
 7. checkpoints (ACAI's training jobs must survive preemption; no kernel
-   launches): olmo-1b as in the train phase at 8 of its 16 layers (the
-   script's time limit), under ``TrainSupervisor`` saving a 7.7 GB
+   launches): olmo-1b as in the train phase at 4 of its 16 layers (the
+   script's time limit), under ``TrainSupervisor`` saving a 4.5 GB
    checkpoint (fp32 params, AdamW's mu and nu) to a data lake under build/
    every 2 steps, with a failure injected once at step 3: steps 0 and 1, a
    save at 2, step 2, the failure, a restore of step 2, steps 2 and 3
-   again, a save at 4. It raises with less than 18 GB free there, and
+   again, a save at 4. It raises with less than 11 GB free there, and
    deletes the lake at the end. Gates: the report (1 restart, 2
    checkpoints, 5 steps run, final step 4), the lake's latest step and its
    two checkpoint entries with finite losses, the latest checkpoint
@@ -193,6 +195,36 @@ their shapes here, in phase 3):
    memory (the card's ``memory.used`` above its value before the phase)
    once CUDA is ready, at its peak, between jobs and before the
    shutdown.
+10. mesh (the sharded steps on a ``DeviceMesh``, one process per rank;
+   ranks that share the card talk over gloo, which measures no
+   interconnect): (1) a world of one rank on nccl: olmo-1b's sharded train
+   step on a (1, 1) mesh at full width and 4 of 16 layers (fp32, remat
+   full, 3 steps of 4x2048) against the one-device step; gate: each loss
+   within 1e-4 relative. (2) Two spawned ranks on gloo, mesh (1, 2):
+   olmo-1b at full width and depth in bf16, three 4x2048 prefills (16
+   flash launches a rank a call, each at 8 of the 16 heads) and 4 of
+   phase 5's requests served (its last 4, the shortest; 16 decode launches
+   a rank a tick, at 8 heads); gates: the launch counts and head counts, the prefill logits
+   within 5e-2 of the one-device bf16 prefill's range, each request's
+   served logits within 5e-2 of its sharded prefill's range; at 2 layers
+   in fp32 the sharded prefill within 1e-3 of the one-device prefill's
+   range; olmoe-1b-7b at full width and 2 of 16 layers, expert parallel
+   (32 experts a rank) at the no-drop capacity, a fp32 4x512 prefill
+   within 1e-3 of the no-mesh branch's range; compressed_psum (bf16 and
+   int8) on the card's tensors equal to the sum of its ranks'
+   round-trips, bit for bit; a 2-stage GPipe within 1e-5 of
+   sequential_apply; the 2-layer fp32 params saved from (1, 2) and
+   restored on one rank, bit for bit. (3) Two ranks, mesh (2, 1), FSDP
+   and ZeRO-1: the train step of (1) for 3 steps; gate: each loss within
+   1e-4 relative of the one-device step's; each rank's peak memory beside
+   the one-device step's. (Phase 3 times the flash and decode kernels at a
+   rank's 8 of olmo-1b's 16 heads, where the kernel table's timings are:
+   in phase 10, after an nccl group in this process, the profiler's
+   windows lost kernel records.) It prints a ``mesh:`` JSON line (backends,
+   ranks, each rank's launches, ms per prefill and per tick, peak memory,
+   which gloo collectives took CUDA tensors, every gate's reading and
+   limit); the prefill and serving launches of (2) count in the kernel
+   table's main-path launches.
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -306,11 +338,12 @@ TRAIN_FAMILIES = {"rwkv6-7b": (8, 1, 200, 2e-4, "wkv6_chunked"),
                   "zamba2-7b": (21, 7, 200, 1e-4, "ssd_chunked"),
                   "olmoe-1b-7b": (6, 1, 256, 1e-4, None)}
 TRAIN_PEAK_BYTES = 70e9
-# the checkpoint phase: olmo-1b's layers (8 of 16: at 16 the phase took
-# 2.2-2.4 minutes on an H100), supervised steps, a save every 2, a
-# failure at step 3; the lake needs two checkpoints of 7.7 GB and room
-CKPT_LAYERS, CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_FAIL_AT = 8, 4, 2, 3
-CKPT_MIN_FREE = 18e9
+# the checkpoint phase: olmo-1b's layers (4 of 16, for the script's time
+# limit once the mesh phase came: at 16 the phase took 2.2-2.4 minutes on
+# an H100, at 8 about 1.4), supervised steps, a save every 2, a failure at
+# step 3; the lake needs two checkpoints of 4.5 GB and room
+CKPT_LAYERS, CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_FAIL_AT = 4, 4, 2, 3
+CKPT_MIN_FREE = 11e9
 # the platform phase: two training jobs (one per learning rate) of this
 # many steps, the free disk it needs under build/ (two 4.7 GB saves), and
 # how far device memory may stay above its value before a job
@@ -323,13 +356,21 @@ DURABLE_LAYERS, DURABLE_STEPS, DURABLE_RECOVER_STEPS = 4, 6, 12
 DURABLE_REQUESTS = 4
 # per model: slots, cache buffer, requests, new tokens each, prompt lengths;
 # SLICE_LAYERS cuts a model's depth (llama4-scout's 48 layers take 215 GB
-# in bf16; 2 layers, 6.47 B params, take 12.9 GB)
+# in bf16; 2 layers, 6.47 B params, take 12.9 GB; zamba2-7b's 81 layers
+# took 99-105 s of the script's 1200 s limit, 39 keep its layout)
 SLICES = {"olmo-1b": (4, 1024, 8, 32, (128, 512)),
           "rwkv6-7b": (4, 512, 8, 16, (64, 256)),
           "zamba2-7b": (4, 512, 8, 16, (64, 256)),
           "olmoe-1b-7b": (4, 1024, 8, 32, (128, 512)),
           "llama4-scout-17b-a16e": (4, 256, 4, 16, (64, 128))}
-SLICE_LAYERS = {"llama4-scout-17b-a16e": 2}
+SLICE_LAYERS = {"llama4-scout-17b-a16e": 2, "zamba2-7b": 39}
+# the mesh phase: olmo-1b's layers and steps in its train steps, its layers
+# in the fp32 serving check, olmoe-1b-7b's layers and prefill batch, and
+# how many of phase 5's olmo-1b requests the two ranks serve
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 3
+MESH_FP32_LAYERS = 2
+MESH_MOE_LAYERS, MESH_MOE_BATCH = 2, (4, 512)
+MESH_REQUESTS = 4
 
 
 T0 = time.perf_counter()
@@ -689,6 +730,11 @@ def main() -> int:
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
     del flush
     torch.cuda.empty_cache()
+    at_rank = mesh_kernel_times(dev)["kernels_at_8_heads"]
+    flash_row["at_olmo_1b_8_of_16_heads"] = at_rank["flash"]
+    decode_row["at_olmo_1b_8_of_16_heads"] = at_rank["decode"]
+    log("kernels: flash and decode at a rank's share of olmo-1b's heads "
+        f"(8 of 16; phase 10): {json.dumps(at_rank)} [{card}]")
     phase("3. kernels: autotune")
     run_autotune(card, dev)
     free()
@@ -785,6 +831,15 @@ def main() -> int:
     for name, n in durable["launches"].items():
         totals[name] += n
     log("durable: " + json.dumps(durable))
+    free()
+
+    # -- 10. the sharded steps on a mesh ---------------------------------------
+    phase("10. mesh")
+    mesh = run_mesh(card, dev, at_rank)
+    for rank in mesh["ranks"]:
+        for name, n in rank["launches"].items():
+            totals[name] += n
+    log("mesh: " + json.dumps(mesh))
 
     for row in rows:
         row["launches"] = totals[row["name"]]
@@ -889,8 +944,9 @@ def weights(cfg, dev):
 def free() -> None:
     import torch
     gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
 
 def check_reduced(cfg, dev) -> None:
@@ -2622,6 +2678,536 @@ def _moe_ms(prof, calls: int) -> dict:
         out["kernels"] += len(e.kernels) / calls
     out["block_ms"] = out["bmm_ms"] + out["rest_ms"]
     return out
+
+
+def mesh_train_setup(dev):
+    """Phase 10's train steps: olmo-1b at full width and
+    MESH_TRAIN_LAYERS layers, fp32, remat full, and its seeded batches."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import TrainConfig
+    cfg = dataclasses.replace(get_arch("olmo-1b"),
+                              n_layers=MESH_TRAIN_LAYERS)
+    rng = np.random.default_rng(21)
+    batches = []
+    for _ in range(MESH_TRAIN_STEPS):
+        toks = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_LEN + 1))
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    return (cfg, TrainConfig(remat="full", compute_dtype="float32"),
+            OptimizerConfig(lr=1e-3, warmup_steps=2), batches)
+
+
+def _peak_gb(dev) -> float:
+    """Peak device memory since the last reset (``reset_peak``); 0 on the
+    CPU (a rehearsal)."""
+    import torch
+    return torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else 0.0
+
+
+def _reset_peak(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_steps(step, params, opt, batches, dev) -> dict:
+    losses, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        _sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"losses": losses, "ms_per_step": ms, "peak_gb": _peak_gb(dev)}
+
+
+def _mesh_one_rank(out, gate, dev) -> None:
+    """Phase 10's (1): the one-device train steps, then the same steps on
+    a world of one rank on nccl (gloo in a CPU rehearsal) in this
+    process."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+    cfg, tcfg, ocfg, batches = mesh_train_setup(dev)
+    _reset_peak(dev)
+    params = M.init_params(cfg, 0, device=dev)
+    one = _mesh_steps(TS.make_train_step(cfg, tcfg, ocfg, device=dev),
+                      params, TS.make_opt_state(params, tcfg), batches, dev)
+    del params
+    free()
+    out["one_device"] = one
+
+    # (1) a world of one rank on nccl (gloo in a CPU rehearsal)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    LM.check_backend(backend, dev.type, 1)
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{LM.free_port()}", rank=0,
+        world_size=1, **({"device_id": torch.device(
+            "cuda", torch.cuda.current_device())} if backend == "nccl"
+            else {}))
+    try:
+        mesh = LM.make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+        _reset_peak(dev)
+        specs = TS.sharded_specs(cfg, mesh)
+        params, opt = TS.shard_train_state(M.init_params(cfg, 0, device=dev),
+                                           tcfg, *specs[1:], mesh)
+        out[backend] = _mesh_steps(TS.make_sharded_train_step(
+            cfg, tcfg, ocfg, mesh, device=dev, specs=specs), params, opt,
+            batches, dev)
+        del params, opt
+    finally:
+        dist.destroy_process_group()
+    free()
+    for i, (a, b) in enumerate(zip(out[backend]["losses"], one["losses"])):
+        gate(f"{backend} (1, 1) step {i} loss, relative",
+             abs(a - b) / abs(b), 1e-4)
+
+
+def run_mesh(card, dev, kernels_at_rank=None) -> dict:
+    """Phase 10 (see the module docstring): the one-device train steps, the
+    world of one rank on nccl in this process, then two spawned worlds of
+    two gloo ranks on the card, each rank writing its readings to a file
+    that this process reads and gates. ``kernels_at_rank``: phase 3's
+    ``mesh_kernel_times``, carried into the ``mesh:`` line."""
+    import tempfile
+
+    from repro_torch.launch import mesh as LM
+    t0 = time.perf_counter()
+    out = {"card": card, "gates": {}, "kernels_at_8_heads": kernels_at_rank
+           or "not measured"}
+
+    def gate(name, value, limit):
+        out["gates"][name] = [value, limit]
+        if not value <= limit:
+            raise AssertionError(f"mesh: {name} {value:.3e} > {limit:.3e}")
+
+    # the probe's pairs run beside (1) and the one-device steps
+    probe = start_gloo_cuda_probe() if dev.type == "cuda" else None
+    try:
+        _mesh_one_rank(out, gate, dev)
+    finally:             # every probe process ends here, by its timeout
+        out["gloo_cuda"] = finish_gloo_cuda_probe(probe) if probe \
+            else "not measured (no card)"
+
+    # (2) and (3): two gloo ranks sharing the card
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for part in ("tp", "fsdp"):
+            LM.run_ranks(_mesh_rank, 2, (part, tmp, "tcp://localhost:"
+                                         f"{LM.free_port()}", dev.type))
+        ranks = {part: [json.loads(Path(tmp, f"{part}.{r}.json").read_text())
+                        for r in range(2)] for part in ("tp", "fsdp")}
+    for r, rank in enumerate(ranks["tp"]):
+        for name, (value, limit) in rank["gates"].items():
+            gate(f"rank {r} {name}", value, limit)
+    for r, rank in enumerate(ranks["fsdp"]):
+        for i, (a, b) in enumerate(zip(rank["losses"],
+                                       out["one_device"]["losses"])):
+            gate(f"fsdp (2, 1) rank {r} step {i} loss, relative",
+                 abs(a - b) / abs(b), 1e-4)
+    out["ranks"] = ranks["tp"]
+    out["fsdp"] = ranks["fsdp"]
+    out["backends"] = {"(1, 1) train": "nccl" if dev.type == "cuda"
+                       else "gloo", "(1, 2) serve": "gloo",
+                       "(2, 1) train": "gloo"}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# one gloo collective on CUDA tensors of three dtypes, between two ranks of
+# processes of their own: a collective gloo mishandles can abort its process
+GLOO_PROBE = r"""
+import json, sys, datetime, torch, torch.distributed as dist
+op, rank, port = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+dev = torch.device("cuda", 0)
+out = {}
+for dtype in (torch.float32, torch.bfloat16, torch.int8):
+    t = torch.full((4,), rank + 1, dtype=dtype, device=dev)
+    try:
+        if op == "all_reduce":
+            dist.all_reduce(t)
+            ok = (t.cpu().float() == 3).all()
+        elif op == "all_gather":
+            parts = [torch.empty_like(t) for _ in range(2)]
+            dist.all_gather(parts, t)
+            ok = [p[0].item() for p in parts] == [1, 2]
+        elif op == "reduce_scatter":
+            o = torch.empty(2, dtype=dtype, device=dev)
+            dist.reduce_scatter_tensor(o, t)
+            ok = (o.cpu().float() == 3).all()
+        elif op == "broadcast":
+            dist.broadcast(t, 0)
+            ok = (t.cpu().float() == 1).all()
+        else:
+            b = torch.empty_like(t)
+            for w in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, t, 1 - rank),
+                    dist.P2POp(dist.irecv, b, 1 - rank)]):
+                w.wait()
+            ok = (b.cpu().float() == 2 - rank).all()
+        out[str(dtype)] = "ok" if bool(ok) else "wrong values"
+    except RuntimeError as e:
+        out[str(dtype)] = "refused: " + str(e).splitlines()[0][:120]
+print(json.dumps(out), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def start_gloo_cuda_probe() -> dict:
+    """Which gloo collectives take CUDA tensors on this card's torch: each
+    collective between two processes of its own (all five pairs at once),
+    on fp32, bf16 and int8 tensors; a pair that aborts or hangs reads as
+    such (``finish_gloo_cuda_probe``). The sharded steps stage every gloo
+    collective through host memory whatever this finds (spmd.py); it is a
+    reading, not a switch."""
+    from repro_torch.launch import mesh as LM
+    ops = ("all_reduce", "all_gather", "reduce_scatter", "broadcast",
+           "send_recv")
+    procs = {}
+    for op in ops:
+        port = str(LM.free_port())
+        procs[op] = [subprocess.Popen(
+            [sys.executable, "-c", GLOO_PROBE, op, str(r), port],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+    return procs
+
+
+def finish_gloo_cuda_probe(procs: dict) -> dict:
+    out = {}
+    for op, pair in procs.items():
+        got = []
+        for p in pair:
+            try:
+                so, se = p.communicate(timeout=90)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                so, se = p.communicate()
+            got.append((p.returncode, so.strip().splitlines()[-1:] or [""],
+                        se.strip().splitlines()[-1:] or [""]))
+        rc, line, err = got[0]
+        if all(g[0] == 0 for g in got):
+            out[op] = json.loads(line[0])
+        else:
+            out[op] = f"failed: exit {[g[0] for g in got]}: " \
+                      f"{(err[0] or got[1][2][0])[:160]}"
+    return out
+
+
+def mesh_kernel_times(dev) -> dict:
+    """The flash and decode kernels at a rank's share of olmo-1b's heads
+    (8 of 16, head dim 128, bf16): flash at a 4x2048 causal prefill, decode
+    at 4 slots of a 1024 buffer with seeded lengths. Each wrapper is held
+    against its plain version on the same inputs (``TOL["bfloat16"]``,
+    tests/test_kernels.py's allclose; it raises above it), then timed with
+    L2 flushed beside its plain version, SDPA on the same inputs, and the
+    bound of the same work from ``KernelSpec.cost`` (the kernel table's)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.provision import autotune as AT
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    if dev.type != "cuda":
+        return {"kernels_at_8_heads": "not measured (no card)"}
+    flush = l2_flush_buffer(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rtol, atol = TOL["bfloat16"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        err = (got - want).abs().max().item()
+        if not (bool(torch.isfinite(got).all())
+                and torch.allclose(got, want, rtol=rtol, atol=atol)):
+            raise AssertionError(
+                f"{name} at 8 heads disagrees with its plain version: "
+                f"max_abs_err {err:.3e} (rtol=atol={atol})")
+        return err
+
+    def bound(flops, nbytes):
+        t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], \
+            nbytes / HBM_BYTES_PER_S
+        return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    b, s, h, d, buf = PREFILL_BATCH, PREFILL_LEN, 8, 128, 1024
+    q, k, v = randn(b, s, h, d), randn(b, s, h, d), randn(b, s, h, d)
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    flash = {
+        "shape": [b, s, h, h, d],
+        "max_abs_err": check("flash_attention", ops.flash_attention(q, k, v),
+                             fa.flash_attention_plain(qh, kh, vh).permute(
+                                 0, 2, 1, 3)),
+        "tol": atol,
+        "ms": flushed_ms(lambda: ops.flash_attention(q, k, v), 10, flush),
+        "plain_ms": flushed_ms(lambda: fa.flash_attention_plain(qh, kh, vh),
+                               10, flush),
+        "library_ms": flushed_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), 10, flush),
+        **bound(*AT.KERNELS["flash_attention"].cost(
+            {"b": b, "s": s, "h": h, "kv": h, "d": d,
+             "dtype": "bfloat16"}))}
+    del q, k, v, qh, kh, vh
+
+    qd, kc, vc = randn(4, 1, h, d), randn(4, buf, h, d), randn(4, buf, h, d)
+    lens = torch.from_numpy(np.random.default_rng(0).integers(
+        1, buf, 4).astype(np.int32)).to(dev)
+    kh, vh = (t.permute(0, 2, 1, 3) for t in (kc, vc))
+    qh = qd.permute(0, 2, 1, 3)                                # (B, H, 1, D)
+    mask = (torch.arange(buf, device=dev)[None, :] < lens[:, None].long()
+            )[:, None, None, :]
+    decode = {
+        "shape": [4, buf, h, h, d], "cache_len": lens.tolist(),
+        "max_abs_err": check("decode_attention",
+                             ops.decode_attention(qd, kc, vc, lens)[:, 0],
+                             dec.decode_attention_plain(qd[:, 0], kh, vh,
+                                                        lens)),
+        "tol": atol,
+        "ms": flushed_ms(lambda: ops.decode_attention(qd, kc, vc, lens), 50,
+                         flush),
+        "plain_ms": flushed_ms(lambda: dec.decode_attention_plain(
+            qd[:, 0], kh, vh, lens), 50, flush),
+        "library_ms": flushed_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), 50, flush),
+        **bound(*AT.KERNELS["decode_attention"].cost(
+            {"b": 4, "s": buf, "h": h, "kv": h, "d": d, "dtype": "bfloat16"},
+            valid=int(lens.sum())))}
+    del qd, kc, vc, qh, kh, vh, mask, flush
+    free()
+    return {"kernels_at_8_heads": {"flash": flash, "decode": decode}}
+
+
+def _mesh_rank(rank: int, world: int, part: str, outdir: str,
+               init_method: str, device: str) -> None:
+    """One of phase 10's two gloo ranks on the card: part "tp" on a (1, 2)
+    mesh (serving, the fp32 checks, compressed_psum, GPipe, a save), part
+    "fsdp" on (2, 1) (the train step); the readings to OUTDIR/PART.RANK.json.
+    ``device`` is "cuda" (the CPU only in a rehearsal)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as LM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = LM.init_rank(rank, world, backend="gloo", device=device,
+                       init_method=init_method)
+    try:
+        _reset_peak(dev)
+        res = (_mesh_tp if part == "tp" else _mesh_fsdp)(rank, dev)
+        res.update(rank=rank, peak_gb=_peak_gb(dev))
+        Path(outdir, f"{part}.{rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _range_err(got, want) -> float:
+    """max|got - want| over the range of want."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).abs().max() / (want.max() - want.min())).item()
+
+
+def _mesh_tp(rank: int, dev) -> dict:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.acai import AcaiProject
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import serve as L
+    from repro_torch.models import model as M
+    from repro_torch.serve import decode as D
+    from repro_torch.sharding import spmd as S
+    from repro_torch.train import compression as C
+    from repro_torch.train import pipeline as PP
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.checkpoints import CheckpointManager
+
+    mesh = LM.make_mesh((1, 2), ("data", "model"), device_type=dev.type)
+    counters = launch_counters()
+    heads = {"flash_attention": set(), "decode_attention": set()}
+    for name in heads:                   # the heads each launch sees
+        orig = getattr(ops, name)
+
+        def seen(q, *a, orig=orig, name=name, **kw):
+            heads[name].add(int(q.shape[2]))      # q: (B, S, H, D)
+            return orig(q, *a, **kw)
+        setattr(ops, name, seen)
+    res, gates = {}, {}
+
+    # olmo-1b uncut in bf16: three 4x2048 prefills, then 4 requests served
+    cfg = get_arch("olmo-1b")
+    full = M.cast_params(weights(cfg, dev), torch.bfloat16)
+    _, pspecs, _ = TS.sharded_specs(cfg, mesh)
+    params = S.distribute(full, pspecs, mesh)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN)))
+    prefill = D.make_sharded_prefill_step(cfg, mesh, device=dev)
+    for c in counters.values():
+        c.launches = 0
+    ms = []
+    for _ in range(3):                   # the first call warms up
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        _sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    flash = counters["flash_attention"].launches
+    # the last 4 of phase 5's 8 requests: the 4 shortest (387 ticks, not
+    # the first 4's 511; the ranks' ticks take 112 ms on one card)
+    prompts = slice_prompts(cfg, SLICES["olmo-1b"])[-MESH_REQUESTS:]
+    slots, buf, _, max_new, _ = SLICES["olmo-1b"]
+    served = L.serve(cfg, params, prompts, slots=slots, buf=buf,
+                     max_new=max_new, device=dev, mesh=mesh)
+    launches = {k: c.launches for k, c in counters.items()}
+    res.update(launches=launches, prefill_ms=ms, ticks=served.ticks,
+               ms_per_tick=1e3 * served.seconds / served.ticks,
+               heads={k: sorted(v) for k, v in heads.items()})
+    gates["flash launches a prefill call"] = [abs(flash / 3 - 16), 0]
+    gates["decode launches a tick"] = [
+        abs(launches["decode_attention"] / served.ticks - 16), 0]
+    gates["heads a launch"] = [
+        abs(len(set().union(*heads.values())) - 1)
+        + abs(next(iter(heads["flash_attention"])) - 8), 0]
+    for r, p in enumerate(prompts):       # serving against the mesh prefill
+        want = prefill(params, {"tokens": torch.tensor([p])})[0]
+        gates[f"request {r} served logits (bf16)"] = [
+            _range_err(served.first_logits[r], want), 5e-2]
+    if rank == 0:                         # the one-rank (one-device) prefill
+        want = D.make_prefill_step(cfg, device=dev)(full,
+                                                    {"tokens": tokens})
+        gates["prefill logits (bf16) against one rank"] = [
+            _range_err(logits, want), 5e-2]
+    del full, params, prefill, logits
+    free()
+
+    # fp32 at 2 layers: the sharded prefill against one rank's, and a save
+    cfg2 = dataclasses.replace(cfg, n_layers=MESH_FP32_LAYERS)
+    full = weights(cfg2, dev)
+    params = S.distribute(full, TS.sharded_specs(cfg2, mesh)[1], mesh)
+    logits = D.make_sharded_prefill_step(cfg2, mesh, device=dev,
+                                         compute_dtype=torch.float32)(
+        params, {"tokens": tokens})
+    root = ROOT / "build" / "mesh-lake"
+    ckpt = CheckpointManager(AcaiProject("mesh", root) if rank == 0
+                             else None, "mesh", mesh=mesh)
+    t0 = time.perf_counter()
+    ckpt.save(1, params)
+    res["save_s"] = time.perf_counter() - t0
+    if rank == 0:
+        want = D.make_prefill_step(cfg2, device=dev,
+                                   compute_dtype=torch.float32)(
+            full, {"tokens": tokens})
+        gates["prefill logits (fp32, 2 layers) against one rank"] = [
+            _range_err(logits, want), 1e-3]
+        back, _ = CheckpointManager(AcaiProject("mesh", root), "mesh"
+                                    ).restore({"params": full})
+        same = all(torch.equal(a, b) for a, b in zip(
+            _leaves(back["params"]), _leaves(full)))
+        gates["restored on one rank, bit for bit (0 = equal)"] = [
+            0 if same else 1, 0]
+        import shutil
+        shutil.rmtree(root)
+    del full, params, logits
+    free()
+
+    # olmoe-1b-7b, 2 layers, expert parallel at the no-drop capacity, fp32
+    cfg3 = no_drop(dataclasses.replace(get_arch("olmoe-1b-7b"),
+                                       n_layers=MESH_MOE_LAYERS))
+    full = weights(cfg3, dev)
+    params = S.distribute(full, TS.sharded_specs(cfg3, mesh)[1], mesh)
+    toks3 = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg3.vocab_size, MESH_MOE_BATCH))
+    logits = D.make_sharded_prefill_step(cfg3, mesh, device=dev,
+                                         compute_dtype=torch.float32)(
+        params, {"tokens": toks3})
+    res["moe_local_experts"] = S.to_local(params)["layers"]["moe"][
+        "w_gate"].shape[1]
+    if rank == 0:
+        want = D.make_prefill_step(cfg3, device=dev,
+                                   compute_dtype=torch.float32)(
+            full, {"tokens": toks3})
+        gates["olmoe EP prefill (fp32) against the no-mesh branch"] = [
+            _range_err(logits, want), 1e-3]
+    del full, params, logits
+    free()
+
+    # compressed_psum and a 2-stage GPipe on the card's tensors
+    world = dist.group.WORLD
+    xs = [torch.from_numpy(np.random.default_rng(30 + r).standard_normal(
+        (1024, 257)).astype(np.float32)).to(dev) for r in range(2)]
+    for kind in ("bf16", "int8"):
+        got = C.compressed_psum(xs[rank], world, kind)
+        want = C.decompress(*C.compress(xs[0], kind)) \
+            + C.decompress(*C.compress(xs[1], kind))
+        gates[f"compressed_psum {kind} (0 = bit-equal)"] = [
+            0 if torch.equal(got, want) else 1, 0]
+    rng = np.random.default_rng(31)
+    stacked = {"w": torch.from_numpy((rng.standard_normal((2, 256, 256))
+                                      / 16).astype(np.float32)).to(dev),
+               "b": torch.from_numpy(rng.standard_normal((2, 256)).astype(
+                   np.float32)).to(dev)}
+    x = torch.from_numpy(rng.standard_normal((64, 256)).astype(
+        np.float32)).to(dev)
+
+    def stage(p, a):
+        return torch.tanh(a @ p["w"] + p["b"])
+    y = PP.pipeline_apply(stage, {k: v[rank:rank + 1]
+                                  for k, v in stacked.items()}, x,
+                          group=world, n_microbatches=8)
+    gates["GPipe (2 stages) against sequential_apply"] = [
+        (y - PP.sequential_apply(stage, stacked, x)).abs().max().item(),
+        1e-5]
+    res["gates"] = gates
+    return res
+
+
+def _mesh_fsdp(rank: int, dev) -> dict:
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch.train import build_sharded_train
+    from repro_torch.models import model as M
+    from repro_torch.sharding import spmd as S
+    from repro_torch.train import train_step as TS
+    mesh = LM.make_mesh((2, 1), ("data", "model"), device_type=dev.type)
+    cfg, tcfg, ocfg, batches = mesh_train_setup(dev)
+    step, pspecs, ospecs = build_sharded_train(cfg, tcfg, ocfg, mesh,
+                                               device=dev)
+    params, opt = TS.shard_train_state(M.init_params(cfg, 0, device=dev),
+                                       tcfg, pspecs, ospecs, mesh)
+    free()
+    shard_gb = {k: sum(t.numel() * t.element_size()
+                       for t in _leaves(S.to_local(tree))) / 1e9
+                for k, tree in (("params", params), ("mu", opt["mu"]))}
+    res = _mesh_steps(step, params, opt, batches, dev)
+    res["local_gb"] = shard_gb
+    return res
+
+
+def _leaves(tree):
+    from repro_torch.train.optimizer import leaves
+    return leaves(tree)
 
 
 def _to(tree, device):

@@ -22,6 +22,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, get_arch, list_archs
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from repro_torch.serve import decode as D
 from repro_torch.serve.decode import make_serve_step
 
 
@@ -35,14 +36,17 @@ class ServeResult:
 
 def serve(cfg: ArchConfig, params, prompts: list[list[int]], *, slots: int,
           buf: int, max_new: int, compute_dtype=torch.bfloat16,
-          device="cuda") -> ServeResult:
+          device="cuda", mesh=None) -> ServeResult:
     """Serve ``prompts`` through ``slots`` decode slots with caches of
     ``buf`` positions. Slots hold independent requests; a finished slot is
     refilled from the queue without stalling the others. A prompt is fed
     one token per tick through the decode step, then ``max_new`` tokens are
     generated greedily. Token-only archs: the reference's driver refuses
     the VLM and codebook archs, whose requests carry vision states or code
-    frames (serve them with ``serve.decode.greedy_generate``)."""
+    frames (serve them with ``serve.decode.greedy_generate``). With
+    ``mesh`` (a ``DeviceMesh``; every rank calls ``serve`` with the same
+    prompts), params are DTensors under ``train_step.sharded_specs``' and
+    the loop runs the sharded serve step; every rank gets the results."""
     dev = resolve_device(device)
     if not token_only(cfg):
         raise ValueError(f"{cfg.name}: the serving driver supports "
@@ -53,9 +57,17 @@ def serve(cfg: ArchConfig, params, prompts: list[list[int]], *, slots: int,
     if buf < longest + max_new:
         raise ValueError(f"buf {buf} < longest prompt {longest} + max_new "
                          f"{max_new}: positions would run past the cache")
-    states = T.init_decode_state(cfg, slots, buf, dtype=compute_dtype,
-                                 device=dev)
-    step = make_serve_step(cfg, buf, compute_dtype=compute_dtype, device=dev)
+    if mesh is None:
+        states = T.init_decode_state(cfg, slots, buf, dtype=compute_dtype,
+                                     device=dev)
+        step = make_serve_step(cfg, buf, compute_dtype=compute_dtype,
+                               device=dev)
+    else:
+        states = D.init_sharded_decode_state(cfg, mesh, slots, buf,
+                                             dtype=compute_dtype, device=dev)
+        step = D.make_sharded_serve_step(cfg, mesh, buf,
+                                         compute_dtype=compute_dtype,
+                                         device=dev)
 
     cache_len = np.zeros((slots,), np.int32)
     cur = np.zeros((slots, 1), np.int64)

@@ -2,13 +2,20 @@
 GQA attention (the flash and decode kernels for prefill and decode, the
 reference's XLA attention in plain PyTorch for training), cross-attention
 (plain PyTorch, as the reference's einsums are), the KV-cache insert, the
-SwiGLU MLP and the top-k capacity MoE on one device.
+SwiGLU MLP and the top-k capacity MoE, on one device or on a mesh.
 
 Plain functions over dicts of tensors. Params live in fp32 and each block
 casts a weight to the activations' dtype where the reference does
 (``.to(cd)``); weights cast once at load (``model.cast_params``) make that a
 no-op with the same values. Training keeps fp32 params and casts per call.
-The MoE's expert-parallel branch is not ported yet.
+
+On a mesh (``mesh``: a ``spmd.MeshCtx``) the blocks take this rank's shards
+of the weights under ``param_specs`` and run tensor-parallel: the column
+shards of ``_COL_TP`` (wq, wk, wv, w_gate, w_up) and the row shards of
+``_ROW_TP`` (wo, w_down), with ``tp_copy`` before and ``tp_reduce`` after,
+so the attention kernels run at this rank's H/tp query heads and KV/tp KV
+heads. The MoE's expert-parallel branch holds E/tp experts a rank
+(``moe_block``). Without a mesh every block is the one-device block.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.sharding import spmd as S
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -287,9 +295,34 @@ def cross_attention_block(p, x, cfg: ArchConfig, k, v):
     return o.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(cd)
 
 
+def _local_kv(k, v, cfg: ArchConfig, mesh, h_loc: int):
+    """This rank's K and V columns (B, S, cols) -> (B, S, KV_loc, D), the
+    kv heads that its ``h_loc`` query heads read, in the kernels' mapping
+    (local head j reads local kv head j // (h_loc / KV_loc)). Where the
+    model axis does not divide the KV heads (reduced qwen3-8b has one), the
+    spec still splits the columns: they are gathered to whole heads (the
+    gradient summed over ranks, which read them with different heads) and
+    this rank keeps the heads its query heads read."""
+    b, s, _ = k.shape
+    hd = cfg.resolved_head_dim
+    if mesh is None or mesh.tp == 1 or cfg.n_kv_heads % mesh.tp == 0:
+        return k.view(b, s, -1, hd), v.view(b, s, -1, hd)
+    k = S.tp_gather(k, mesh, -1, sum_grads=True).view(b, s, -1, hd)
+    v = S.tp_gather(v, mesh, -1, sum_grads=True).view(b, s, -1, hd)
+    g = cfg.n_heads // cfg.n_kv_heads
+    h0 = mesh.tp_rank * h_loc
+    lo, hi = h0 // g, (h0 + h_loc - 1) // g + 1
+    if h_loc % (hi - lo) or any((h0 + j) // g - lo != j // (h_loc // (hi - lo))
+                                for j in range(h_loc)):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} heads on {cfg.n_kv_heads} kv heads "
+            f"do not split over a model axis of {mesh.tp}")
+    return k[:, :, lo:hi], v[:, :, lo:hi]
+
+
 def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
                     kv_cache=None, cache_len=None, attn_impl=None,
-                    kv_src=None):
+                    kv_src=None, mesh=None):
     """proj -> (qk-norm) -> rope -> attention -> out proj.
 
     attn_impl: None for prefill and decode, which run the kernels; train
@@ -303,8 +336,11 @@ def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
     head h // (H / KV). kv_src: source states (B, Nv, d_src) for
     cross-attention, the reference's ``kv_src`` branch: K and V from
     ``cross_kv``, no RoPE and no mask (``cross_attention_block``, plain
-    PyTorch in every mode, as the reference's einsums are). Returns (out,
-    cache).
+    PyTorch in every mode, as the reference's einsums are). mesh: this
+    rank's column shards of wq, wk and wv (its heads; ``_local_kv``), its
+    row shard of wo, the partial outputs summed over the model axis; the
+    qk-norm scales see this rank's heads, so their gradients are summed
+    too. Returns (out, cache).
     """
     if kv_src is not None:
         return cross_attention_block(p, x, cfg, *cross_kv(p, kv_src, cfg)), \
@@ -312,12 +348,14 @@ def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     cd = x.dtype
-    q = (x @ p["wq"].to(cd)).view(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"].to(cd)).view(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"].to(cd)).view(b, s, cfg.n_kv_heads, hd)
+    x = S.tp_copy(x, mesh)
+    h_loc = p["wq"].shape[-1] // hd
+    q = (x @ p["wq"].to(cd)).view(b, s, h_loc, hd)
+    k, v = _local_kv(x @ p["wk"].to(cd), x @ p["wv"].to(cd), cfg, mesh,
+                     h_loc)
     if cfg.qk_norm:
-        q = rms_head_norm(q, p["q_norm"].to(cd))
-        k = rms_head_norm(k, p["k_norm"].to(cd))
+        q = rms_head_norm(q, S.tp_copy(p["q_norm"], mesh).to(cd))
+        k = rms_head_norm(k, S.tp_copy(p["k_norm"], mesh).to(cd))
     if rope is not None:
         cos, sin = rope
         if positions is not None:        # decode: per-token positions
@@ -331,11 +369,11 @@ def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
         cache_insert(vc, v, cache_len)
         o = ops.decode_attention(q, kc.to(cd), vc.to(cd), cache_len + 1)
     elif attn_impl is not None:          # train, causal
-        o = train_attention(q, k, v, cfg.n_heads, attn_impl)
+        o = train_attention(q, k, v, h_loc, attn_impl)
     else:                                # prefill, causal
         o = ops.flash_attention(q, k, v, causal=True)
-    out = o.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(cd)
-    return out, kv_cache
+    out = o.reshape(b, s, h_loc * hd) @ p["wo"].to(cd)
+    return S.tp_reduce(out, mesh), kv_cache
 
 
 def cache_insert(cache, new, idx, *, mode: str = "scatter"):
@@ -366,11 +404,14 @@ def cache_insert(cache, new, idx, *, mode: str = "scatter"):
 # ---------------------------------------------------------------------------
 
 
-def mlp_block(p, x):
+def mlp_block(p, x, mesh=None):
+    """SwiGLU; on a mesh this rank's d_ff columns, summed over the model
+    axis."""
     cd = x.dtype
+    x = S.tp_copy(x, mesh)
     g = F.silu(x @ p["w_gate"].to(cd))
     u = x @ p["w_up"].to(cd)
-    return (g * u) @ p["w_down"].to(cd)
+    return S.tp_reduce((g * u) @ p["w_down"].to(cd), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -417,31 +458,43 @@ class _GatherRows(torch.autograd.Function):
         return g.view(-1, ctx.fan, g.shape[1]).sum(1), None, None, None
 
 
-def _moe_local(p, x, cfg: ArchConfig):
-    """The reference's ``_moe_local`` on one device (e0 = 0, all experts
-    local). Returns (y (B, S, D), aux).
+def _moe_local(p, x, cfg: ArchConfig, *, e0: int = 0, n_local=None,
+               ep=None, shared=None):
+    """The reference's ``_moe_local``: routing over all E experts, then the
+    ``n_local`` experts from ``e0`` on (all E on one device). Returns
+    (y (B, S, D), aux).
 
     Every shape follows from x's shape and the config alone, and no value
     is read back to the host, so the block is capturable in a CUDA graph.
-    Each (token, choice) names its slot ``expert * C + position`` (kept) or
-    the dump slot ``E * C`` (dropped); each slot names the choice that
-    filled it, or none. Dispatch gathers each slot's token row (an empty
-    slot reads zeros, as the reference's zeroed ``mode="drop"`` buffer
-    gives), and combine gathers each choice's expert output (a dropped
-    choice reads zeros, the reference's ``mode="fill"``), both through
-    ``_GatherRows``, whose backward gathers through the other map.
+    Each (token, choice) names its slot ``(expert - e0) * C + position``
+    (kept, and routed to a local expert) or the dump slot
+    ``n_local * C``; each slot names the choice that filled it, or none.
+    Dispatch gathers each slot's token row (an empty slot reads zeros, as
+    the reference's zeroed ``mode="drop"`` buffer gives), and combine
+    gathers each choice's expert output (a dropped or remote choice reads
+    zeros, the reference's ``mode="fill"``), both through ``_GatherRows``,
+    whose backward gathers through the other map.
+
+    ep: the expert-parallel branch's ``MeshCtx`` (this rank holds experts
+    ``e0 .. e0 + n_local``). Routing is replicated over the model axis;
+    the gates and the dispatched rows go through ``tp_copy``, since each
+    rank's experts take only their choices, and the partial outputs (with
+    the fused shared expert's ``shared`` d_ff slice) are summed over the
+    model axis: the one collective. The aux loss reads the routing itself,
+    which every rank holds whole.
     """
     m = cfg.moe
     b, s, d = x.shape
     t, k, e = b * s, m.top_k, m.n_experts
+    n_local = e if n_local is None else n_local
     cd = x.dtype
     xt = x.reshape(t, d)
     logits = (xt @ p["router"].to(cd)).float()               # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = top_k_lower_first(probs, k)         # (T, k)
+    gate_vals, gate_idx = top_k_lower_first(S.tp_copy(probs, ep), k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     capacity = moe_capacity(cfg, t)
-    slots = e * capacity
+    slots = n_local * capacity
 
     # each (token, choice)'s place in its expert's queue, token-major and
     # choice-minor: the reference's cumsum over the (T * k, E) one-hot. A
@@ -456,21 +509,27 @@ def _moe_local(p, x, cfg: ArchConfig):
     rank = torch.arange(t * k, device=x.device)
     pos = torch.empty_like(gid).scatter_(
         0, order, rank - (counts.cumsum(0) - counts)[sorted_gid])
-    keep = pos < capacity
-    dest = torch.where(keep, gid * capacity + pos, slots)
+    keep = (pos < capacity) & (gid >= e0) & (gid < e0 + n_local)
+    dest = torch.where(keep, (gid - e0) * capacity + pos, slots)
 
     slot_choice = torch.full((slots + 1,), t * k, device=x.device,
                              dtype=torch.long).scatter_(0, dest, rank)[:slots]
     slot_tok = torch.where(slot_choice < t * k, slot_choice // k, t)
-    buf = _GatherRows.apply(xt, slot_tok, dest, k).view(e, capacity, d)
+    xd = S.tp_copy(xt, ep)
+    buf = _GatherRows.apply(xd, slot_tok, dest, k).view(n_local, capacity, d)
 
     h = F.silu(torch.bmm(buf, p["w_gate"].to(cd))) \
         * torch.bmm(buf, p["w_up"].to(cd))
-    ye = torch.bmm(h, p["w_down"].to(cd))                     # (E, C, D)
+    ye = torch.bmm(h, p["w_down"].to(cd))                     # (E_loc, C, D)
 
     yg = _GatherRows.apply(ye.reshape(slots, d), dest, slot_choice, 1)
     w = (gate_vals.reshape(t * k) * keep).to(cd)
     y = (yg * w[:, None]).reshape(t, k, d).sum(1)
+    if shared is not None:       # the fused shared expert's d_ff slice
+        hs = F.silu(xd @ shared["w_gate"].to(cd)) \
+            * (xd @ shared["w_up"].to(cd))
+        y = y + hs @ shared["w_down"].to(cd)
+    y = S.tp_reduce(y, ep)                                    # EP combine
 
     # load-balancing aux loss (Switch style); dropped choices count in ce,
     # the reference's one-hot summed over the choices, averaged over the
@@ -481,17 +540,48 @@ def _moe_local(p, x, cfg: ArchConfig):
     return y.reshape(b, s, d), aux
 
 
-def moe_block(p, x, cfg: ArchConfig, *, capacity=None):
-    """Top-k capacity MoE on one device. Returns (y, aux).
+def moe_block(p, x, cfg: ArchConfig, *, capacity=None, mesh=None):
+    """Top-k capacity MoE. Returns (y, aux).
 
-    The reference's no-mesh branch: the routed experts, plus the shared
-    expert (``mlp_block`` on ``p["shared"]``) where the config has one.
-    ``capacity`` is accepted and never read, as in the reference (ROADMAP
-    C, quirk): capacity is ``moe_capacity`` over the call's B * S tokens.
+    Without a mesh, the reference's no-mesh branch: the routed experts,
+    plus the shared expert (``mlp_block`` on ``p["shared"]``) where the
+    config has one. ``capacity`` is accepted and never read, as in the
+    reference (ROADMAP C, quirk): capacity is ``moe_capacity`` over the
+    call's tokens.
+
+    On a mesh, the reference's condition: a model axis wider than 1 that
+    divides the experts, and batch axes that divide the global batch, take
+    the expert-parallel branch (``_moe_local`` at E/tp experts a rank, on
+    this rank's data shard: capacity per data shard, and the aux loss the
+    mean of the shards' losses, as the reference's ``pmean``; ROADMAP C).
+    The shared expert rides the EP sum under ``fuse_shared``, else it is a
+    tensor-parallel ``mlp_block``. Otherwise the no-mesh branch runs on
+    the whole batch: the rows gathered over data, the experts over model.
     Runs under the ``moe_block`` record_function, so a profile can tell the
     block's kernels apart."""
+    m = cfg.moe
     with record_function("moe_block"):
-        y, aux = _moe_local(p, x, cfg)
-        if cfg.moe.n_shared_experts:
-            y = y + mlp_block(p["shared"], x)
+        if mesh is None:
+            y, aux = _moe_local(p, x, cfg)
+        elif mesh.tp > 1 and m.n_experts % mesh.tp == 0 and (
+                x.shape[0] * (mesh.dp if mesh.shards_batch else 1)) \
+                % mesh.dp == 0:
+            n_local = m.n_experts // mesh.tp
+            fuse = bool(m.n_shared_experts and m.fuse_shared)
+            y, aux = _moe_local(p, x, cfg, e0=mesh.tp_rank * n_local,
+                                n_local=n_local, ep=mesh,
+                                shared=p["shared"] if fuse else None)
+            if mesh.shards_batch:     # the pmean over the data shards
+                mean = S.all_reduce(aux, mesh.data_group) / mesh.dp
+                aux = aux + (mean - aux).detach()
+            if m.n_shared_experts and not fuse:
+                y = y + mlp_block(p["shared"], x, mesh)
+            return y, aux
+        else:
+            experts = {n: S.tp_gather(p[n], mesh, 0)
+                       for n in ("w_gate", "w_up", "w_down")}
+            y, aux = _moe_local({**p, **experts}, S.dp_gather(x, mesh), cfg)
+            y = S.dp_rows(y, mesh)
+        if m.n_shared_experts:
+            y = y + mlp_block(p["shared"], x, mesh)
     return y, aux

@@ -8,6 +8,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import transformer as T
+from repro_torch.sharding import spmd as S
+from repro_torch.sharding.rules import constrain
 
 # leaves the reference reads in fp32 (norms, the RWKV bonus, decay base and
 # group-norm scale, the Mamba A_log, D, dt_bias and gated-norm scale, the
@@ -40,6 +42,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
     return params
 
 
+def param_shapes(cfg: ArchConfig):
+    """The param tree's leaf shapes (``torch.Size``), from ``init_params``
+    under fake tensors: nothing is allocated, so the 32 B configs'
+    shapes come as cheaply as the reduced ones'."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        params = init_params(cfg, 0, device="cpu")
+
+    def shapes(tree):
+        return {k: shapes(v) if isinstance(v, dict) else v.shape
+                for k, v in tree.items()}
+    return shapes(params)
+
+
 def cast_params(params, dtype):
     """Cast the weights that the blocks cast per call (``.to(cd)``) once, at
     load. The values are those of the reference's per-call ``.astype(cd)``;
@@ -63,7 +79,7 @@ def cast_params(params, dtype):
 def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *,
              attn_impl: str = "xla", remat: str | None = "full",
              vision=None, cache_len=None, compute_dtype=torch.bfloat16,
-             device="cuda") -> dict:
+             device="cuda", mesh=None) -> dict:
     """RoPE table of ``seq_len`` rows (none for an attention-free config),
     the vision states (B, Nv, d_src) that the VLM's cross-attention reads
     in prefill and training, moved to the device, and, for decode, the
@@ -71,10 +87,12 @@ def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *,
     the table would read outside it (the reference's ``jnp.take`` gives NaN
     there), so it raises here. ``attn_impl`` and ``remat`` are read in
     "train" mode only (``blocks.train_attention``,
-    ``transformer._maybe_remat``); prefill and decode run the kernels."""
+    ``transformer._maybe_remat``); prefill and decode run the kernels.
+    ``mesh``: a ``spmd.MeshCtx`` when the params are this rank's shards
+    and the batch its rows (the sharded steps), else None."""
     dev = resolve_device(device)
     ctx = {"mode": mode, "attn_impl": attn_impl, "remat": remat,
-           "compute_dtype": compute_dtype}
+           "compute_dtype": compute_dtype, "mesh": mesh}
     if not cfg.attention_free:
         ctx["rope"] = B.rope_table(seq_len, cfg.resolved_head_dim,
                                    cfg.rope_theta, device=dev)
@@ -89,12 +107,23 @@ def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *,
     return ctx
 
 
-def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype):
+def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype, mesh=None):
     """Embedding rows of tokens (B, S) in the compute dtype. With codebooks,
     tokens (B, S, K) and the sum over k of ``embed[k][tokens[..., k]]``:
     the reference's one-hot einsum, whose bf16 form rounds the table to
     bf16 and the fp32 sum once; the port gathers the rows instead of
-    building the one-hot, and rounds where the einsum does."""
+    building the one-hot, and rounds where the einsum does. On a mesh a
+    tied table holds this rank's vocab rows (a token of another rank's
+    rows reads zeros, and the sum over the model axis has each row once)
+    and an untied one its d_model columns (gathered)."""
+    if mesh is not None and mesh.tp > 1 and not cfg.n_codebooks:
+        table = params["embed"]
+        if not cfg.tie_embeddings:
+            return S.tp_gather(table[tokens].to(compute_dtype), mesh, -1)
+        v0 = mesh.tp_rank * table.shape[0]
+        mine = (tokens >= v0) & (tokens < v0 + table.shape[0])
+        rows = table[torch.where(mine, tokens - v0, 0)].to(compute_dtype)
+        return S.tp_reduce(rows * mine[..., None], mesh)
     if not cfg.n_codebooks:
         return params["embed"][tokens].to(compute_dtype)
     books = torch.arange(cfg.n_codebooks, device=tokens.device)
@@ -102,12 +131,15 @@ def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype):
     return rows.float().sum(-2).to(compute_dtype)
 
 
-def lm_logits(params, x, cfg: ArchConfig):
+def lm_logits(params, x, cfg: ArchConfig, mesh=None):
     """Logits (B, S, V), or (B, S, K, V) with codebooks (the head's columns
-    codebook-major, as in the reference)."""
-    xf = B.apply_norm(params["final_norm"], x, cfg)
+    codebook-major, as in the reference). On a mesh the head is
+    vocab-sharded (``lm_head`` is in ``_COL_TP``, a tied table in its vocab
+    rows) and this rank's columns are gathered whole, for the loss and for
+    greedy decoding."""
+    xf = S.tp_copy(B.apply_norm(params["final_norm"], x, cfg), mesh)
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = xf @ w.to(xf.dtype)
+    logits = S.tp_gather(xf @ w.to(xf.dtype), mesh, -1)
     if cfg.n_codebooks:
         logits = logits.unflatten(-1, (cfg.n_codebooks, cfg.vocab_size))
     return logits
@@ -117,11 +149,13 @@ def forward(params, tokens, cfg: ArchConfig, ctx: dict, states=None):
     """Returns (logits, aux, states). aux is the auxiliary loss summed over
     the layers (MoE's load-balancing loss), a 0-d fp32 tensor: zero for a
     model without MoE layers."""
-    x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"])
+    mesh = ctx.get("mesh")
+    x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"], mesh)
+    x = constrain(x, T.BATCH)
     x, aux, states = T.apply_stack(params, x, cfg, ctx, states)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return lm_logits(params, x, cfg), aux, states
+    return lm_logits(params, x, cfg, mesh), aux, states
 
 
 def loss_fn(params, batch, cfg: ArchConfig, ctx: dict):
@@ -130,7 +164,15 @@ def loss_fn(params, batch, cfg: ArchConfig, ctx: dict):
     -100 (any negative) ignored; the VLM's batch also holds its vision
     states, which ``ctx`` carries (``make_ctx(vision=)``). Logits
     in fp32; the mean is over the valid labels (at least 1). Returns
-    (loss + aux, {"loss", "aux_loss", "ntokens"})."""
+    (loss + aux, {"loss", "aux_loss", "ntokens"}).
+
+    On a mesh (``ctx["mesh"]``; batch: this rank's rows) the first value
+    is this rank's share of the objective, whose gradients summed over
+    the data axis are those of loss + aux: its NLL sum over the global
+    count of valid labels, plus aux over the data axis's size (aux is
+    already the mean over the data shards); over a batch the data axis
+    does not shard, (loss + aux) over its size. The metrics are the
+    global batch's."""
     logits, aux, _ = forward(params, batch["tokens"], cfg, ctx)
     labels = batch["labels"]
     logits = logits.float()
@@ -139,9 +181,19 @@ def loss_fn(params, batch, cfg: ArchConfig, ctx: dict):
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, safe[..., None])[..., 0]
     nll = (logz - gold) * valid
+    mesh = ctx.get("mesh")
+    if mesh is not None and mesh.shards_batch:
+        tot = S.all_reduce(torch.stack([nll.sum().detach().double(),
+                                        valid.sum().double()]),
+                           mesh.data_group)
+        ntok = tot[1].long().clamp_min(1)
+        share = nll.sum() / ntok + aux / mesh.dp
+        return share, {"loss": (tot[0] / ntok).float(), "aux_loss": aux,
+                       "ntokens": ntok}
     ntok = valid.sum().clamp_min(1)
     loss = nll.sum() / ntok
-    return loss + aux, {"loss": loss, "aux_loss": aux, "ntokens": ntok}
+    share = loss + aux if mesh is None else (loss + aux) / mesh.dp
+    return share, {"loss": loss, "aux_loss": aux, "ntokens": ntok}
 
 
 def prefill(params, tokens, cfg: ArchConfig, ctx: dict):
@@ -149,9 +201,11 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: dict):
     (B, K, V) with codebooks. The head
     runs on the last position only: each row's logits depend on that row
     alone, so the values are those of the reference's full-sequence head."""
-    x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"])
+    mesh = ctx.get("mesh")
+    x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"], mesh)
+    x = constrain(x, T.BATCH)
     x, _, _ = T.apply_stack(params, x, cfg, ctx)      # aux is not needed
-    return lm_logits(params, x[:, -1:], cfg)[:, 0]
+    return lm_logits(params, x[:, -1:], cfg, mesh)[:, 0]
 
 
 def decode_step(params, tokens, states, cache_len, cfg: ArchConfig,

@@ -48,6 +48,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
+from repro_torch.sharding.rules import constrain
+
+BATCH = ("batch", None, None)
 
 
 def build_layout(cfg: ArchConfig) -> dict:
@@ -131,22 +134,26 @@ def unused_subtrees(cfg: ArchConfig) -> tuple[str, ...]:
 def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
     """One layer. Returns (x, state, aux); a decode state is updated in
     place; aux is the layer's auxiliary loss, None for a block without
-    one."""
+    one. On a mesh (``ctx["mesh"]``) the dense and MoE blocks run
+    tensor-parallel; each layer's output is constrained to the batch
+    layout where the reference constrains it."""
     decode = ctx["mode"] == "decode"
     train = ctx["mode"] == "train"
+    mesh = ctx.get("mesh")
     if block in ("dense", "moe", "shared_attn"):
         h = B.apply_norm(p["ln1"], x, cfg)
         o, state = B.attention_block(
             p["attn"], h, cfg, rope=ctx.get("rope"),
             positions=ctx.get("positions"), kv_cache=state,
             cache_len=ctx.get("cache_len"),
-            attn_impl=ctx["attn_impl"] if train else None)
+            attn_impl=ctx["attn_impl"] if train else None, mesh=mesh)
         x = x + o
         h = B.apply_norm(p["ln2"], x, cfg)
         if block == "moe":
-            y, aux = B.moe_block(p["moe"], h, cfg)
-            return x + y, state, aux
-        return x + B.mlp_block(p["mlp"], h), state, None
+            y, aux = B.moe_block(p["moe"], h, cfg, mesh=mesh)
+            return constrain(x + y, BATCH), state, aux
+        return constrain(x + B.mlp_block(p["mlp"], h, mesh), BATCH), \
+            state, None
     if block == "cross_attn":
         h = B.apply_norm(p["ln1"], x, cfg)
         if decode:       # the vision K/V of the state, never written
@@ -159,7 +166,7 @@ def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
         h = B.apply_norm(p["ln2"], x, cfg)
         x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * \
             B.mlp_block(p["mlp"], h)
-        return x, state, None
+        return constrain(x, BATCH), state, None
     if block == "rwkv":
         wkv, tm_last, cm_last = state if decode else (None, None, None)
         h = B.apply_norm(p["ln1"], x, cfg)
@@ -172,11 +179,11 @@ def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
         if decode:       # the next token shifts in this token's normed inputs
             tm_last.copy_(h[:, -1:])
             cm_last.copy_(h2[:, -1:])
-        return x, state, None
+        return constrain(x, BATCH), state, None
     if block == "mamba":
         h = B.apply_norm(p["ln1"], x, cfg)
         o, state = M.mamba_block(p["m"], h, cfg, state=state, train=train)
-        return x + o, state, None
+        return constrain(x + o, BATCH), state, None
     raise NotImplementedError(block)
 
 

@@ -4,7 +4,7 @@ A copy of ``repro/roofline/prior.py`` with two differences. It holds no TPU
 constant: its hardware is the NVIDIA H100 (``H100``). And it has no HLO
 parser: ``TemplateCost.from_hlo`` and ``RooflinePrior.register_hlo`` read
 XLA HLO text, which the port does not produce, and raise until a cost
-source for ``TemplateCost`` exists (ROADMAP A11).
+source for ``TemplateCost`` exists (ROADMAP A11b).
 
 The profiler's log-linear models need measured runs to exist; a cold
 cluster has none, and placement would default every unknown template to
@@ -80,8 +80,9 @@ def roofline_ceiling_s(flops: float, nbytes: float,
 def _no_hlo(what: str):
     raise NotImplementedError(
         f"{what} parses XLA HLO text, which the port does not produce; it "
-        "waits for a cost source for TemplateCost (ROADMAP A11). Register "
-        "an analytic cost with RooflinePrior.register instead.")
+        "waits for a cost source for TemplateCost (ROADMAP A11b: a "
+        "dispatch-mode count of the sharded steps). Register an analytic "
+        "cost with RooflinePrior.register instead.")
 
 
 @dataclasses.dataclass
@@ -106,7 +107,7 @@ class TemplateCost:
     @classmethod
     def from_hlo(cls, hlo_text: str, *,
                  scale_by: Optional[str] = None) -> "TemplateCost":
-        """Not in the port: raises NotImplementedError (ROADMAP A11)."""
+        """Not in the port: raises NotImplementedError (ROADMAP A11b)."""
         _no_hlo("TemplateCost.from_hlo")
 
 
@@ -132,7 +133,7 @@ class RooflinePrior:
 
     def register_hlo(self, template: str, hlo_text: str, *,
                      scale_by: Optional[str] = None) -> "RooflinePrior":
-        """Not in the port: raises NotImplementedError (ROADMAP A11)."""
+        """Not in the port: raises NotImplementedError (ROADMAP A11b)."""
         _no_hlo("RooflinePrior.register_hlo")
 
     def can_estimate(self, template: str, family: str) -> bool:

@@ -5,6 +5,14 @@ There is no ``attn_impl`` switch: on CUDA tensors prefill runs the flash,
 WKV6 and SSD kernels and decode attention the decode kernel (the RWKV and
 Mamba decode steps and cross-attention are plain torch, as in the
 reference); their plain versions serve CPU tensors only.
+
+The sharded prefill and serve steps run them on a ``DeviceMesh``, one
+process per rank, as the reference's ``dryrun.build_cell`` assembles them:
+params under ``param_specs`` (FSDP's layout, gathered over data at each
+call), the decode state under ``decode_state_specs(layout="fsdp")`` (KV
+heads over the model axis) and the batch under ``batch_specs``; each rank
+runs the flash and decode kernels at its H/tp query heads and KV/tp KV
+heads, and every rank returns the global batch's logits.
 """
 from __future__ import annotations
 
@@ -84,3 +92,102 @@ def greedy_generate(cfg: ArchConfig, params, prompt, max_new: int, *,
             cur = nxt[:, None]                    # (B, 1[, K])
             out.append(cur)
     return torch.cat(out, dim=1) if out else prompt[:, :0]
+
+
+# ---------------------------------------------------------------------------
+# the sharded steps (the reference's dryrun.build_cell, prefill and decode)
+# ---------------------------------------------------------------------------
+
+def _step_ctx(mesh, rules, pspecs, params, rows: int):
+    """(MeshCtx, this rank's params whole over data) for a call of
+    ``rows`` global rows."""
+    from repro_torch.sharding import spmd as S
+    from repro_torch.sharding.rules import batch_axis, set_rules
+    set_rules(rules)
+    mc = S.MeshCtx(mesh, batch_axis(rules, rows) is not None)
+    return mc, S.whole_over_data(params, pspecs, mc)
+
+
+def _global_rows(x, mc):
+    from repro_torch.sharding import spmd as S
+    return S.all_gather(x, mc.data_group, 0) if mc.shards_batch else x
+
+
+def make_sharded_prefill_step(cfg: ArchConfig, mesh, *,
+                              compute_dtype=torch.bfloat16, device="cuda"):
+    """prefill_step(params, batch) -> last-position logits (B, V) of the
+    global batch, on every rank; params: DTensors under the param specs
+    of ``train_step.sharded_specs``; batch: the global batch's tokens
+    (B, S), the same on every rank."""
+    from repro_torch.sharding import spmd as S
+    from repro_torch.train.train_step import sharded_specs
+    dev = resolve_device(device)
+    rules, pspecs, _ = sharded_specs(cfg, mesh)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        tokens = batch["tokens"].to(dev)
+        mc, local = _step_ctx(mesh, rules, pspecs, params, tokens.shape[0])
+        ctx = M.make_ctx(cfg, tokens.shape[1], "prefill",
+                         compute_dtype=compute_dtype, device=dev, mesh=mc)
+        return _global_rows(M.prefill(local, S.dp_rows(tokens, mc), cfg,
+                                      ctx), mc)
+
+    return prefill_step
+
+
+def init_sharded_decode_state(cfg: ArchConfig, mesh, batch: int,
+                              buffer_len: int, *, dtype=torch.bfloat16,
+                              device="cuda"):
+    """This rank's zeroed decode state, as DTensors under
+    ``decode_state_specs(layout="fsdp")``: batch over data where it
+    divides, KV heads over model. A KV sequence sharded over the model
+    axis (KV heads that the model axis does not divide, or a batch too
+    small for the data axis) waits for ROADMAP A11b."""
+    from repro_torch.sharding import rules as SR
+    from repro_torch.sharding import spmd as S
+    from repro_torch.train.train_step import check_sharded
+    dev = resolve_device(device)
+    check_sharded(cfg)
+    specs = SR.decode_state_specs(cfg, batch, SR.AxisRules.for_mesh(mesh),
+                                  layout="fsdp")
+    if any(spec[2] is not None for spec in specs["layers"]):
+        raise NotImplementedError(
+            f"{cfg.name} at batch {batch}: a decode state whose KV sequence "
+            "shards over the mesh waits for ROADMAP A11b")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        shapes = T.init_decode_state(cfg, batch, buffer_len, dtype=dtype)
+
+    def zeros(shape_of, spec):
+        local = torch.zeros(S.local_shape(shape_of.shape, spec, mesh),
+                            dtype=dtype, device=dev)
+        return S.from_local(local, spec, mesh, shape_of.shape)
+
+    return S.map_tree(zeros, shapes, specs)
+
+
+def make_sharded_serve_step(cfg: ArchConfig, mesh, buffer_len: int, *,
+                            compute_dtype=torch.bfloat16, device="cuda"):
+    """The serve step on every rank of ``mesh``: ``init_sharded_decode_state``'s
+    state (updated in place), batch the global batch's tokens (B, 1) and
+    cache_len (B,); returns the global batch's logits (B, 1, V), the
+    state, and next_tok (B,), the same on every rank."""
+    from repro_torch.sharding import spmd as S
+    from repro_torch.train.train_step import sharded_specs
+    dev = resolve_device(device)
+    rules, pspecs, _ = sharded_specs(cfg, mesh)
+
+    @torch.no_grad()
+    def serve_step(params, states, batch):
+        tokens = batch["tokens"].to(dev)
+        mc, local = _step_ctx(mesh, rules, pspecs, params, tokens.shape[0])
+        cache_len = S.dp_rows(batch["cache_len"].to(dev), mc)
+        ctx = M.make_ctx(cfg, buffer_len, "decode", cache_len=cache_len,
+                         compute_dtype=compute_dtype, device=dev, mesh=mc)
+        logits, _ = M.decode_step(local, S.dp_rows(tokens, mc),
+                                  S.to_local(states), cache_len, cfg, ctx)
+        logits = _global_rows(logits, mc)
+        return logits, states, logits[:, -1].argmax(-1)
+
+    return serve_step

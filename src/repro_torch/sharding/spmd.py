@@ -1,0 +1,368 @@
+"""SPMD on a ``DeviceMesh``: one process per rank, the port's counterpart of
+the reference's GSPMD partitioning and ``shard_map``.
+
+- **State.** A param or optimizer leaf under a spec lives as a DTensor:
+  global shape, one placement per mesh dim (``placements``: an axis the
+  spec names at dim i is ``Shard(i)``, an axis it does not name is
+  ``Replicate()``), and this rank's shard as its local tensor
+  (``distribute``, ``from_local``, ``full_tensor``).
+- **Compute.** The sharded steps take each leaf's local tensor and run the
+  model's plain functions on it, with explicit collectives where the
+  reference's partitioner inserts them (``MeshCtx``; the Megatron pairs
+  ``tp_copy`` / ``tp_reduce``, and gathers with a slicing or a summing
+  backward). Every hand-written kernel sees local tensors only, at this
+  rank's heads.
+- **Collectives** go through ``torch.distributed`` on the mesh's groups.
+  On gloo (ranks that share a card) a CUDA tensor goes through host
+  memory: gloo's own handling of CUDA tensors differs by collective and
+  by build, and on an H100 with torch 2.11 one collective on CUDA tensors
+  aborted the process (PERF.md; ``chip_smoke.py``'s probe reports which).
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.mesh import axis_names, axis_sizes
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """gloo moves host memory: a CUDA tensor goes through host memory."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group; a new tensor (t is left as it is)."""
+    if _staged(t, group):
+        h = t.detach().cpu().contiguous()
+        dist.all_reduce(h, group=group)
+        return h.to(t.device)
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's tensors concatenated along dim, in group rank order."""
+    n = dist.get_world_size(group)
+    src = t.detach().contiguous()
+    if _staged(t, group):
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim).to(t.device)
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Sum over the group, then this rank's chunk along dim."""
+    n = dist.get_world_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"into {n}")
+    x = t.detach().movedim(dim, 0).contiguous()
+    if _staged(t, group):
+        x = x.cpu()
+    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out.view(-1), x.view(-1), group=group)
+    return out.to(t.device).movedim(0, dim)
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """t of the group's rank ``src`` (a group rank) on every rank."""
+    g_src = dist.get_global_rank(group, src)
+    buf = t.detach().contiguous()
+    if _staged(t, group):
+        buf = buf.cpu()
+    else:
+        buf = buf.clone()
+    dist.broadcast(buf, src=g_src, group=group)
+    return buf.to(t.device)
+
+
+def exchange(send: torch.Tensor | None, dst: int | None,
+             recv_like: torch.Tensor | None, src: int | None,
+             group) -> torch.Tensor | None:
+    """Send ``send`` to group rank ``dst`` and receive a tensor shaped like
+    ``recv_like`` from group rank ``src`` (either may be None)."""
+    like = send if send is not None else recv_like
+    staged = like is not None and _staged(like, group)
+    ops, buf = [], None
+    if send is not None:
+        out = send.detach().contiguous()
+        ops.append(dist.P2POp(dist.isend, out.cpu() if staged else out,
+                              dist.get_global_rank(group, dst), group))
+    if recv_like is not None:
+        buf = torch.empty_like(recv_like, device="cpu" if staged else None)
+        ops.append(dist.P2POp(dist.irecv, buf,
+                              dist.get_global_rank(group, src), group))
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait()
+    return None if buf is None else buf.to(recv_like.device)
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives (the Megatron pairs)
+# ---------------------------------------------------------------------------
+
+class _Copy(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group (the input of
+    a column-parallel product: each rank's part of dx)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """Sum over the group forward (the output of a row-parallel product);
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along dim. Backward: this rank's chunk of the gradient
+    when every rank goes on with the same values (``sum_grads`` False: the
+    logits, an untied embedding's columns), else the chunk of the gradient
+    summed over the group (ranks that read the gathered tensor differently:
+    K and V at fewer heads than ranks, the MoE's tokens over data)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, sum_grads):
+        ctx.group, ctx.dim, ctx.sum_grads = group, dim, sum_grads
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grads:
+            return reduce_scatter(g, ctx.group, ctx.dim), None, None, None
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return g.chunk(n, ctx.dim)[r].contiguous(), None, None, None
+
+
+# ---------------------------------------------------------------------------
+# the mesh as one step's model code reads it
+# ---------------------------------------------------------------------------
+
+class MeshCtx:
+    """A 1- or 2-D ``DeviceMesh`` over ("data", "model") axes, as the model
+    code reads it during one step: the groups, sizes and coordinates of
+    this rank, and whether the step's batch is sharded over data
+    (``batch_specs``: when the data axis divides the global batch)."""
+
+    def __init__(self, mesh, batch_sharded: bool = True):
+        names = axis_names(mesh)
+        if set(names) - {"data", "model"}:
+            raise NotImplementedError(
+                f"mesh axes {names}: the port's sharded steps run on "
+                "('data', 'model') meshes; a 'pod' axis waits for ROADMAP "
+                "A11b")
+        sizes = axis_sizes(mesh)
+        self.mesh = mesh
+        self.batch_sharded = batch_sharded
+        self.tp = sizes.get("model", 1)
+        self.dp = sizes.get("data", 1)
+        self.model_group = mesh.get_group("model") if "model" in names \
+            else None
+        self.data_group = mesh.get_group("data") if "data" in names else None
+        self.tp_rank = mesh.get_local_rank("model") if "model" in names \
+            else 0
+        self.dp_rank = mesh.get_local_rank("data") if "data" in names else 0
+
+    @property
+    def shards_batch(self) -> bool:
+        """The step's rows are this rank's data shard of the batch."""
+        return self.batch_sharded and self.dp > 1
+
+
+def tp_copy(x, mc: MeshCtx | None):
+    if mc is None or mc.tp == 1:
+        return x
+    return _Copy.apply(x, mc.model_group)
+
+
+def tp_reduce(x, mc: MeshCtx | None):
+    if mc is None or mc.tp == 1:
+        return x
+    return _Reduce.apply(x, mc.model_group)
+
+
+def tp_gather(x, mc: MeshCtx | None, dim: int, sum_grads: bool = False):
+    if mc is None or mc.tp == 1:
+        return x
+    return _Gather.apply(x, mc.model_group, dim % x.dim(), sum_grads)
+
+
+def dp_gather(x, mc: MeshCtx | None, dim: int = 0):
+    """This rank's rows -> the global batch's (summing backward)."""
+    if mc is None or not mc.shards_batch:
+        return x
+    return _Gather.apply(x, mc.data_group, dim % x.dim(), True)
+
+
+def dp_rows(x, mc: MeshCtx | None, dim: int = 0):
+    """The global batch's rows -> this rank's data shard."""
+    if mc is None or not mc.shards_batch:
+        return x
+    return x.chunk(mc.dp, dim)[mc.dp_rank]
+
+
+# ---------------------------------------------------------------------------
+# specs, placements and sharded state
+# ---------------------------------------------------------------------------
+
+def _axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def placements(spec: tuple, mesh) -> list:
+    """A spec's DTensor placements on ``mesh``: ``Shard(i)`` for a mesh axis
+    that spec entry i names, ``Replicate()`` for one it does not."""
+    from torch.distributed.tensor import Replicate, Shard
+    where = {a: i for i, entry in enumerate(spec) for a in _axes(entry)}
+    return [Shard(where[a]) if a in where else Replicate()
+            for a in axis_names(mesh)]
+
+
+def spec_of(dt) -> tuple:
+    """A DTensor's placements as a spec (one mesh axis a sharded dim)."""
+    from torch.distributed.tensor import Shard
+    spec = [None] * dt.dim()
+    for name, pl in zip(axis_names(dt.device_mesh), dt.placements):
+        if isinstance(pl, Shard):
+            spec[pl.dim] = name if spec[pl.dim] is None \
+                else (*_axes(spec[pl.dim]), name)
+    return tuple(spec)
+
+
+def local_shape(shape, spec: tuple, mesh) -> tuple[int, ...]:
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        for a in _axes(entry):
+            if out[i] % sizes[a]:
+                raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                                 f"over {a} ({sizes[a]})")
+            out[i] //= sizes[a]
+    return tuple(out)
+
+
+def shard_of(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's shard of a full tensor under ``spec`` (a copy)."""
+    sizes = axis_sizes(mesh)
+    local_shape(full.shape, spec, mesh)                 # checks the split
+    x = full
+    for i, entry in enumerate(spec):
+        idx, n = 0, 1
+        for a in _axes(entry):                          # major to minor
+            idx = idx * sizes[a] + mesh.get_local_rank(a)
+            n *= sizes[a]
+        if n > 1:
+            x = x.chunk(n, i)[idx]
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def from_local(local: torch.Tensor, spec: tuple, mesh, shape):
+    """A DTensor of global ``shape`` over this rank's ``local`` shard."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, placements(spec, mesh),
+                              run_check=False, shape=shape, stride=stride)
+
+
+def full_tensor(x):
+    """A DTensor's global tensor on every rank (plain tensors pass). A dim
+    that several mesh axes shard holds chunk ``i * n_minor + j`` at (i, j)
+    (``shard_of``), so its gathers run from the minor axis to the major."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    mesh, out, sizes = x.device_mesh, x.to_local(), axis_sizes(x.device_mesh)
+    for i, entry in enumerate(spec_of(x)):
+        for name in reversed(_axes(entry)):
+            if sizes[name] > 1:
+                out = all_gather(out, mesh.get_group(name), i)
+    return out
+
+
+def map_tree(fn, *trees):
+    """fn over the leaves of the first tree (nested dicts and tuples: the
+    decode state's caches are tuples), with the matching entries of the
+    others (a spec tree's leaves are tuples). ``optimizer.tree_map`` takes
+    tuples as leaves."""
+    head = trees[0]
+    if isinstance(head, dict):
+        return {k: map_tree(fn, *(t[k] for t in trees)) for k in head}
+    if isinstance(head, tuple):
+        return tuple(map_tree(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)
+
+
+def distribute(tree, specs, mesh):
+    """Full tensors -> DTensors of this rank's shards under ``specs`` (the
+    spec tree shaped like ``tree``)."""
+    return map_tree(lambda t, s: from_local(shard_of(t, s, mesh), s, mesh,
+                                            t.shape), tree, specs)
+
+
+def to_local(tree):
+    """DTensor leaves -> their local tensors (sharing storage)."""
+    from torch.distributed.tensor import DTensor
+    return map_tree(lambda t: t.to_local() if isinstance(t, DTensor) else t,
+                    tree)
+
+
+def gather_data(local: torch.Tensor, spec: tuple,
+                mc: MeshCtx) -> torch.Tensor:
+    """``local`` with the dim that the data axis shards gathered whole
+    (FSDP's gather before a step); no grad."""
+    for i, entry in enumerate(spec):
+        if mc.dp > 1 and "data" in _axes(entry):
+            local = all_gather(local, mc.data_group, i)
+    return local
+
+
+def reduce_data(grad: torch.Tensor, spec: tuple,
+                mc: MeshCtx) -> torch.Tensor:
+    """A gradient of the whole-over-data param summed over the data axis
+    into the param's layout: reduce-scattered along the dim the data axis
+    shards, all-reduced where it shards none."""
+    if mc.dp == 1:
+        return grad
+    for i, entry in enumerate(spec):
+        if "data" in _axes(entry):
+            return reduce_scatter(grad, mc.data_group, i)
+    return all_reduce(grad, mc.data_group)
+
+
+def whole_over_data(params, specs, mc: MeshCtx):
+    """DTensor params -> this rank's local tensors, whole over data."""
+    return map_tree(lambda t, s: gather_data(t.to_local(), s, mc), params,
+                    specs)
+
+
+def replication(spec: tuple, mesh) -> int:
+    """How many ranks hold each shard of a leaf under ``spec``."""
+    named = {a for entry in spec for a in _axes(entry)}
+    out = 1
+    for a, n in axis_sizes(mesh).items():
+        if a not in named:
+            out *= n
+    return out

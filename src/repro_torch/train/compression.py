@@ -1,8 +1,9 @@
 """Gradient compression with error feedback (the port of
 ``repro/train/compression.py``): bf16, or int8 with one symmetric scale per
 tensor, so that the optimizer sees what a compressed all-reduce would
-deliver, with the quantization error carried into the next step. The
-all-reduce itself (``compressed_psum``) waits for the multi-device slice.
+deliver, with the quantization error carried into the next step; and
+``compressed_psum``, the low-precision all-reduce itself over a process
+group (the reference's ``shard_map`` building block).
 """
 from __future__ import annotations
 
@@ -46,3 +47,23 @@ def _one(g, r, kind):
 def init_residuals(params):
     return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                     params)
+
+
+def compressed_psum(x, group, kind: Literal["bf16", "int8"] = "bf16"):
+    """All-reduce in low precision over ``group``: quantize locally,
+    all-gather the compressed values (and the int8 scales), dequantize
+    and sum in fp32, in group rank order. Halves (bf16) or quarters (int8)
+    the bytes on the wire against an fp32 all-reduce; every rank gets the
+    same sum."""
+    from repro_torch.sharding import spmd as S
+    q, scale = compress(x, kind)
+    qs = S.all_gather(q[None], group, 0)              # (n, ...) compressed
+    if scale is not None:
+        scales = S.all_gather(scale.reshape(1), group, 0)
+        parts = [qs[r].float() * scales[r] for r in range(qs.shape[0])]
+    else:
+        parts = [qs[r].float() for r in range(qs.shape[0])]
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out

@@ -16,6 +16,12 @@ no checkpoint included (ROADMAP C). One difference: CUDA runs
 asynchronously, so when the state lives on a CUDA device ``run`` waits for
 the step's device work before it reads the end time, and the watchdog
 times the step, not its launches.
+
+On a mesh every rank runs the supervisor with the same step function,
+hooks and schedule, so a failure injected for a step fires on every rank
+at that step and every rank restores; ``CheckpointManager.save`` and
+``restore`` are collective over DTensor state (rank 0 writes), so a
+restart resumes on the template's mesh.
 """
 from __future__ import annotations
 

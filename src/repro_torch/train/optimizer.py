@@ -6,8 +6,9 @@ The optimizer state is a dict shaped like the params: ``mu`` and ``nu``
 (the fp32 truth of bf16 params). ``adamw_update`` updates params and state
 in place, under ``torch.no_grad()``, with the values the reference's
 functional update returns; in place, a full-width step needs no second
-copy of the params and moments. ZeRO sharding of the state
-(``opt_state_specs``) waits for the multi-device slice.
+copy of the params and moments. ``opt_state_specs`` gives the state's
+ZeRO-1 layout on a mesh: the moments take one more dim over the data axis
+where a dim divides.
 """
 from __future__ import annotations
 
@@ -75,15 +76,18 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, params, grads, opt_state):
+def adamw_update(cfg: OptimizerConfig, params, grads, opt_state,
+                 grad_norm=None):
     """One AdamW step with decoupled weight decay on leaves of two or more
     dims (the stacked per-layer norm scales and qk-norms are (L, ·), so
     they are decayed, and ``final_norm`` is not, as in the reference).
     Updates ``params`` and ``opt_state`` in place and returns them with
     {"grad_norm" (before clipping), "lr"}. With a "master" entry the update
-    is computed on the fp32 masters and params get their cast."""
+    is computed on the fp32 masters and params get their cast. A sharded
+    step passes the global ``grad_norm`` of every rank's shards, since
+    its ``grads`` are this rank's shards."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / gnorm.clamp_min(1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1, b2 = cfg.betas
@@ -107,3 +111,38 @@ def adamw_update(cfg: OptimizerConfig, params, grads, opt_state):
     tree_map(upd, base, grads, opt_state["mu"], opt_state["nu"], params)
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharding of the optimizer state
+# ---------------------------------------------------------------------------
+
+def opt_state_specs(param_specs, param_shapes, rules=None,
+                    zero: bool = True):
+    """Opt-state specs (the reference's). With ``zero`` and a "data" axis in
+    the rules, the moments get one more dim sharded over data (ZeRO-1): the
+    first unsharded dim that divides, unless the param is already
+    data-sharded (FSDP)."""
+    from repro_torch.sharding.rules import _shape, current_rules
+    rules = rules or current_rules()
+    zero_axes = rules.table.get("zero", ()) if (rules and zero) else ()
+    zero_size = rules.size(zero_axes[0]) if (rules and zero_axes) else 1
+
+    def one(spec, shape):
+        if not zero_axes or zero_size <= 1 or shape is None:
+            return spec
+        shape = _shape(shape)
+        flat_axes = []
+        for entry in spec:
+            flat_axes.extend(entry if isinstance(entry, tuple) else [entry])
+        if zero_axes[0] in flat_axes:      # FSDP params: already data-sharded
+            return spec
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        for i, (ax, dim) in enumerate(zip(parts, shape)):
+            if ax is None and dim % zero_size == 0 and dim >= zero_size:
+                parts[i] = zero_axes[0]
+                return tuple(parts)
+        return spec
+
+    moment_specs = tree_map(one, param_specs, param_shapes)
+    return {"mu": moment_specs, "nu": moment_specs, "step": ()}

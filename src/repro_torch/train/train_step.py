@@ -12,6 +12,11 @@ kinds of leaves get zero gradients, as ``jax.grad`` gives: zero-size leaves
 (OLMo's non-parametric norm sentinel), which hold no value, and the leaves
 of the subtrees the layout never runs (``transformer.unused_subtrees``: the
 hybrid's and the VLM's placeholder trailing layer when no layer trails).
+
+``make_sharded_train_step`` is the step that the reference's
+``build_sharded_train`` jits with shardings, run on a ``DeviceMesh`` by
+one process per rank: params under ``param_specs(fsdp=True)`` and AdamW's
+moments under ``opt_state_specs`` (ZeRO-1), both as DTensors.
 """
 from __future__ import annotations
 
@@ -43,9 +48,12 @@ class TrainConfig:
     master_weights: bool = False
 
 
-def make_loss_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda"):
+def make_loss_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda",
+                 mesh=None):
     """loss_fn(params, batch) -> (loss, metrics) in train mode; batch holds
-    tensors on ``device``: tokens and labels, and the VLM's vision."""
+    tensors on ``device``: tokens and labels, and the VLM's vision. On a
+    mesh (a ``spmd.MeshCtx``) params are this rank's shards, batch its
+    rows, and the loss this rank's share (``model.loss_fn``)."""
     cd = torch.bfloat16 if tcfg.compute_dtype == "bfloat16" else torch.float32
     dev = resolve_device(device)
 
@@ -56,20 +64,21 @@ def make_loss_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda"):
         ctx = M.make_ctx(cfg, batch["tokens"].shape[1], "train",
                          attn_impl=tcfg.attn_impl, remat=tcfg.remat,
                          vision=batch.get("vision"), compute_dtype=cd,
-                         device=dev)
+                         device=dev, mesh=mesh)
         return M.loss_fn(params, batch, cfg, ctx)
 
     return loss_fn
 
 
-def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda"):
+def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda",
+                 mesh=None):
     """grad_fn(params, batch) -> (loss, metrics, grads), grads shaped like
     params. With ``microbatches`` k > 1 the batch (every entry, vision
     included) is split into k equal row blocks: loss and grads are the
     mean of the per-microbatch means (not a token-weighted mean), summed in
     fp32, and the metrics are the last microbatch's, as in the
     reference."""
-    loss_fn = make_loss_fn(cfg, tcfg, device=device)
+    loss_fn = make_loss_fn(cfg, tcfg, device=device, mesh=mesh)
     unused = tuple(f"{path}/" for path in TF.unused_subtrees(cfg))
 
     def value_and_grad(params, batch):
@@ -147,3 +156,160 @@ def make_opt_state(params, tcfg: TrainConfig):
     if tcfg.grad_compression:
         state["residuals"] = C.init_residuals(params)
     return state
+
+
+# ---------------------------------------------------------------------------
+# the sharded step (the reference's build_sharded_train)
+# ---------------------------------------------------------------------------
+
+SHARDED_FAMILIES = ("dense", "moe")
+
+
+def check_sharded(cfg: ArchConfig) -> None:
+    """The families whose layouts run on a mesh in this slice."""
+    if cfg.family not in SHARDED_FAMILIES or cfg.n_codebooks:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} layout on a mesh waits for "
+            "ROADMAP A11b (the ssm, hybrid, vlm and audio layouts)")
+
+
+def sharded_specs(cfg: ArchConfig, mesh, *, fsdp: bool = True):
+    """(rules, param specs, opt-state specs) on ``mesh``, as the
+    reference's ``build_sharded_train`` and ``dryrun.build_cell`` derive
+    them; the prefill and serve steps take the same param specs."""
+    from repro_torch.sharding import rules as SR
+    from repro_torch.train.optimizer import opt_state_specs
+    check_sharded(cfg)
+    rules = SR.AxisRules.for_mesh(mesh)
+    shapes = M.param_shapes(cfg)
+    pspecs = SR.param_specs(cfg, rules, fsdp=fsdp, param_shapes=shapes)
+    return rules, pspecs, opt_state_specs(pspecs, shapes, rules)
+
+
+def shard_train_state(params, tcfg: TrainConfig, pspecs, ospecs, mesh):
+    """Full params (the same on every rank, e.g. one seed) -> (params,
+    opt_state) of this rank: params as DTensors under ``pspecs``, the
+    moments (and masters) zeros of this rank's shape under ``ospecs``
+    (the residuals under ``pspecs``), ``step`` a plain 0-d int32."""
+    from repro_torch.sharding import spmd as S
+    dparams = S.distribute(params, pspecs, mesh)
+
+    def zeros(p, spec):
+        local = torch.zeros(S.local_shape(p.shape, spec, mesh),
+                            dtype=torch.float32, device=p.device)
+        return S.from_local(local, spec, mesh, p.shape)
+
+    state = {"mu": tree_map(zeros, params, ospecs["mu"]),
+             "nu": tree_map(zeros, params, ospecs["nu"]),
+             "step": torch.zeros((), dtype=torch.int32,
+                                 device=leaves(params)[0].device)}
+    if tcfg.master_weights:
+        state["master"] = S.distribute(
+            tree_map(lambda p: p.float(), params), ospecs["mu"], mesh)
+    if tcfg.grad_compression:
+        state["residuals"] = tree_map(zeros, params, pspecs)
+    return dparams, state
+
+
+def make_sharded_grad_fn(cfg: ArchConfig, tcfg: TrainConfig, mesh, *,
+                         device="cuda", specs=None):
+    """grad_fn(params, batch) -> (metrics, grads, mc) on every rank of
+    ``mesh``: FSDP's gather of each param over data (this rank's model
+    shard, whole over data), the loss and gradients of this rank's batch
+    rows through the tensor-parallel blocks, and each gradient summed over
+    data into its param's layout (reduce-scattered where the param is
+    data-sharded). params: DTensors under ``param_specs(fsdp=True)``;
+    grads: this rank's shards, shaped like the params' local tensors;
+    batch: the global batch (every rank the same); the metrics are the
+    global batch's. ``specs``: ``sharded_specs(cfg, mesh)``, derived here
+    when not given."""
+    from repro_torch.sharding import spmd as S
+    from repro_torch.sharding.rules import batch_axis, set_rules
+
+    if tcfg.microbatches > 1:
+        raise NotImplementedError("microbatches on a mesh: the reference "
+                                  "splits the global batch's rows, which "
+                                  "this step does not do yet")
+    dev = resolve_device(device)
+    rules, pspecs, _ = specs or sharded_specs(cfg, mesh)
+
+    def grad_fn(params, batch):
+        set_rules(rules)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        mc = S.MeshCtx(mesh, batch_axis(rules, batch["tokens"].shape[0])
+                       is not None)
+        _, metrics, grads = make_grad_fn(cfg, tcfg, device=dev, mesh=mc)(
+            S.whole_over_data(params, pspecs, mc),
+            {k: S.dp_rows(v, mc) for k, v in batch.items()})
+        return metrics, S.map_tree(lambda g, s: S.reduce_data(g, s, mc),
+                                   grads, pspecs), mc
+
+    return grad_fn
+
+
+def make_sharded_train_step(cfg: ArchConfig, tcfg: TrainConfig,
+                            ocfg: OptimizerConfig, mesh, *, device="cuda",
+                            specs=None):
+    """train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics) on every rank of ``mesh`` (a ``DeviceMesh`` over "data" and
+    "model"), with the state of ``shard_train_state``, updated in place:
+    ``make_sharded_grad_fn``'s gradients (then, with
+    ``grad_compression``, compressed with feedback on this rank's shards),
+    the global grad norm over every rank's shards, and AdamW on this rank's
+    shard of each moment (ZeRO-1: a param that is whole over data where its
+    moment is data-sharded is updated in this rank's slice and gathered
+    back). The metrics are the global batch's, the same on every rank.
+    ``specs``: ``sharded_specs(cfg, mesh)``, derived here when not
+    given."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import spmd as S
+
+    specs = specs or sharded_specs(cfg, mesh)
+    _, pspecs, ospecs = specs
+    grad_fn = make_sharded_grad_fn(cfg, tcfg, mesh, device=device,
+                                   specs=specs)
+
+    def zero_dim(pspec, mspec):
+        """The dim a moment shards over data where its param does not."""
+        return next((i for i, (p, m) in enumerate(zip(pspec, mspec))
+                     if m == "data" and p != "data"), None)
+
+    def train_step(params, opt_state, batch):
+        metrics, grads, mc = grad_fn(params, batch)
+        if tcfg.grad_compression:     # on this rank's shards, in place
+            res = S.to_local(opt_state["residuals"])
+            grads, new_res = C.compress_grads_with_feedback(
+                grads, res, tcfg.grad_compression)
+            with torch.no_grad():
+                tree_map(lambda r, n: r.copy_(n), res, new_res)
+        sq = sum(g.float().square().sum() / S.replication(s, mesh)
+                 for g, s in zip(leaves(grads), leaves(pspecs)))
+        gnorm = torch.sqrt(S.all_reduce(sq, dist.group.WORLD))
+
+        # AdamW in each moment's layout: a param that is whole over data
+        # where its moment is data-sharded takes this rank's slice (a view)
+        plocal = S.to_local(params)
+        cuts = S.map_tree(lambda p, ps, ms: zero_dim(ps, ms)
+                          if mc.dp > 1 else None,
+                          plocal, pspecs, ospecs["mu"])
+
+        def part(t, i):
+            return t if i is None else t.chunk(mc.dp, i)[mc.dp_rank]
+
+        upd = S.map_tree(part, plocal, cuts)
+        local_state = {k: S.to_local(opt_state[k])
+                       for k in ("mu", "nu", "master") if k in opt_state}
+        local_state["step"] = opt_state["step"]
+        _, local_state, opt_metrics = adamw_update(
+            ocfg, upd, S.map_tree(part, grads, cuts), local_state,
+            grad_norm=gnorm)
+        opt_state["step"] = local_state["step"]
+        with torch.no_grad():
+            for whole, mine, i in zip(leaves(plocal), leaves(upd),
+                                      leaves(cuts)):
+                if i is not None:
+                    whole.copy_(S.all_gather(mine, mc.data_group, i))
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    return train_step

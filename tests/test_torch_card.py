@@ -1039,3 +1039,23 @@ def test_recurrent_train_step_launches_no_kernel(card, arch):
     torch.cuda.synchronize()
     assert [c.launches for c in counters] == before
     assert np.isfinite(float(metrics["loss"]))
+
+
+def test_two_ranks_sharing_the_card_run_the_kernels_at_their_heads(
+        card, tmp_path):
+    """Two ranks on gloo share the card on a (1, 2) mesh (olmo-1b at full
+    width, 2 layers, fp32): the sharded prefill launches the flash kernel
+    once a layer and the sharded tick the decode kernel once a layer, each
+    rank at 8 of the 16 heads (per-rank launch counters), and the global
+    logits match the one-device plain versions on the CPU."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_ranks as TR
+    npz, meta = TR.spawn("card", 2, tmp_path, timeout=600)
+    for rank in meta["card"]:
+        assert rank["launches"] == {"flash": 2, "decode": 16}
+        assert rank["heads"] == {"flash": [8], "decode": [8]}
+    for what in ("prefill", "decode"):
+        got, want = npz[f"card/{what}"], npz[f"card/{what}_plain"]
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-3 * (want.max() - want.min())

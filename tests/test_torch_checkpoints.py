@@ -250,10 +250,12 @@ def test_restored_tensors_own_their_memory(tmp_path):
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"specs": {}}])
 def test_restore_onto_a_mesh_raises(tmp_path, kw):
+    """Restore onto a mesh runs (tests/test_torch_mesh.py); it raises when
+    given a mesh without specs or specs without a mesh."""
     ckpt = C.CheckpointManager(AcaiProject("p", tmp_path), "run")
     params, opt = _small_state()
     ckpt.save(1, params, opt)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="mesh and specs"):
         ckpt.restore({"params": params, "opt": opt}, **kw)
 
 

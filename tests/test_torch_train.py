@@ -678,8 +678,13 @@ def test_launch_train_main_on_cpu(capsys, tmp_path):
 
 
 def test_launch_train_refuses_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        LT.main(["--device", "cpu", "--mesh", "2x2"])
+    """--mesh runs (tests/test_torch_mesh_launch.py); the meshes it cannot
+    run are refused before any rank starts: nccl on the CPU, and a mesh
+    of three axes."""
+    with pytest.raises(RuntimeError, match="--backend gloo"):
+        LT.main(["--device", "cpu", "--mesh", "2x2", "--backend", "nccl"])
+    with pytest.raises(ValueError, match="mesh"):
+        LT.main(["--device", "cpu", "--mesh", "2x2x2"])
 
 
 # ---------------------------------------------------------------------------

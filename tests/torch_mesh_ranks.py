@@ -1,0 +1,477 @@
+"""Rank bodies of the port's mesh tests (imports no JAX, so the card's
+machine runs it too). Each rank is a process of its own:
+
+    python tests/torch_mesh_ranks.py GROUP RANK WORLD STORE OUTDIR [REF]
+
+GROUP is ``four`` (4 ranks: compressed_psum, GPipe, the sharded train step
+of reduced olmo-1b and qwen3-8b on (2, 2), the MoE's expert-parallel
+branch on (2, 2) and (1, 4), a save of the trained state), ``two`` (2
+ranks: the MoE on (1, 2), sharded prefill and serving on (1, 2), restore
+of ``four``'s save onto 2 ranks, a supervised run with a failure on (2, 1))
+or ``card`` (2 ranks sharing the card on gloo: the kernels at the local
+heads). Ranks meet through a FileStore at STORE; REF is the npz of
+``tests/jax_mesh_reference.py``. Rank 0 writes OUTDIR/GROUP.npz and
+OUTDIR/GROUP.json, which the tests read.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+import jax_mesh_reference as JR   # numpy only at import: the seeds, sizes
+
+from repro_torch import convert
+from repro_torch.configs.base import get_arch
+from repro_torch.core.acai import AcaiProject
+from repro_torch.core.engine.lifecycle import JobPreempted
+from repro_torch.launch import mesh as LM
+from repro_torch.launch import serve as L
+from repro_torch.models import blocks as B
+from repro_torch.models import model as M
+from repro_torch.serve import decode as D
+from repro_torch.sharding import rules as SR
+from repro_torch.sharding import spmd as S
+from repro_torch.train import compression as C
+from repro_torch.train import pipeline as PP
+from repro_torch.train import train_step as TS
+from repro_torch.train.checkpoints import CheckpointManager
+from repro_torch.train.fault import TrainSupervisor
+from repro_torch.train.optimizer import OptimizerConfig
+
+TCFG = TS.TrainConfig(remat="none", compute_dtype="float32")
+OCFG = OptimizerConfig(lr=1e-3, warmup_steps=2)
+GPIPE = (4, 8, 16, 12)          # stages, microbatches, batch, width
+PSUM_SHAPE = (5, 7)
+
+
+def spawn(group: str, world: int, outdir: Path, ref_path=None,
+          timeout: float = 300) -> tuple:
+    """Run ``world`` ranks of ``group`` as processes of this script, each
+    logging to OUTDIR/GROUP.RANK.log, within ``timeout`` s (then killed);
+    (npz, meta) of rank 0. Raises with the logs' tails if a rank failed."""
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here.parent / "src"))
+    env.setdefault("OMP_NUM_THREADS", "1")
+    store = outdir / f"{group}.store"
+    logs = [open(outdir / f"{group}.{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "torch_mesh_ranks.py"), group, str(r),
+         str(world), str(store), str(outdir)]
+        + ([str(ref_path)] if ref_path else []),
+        env=env, stdout=log, stderr=subprocess.STDOUT)
+        for r, log in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    if any(p.returncode for p in procs):
+        raise AssertionError("\n".join(
+            (outdir / f"{group}.{r}.log").read_text()[-3000:]
+            for r in range(world)))
+    return (np.load(outdir / f"{group}.npz"),
+            json.loads((outdir / f"{group}.json").read_text()))
+
+
+def unflatten(flat: dict) -> dict:
+    out = {}
+    for key, val in flat.items():
+        node = out
+        *head, last = key.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = val
+    return out
+
+
+def ref_tree(ref, prefix: str) -> dict:
+    n = len(prefix) + 1
+    return unflatten({k[n:]: ref[k] for k in ref.files
+                      if k.startswith(prefix + "/")})
+
+
+def full_np(t) -> np.ndarray:
+    return S.full_tensor(t).detach().cpu().float().numpy()
+
+
+def shapes_of(tree) -> dict:
+    return {k: list(v.to_local().shape) if hasattr(v, "to_local")
+            else list(v.shape) for k, v in convert.flatten(tree).items()}
+
+
+def gathered(obj):
+    """Every rank's ``obj``, in rank order."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def project(rank: int, root: Path):
+    """The lake at root, rank 0's (the others keep none)."""
+    return AcaiProject("mesh", root) if rank == 0 else None
+
+
+def moe_case(ref, case, mesh, shape, out, meta):
+    """The MoE block on ``mesh`` (None: the no-mesh branch) from the
+    reference's weights and x; the global y and aux to ``out``."""
+    cfg = JR.moe_config(case)
+    p = convert.from_numpy(ref_tree(ref, f"moe/{case}/params"))
+    x = torch.from_numpy(JR.moe_x(cfg))
+    key = f"moe/{case}/{'none' if mesh is None else f'{shape[0]}x{shape[1]}'}"
+    if mesh is None:
+        y, aux = B.moe_block(p, x, cfg)
+    else:
+        rules = SR.AxisRules.for_mesh(mesh)
+        tp = "model"
+        specs = SR._walk(p, lambda path, t: SR._leaf_spec(
+            ("moe", *path), t.dim(), cfg, tp))
+        local = S.map_tree(lambda t, s: S.shard_of(t, s, mesh), p, specs)
+        mc = S.MeshCtx(mesh, SR.batch_axis(rules, x.shape[0]) is not None)
+        y, aux = B.moe_block(local, S.dp_rows(x, mc), cfg, mesh=mc)
+        if mc.shards_batch:
+            y = S.all_gather(y, mc.data_group, 0)
+        meta.setdefault("moe_ep", {})[key] = bool(
+            mc.tp > 1 and cfg.moe.n_experts % mc.tp == 0)
+    out[f"{key}/y"] = y.detach().numpy()
+    out[f"{key}/aux"] = aux.detach().numpy()
+
+
+# ---------------------------------------------------------------------------
+# four ranks
+# ---------------------------------------------------------------------------
+
+FULL_SPECS = {"rows_data_model": (("data", "model"), None),
+              "cols_data_model": (None, ("data", "model")),
+              "rows_data_cols_model": ("data", "model")}
+
+
+def group_four(rank, world, dev, ref, outdir, out, meta):
+    mesh22 = LM.make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    mesh14 = LM.make_mesh((1, 4), ("data", "model"), device_type="cpu")
+
+    # compressed_psum: every rank's result, for the tests
+    x = np.random.default_rng(rank).standard_normal(PSUM_SHAPE).astype(
+        np.float32) * (rank + 1)
+    for kind in ("bf16", "int8"):
+        y = C.compressed_psum(torch.from_numpy(x), dist.group.WORLD, kind)
+        out[f"psum/{kind}"] = S.all_gather(y[None], dist.group.WORLD,
+                                           0).numpy()
+
+    # GPipe: 4 stages, this rank's stage of the stacked params
+    n_st, n_mb, b, w = GPIPE
+    rng = np.random.default_rng(11)
+    stacked = {"w": torch.from_numpy((rng.standard_normal(
+        (n_st, w, w)) / np.sqrt(w)).astype(np.float32)),
+        "b": torch.from_numpy(rng.standard_normal((n_st, w)).astype(
+            np.float32))}
+    xb = torch.from_numpy(rng.standard_normal((b, w)).astype(np.float32))
+    mine = {k: v[rank:rank + 1] for k, v in stacked.items()}
+    y = PP.pipeline_apply(lambda p, a: torch.tanh(a @ p["w"] + p["b"]),
+                          mine, xb, group=dist.group.WORLD,
+                          n_microbatches=n_mb)
+    out["gpipe/y"] = S.all_gather(y[None], dist.group.WORLD, 0).numpy()
+
+    # a global tensor under specs that shard one dim over both axes: this
+    # rank's shard, full_tensor's gather and DTensor's own
+    full = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
+    for name, spec in FULL_SPECS.items():
+        dt = S.distribute({"x": full}, {"x": spec}, mesh22)["x"]
+        for key, t in (("local", dt.to_local()), ("ours", S.full_tensor(dt)),
+                       ("dtensor", dt.full_tensor())):
+            out[f"full/{name}/{key}"] = S.all_gather(
+                t[None], dist.group.WORLD, 0).numpy()
+
+    # the sharded train step on (2, 2)
+    for arch in JR.TRAIN_ARCHS:
+        cfg = get_arch(arch).reduced()
+        params = convert.from_numpy(ref_tree(ref, f"train/{arch}/params"))
+        batches = JR.train_batches(cfg)
+        _, pspecs, ospecs = TS.sharded_specs(cfg, mesh22)
+        dp, opt = TS.shard_train_state(params, TCFG, pspecs, ospecs, mesh22)
+        metrics, grads, _ = TS.make_sharded_grad_fn(
+            cfg, TCFG, mesh22, device="cpu")(dp, batches[0])
+        out[f"train/{arch}/loss"] = metrics["loss"].numpy()
+        flat_p, flat_s = convert.flatten(params), convert.flatten(pspecs)
+        for k, g in convert.flatten(grads).items():
+            out[f"train/{arch}/grad/{k}"] = full_np(
+                S.from_local(g, flat_s[k], mesh22, flat_p[k].shape))
+        meta.setdefault("shapes", {})[arch] = gathered(
+            {"params": shapes_of(dp), "mu": shapes_of(opt["mu"]),
+             "coord": mesh22.get_coordinate()})
+        step = TS.make_sharded_train_step(cfg, TCFG, OCFG, mesh22,
+                                          device="cpu")
+        losses = []
+        for batch in batches:
+            dp, opt, m = step(dp, opt, batch)
+            losses.append(float(m["loss"]))
+        out[f"train/{arch}/steps"] = np.asarray(losses)
+        if rank == 0:       # the port's own one-device step
+            _, m1, g1 = TS.make_grad_fn(cfg, TCFG, device="cpu")(
+                params, {k: torch.as_tensor(v) for k, v in
+                         batches[0].items()})
+            out[f"one/{arch}/loss"] = m1["loss"].numpy()
+            for k, g in convert.flatten(g1).items():
+                out[f"one/{arch}/grad/{k}"] = g.numpy()
+            step1 = TS.make_train_step(cfg, TCFG, OCFG, device="cpu")
+            p1 = convert.from_numpy(ref_tree(ref, f"train/{arch}/params"))
+            o1 = TS.make_opt_state(p1, TCFG)
+            losses1 = []
+            for batch in batches:
+                p1, o1, m = step1(p1, o1, batch)
+                losses1.append(float(m["loss"]))
+            out[f"one/{arch}/steps"] = np.asarray(losses1)
+        if arch == "olmo-1b":   # saved on 4 ranks, restored by ``two``
+            ckpt = CheckpointManager(project(rank, outdir / "lake"), "mesh",
+                                     mesh=mesh22)
+            ckpt.save(3, dp, opt)
+            for k, t in convert.flatten({"params": dp, "opt": opt}).items():
+                out[f"saved/{k}"] = full_np(t)
+
+    for case in JR.MOE_CASES:
+        for shape, mesh in (((2, 2), mesh22), ((1, 4), mesh14)):
+            moe_case(ref, case, mesh, shape, out, meta)
+        if rank == 0:
+            moe_case(ref, case, None, None, out, meta)
+
+
+# ---------------------------------------------------------------------------
+# two ranks
+# ---------------------------------------------------------------------------
+
+SERVE_ARCHS = ("olmo-1b", "olmoe-1b-7b")
+SERVE_B, SERVE_S, SERVE_BUF = 2, 24, 32
+
+
+def serve_case(arch, mesh, dev, out):
+    """Sharded prefill, teacher-forced decode and the serving driver on
+    ``mesh`` (fp32), and the one-device port's on rank 0."""
+    cfg = get_arch(arch).reduced()
+    params = M.init_params(cfg, 0, device=dev)
+    _, pspecs, _ = TS.sharded_specs(cfg, mesh)
+    dparams = S.distribute(params, pspecs, mesh)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_S)))
+    f32 = torch.float32
+    runs = {"mesh": (D.make_sharded_prefill_step(
+        cfg, mesh, compute_dtype=f32, device=dev), D.make_sharded_serve_step(
+        cfg, mesh, SERVE_BUF, compute_dtype=f32, device=dev),
+        D.init_sharded_decode_state(cfg, mesh, SERVE_B, SERVE_BUF,
+                                    dtype=f32, device=dev), dparams)}
+    if dist.get_rank() == 0:
+        from repro_torch.models import transformer as T
+        runs["one"] = (D.make_prefill_step(cfg, compute_dtype=f32,
+                                           device=dev),
+                       D.make_serve_step(cfg, SERVE_BUF, compute_dtype=f32,
+                                         device=dev),
+                       T.init_decode_state(cfg, SERVE_B, SERVE_BUF,
+                                           dtype=f32, device=dev), params)
+    prompts = [toks[0, :9].tolist(), toks[1, :5].tolist(),
+               toks[0, 3:10].tolist()]
+    for name, (pre, step, states, p) in runs.items():
+        out[f"serve/{arch}/{name}/prefill"] = pre(p, {"tokens": toks}).numpy()
+        got = []
+        for i in range(SERVE_S):
+            cl = torch.full((SERVE_B,), i, dtype=torch.int32)
+            logits, states, _ = step(p, states, {"tokens": toks[:, i:i + 1],
+                                                 "cache_len": cl})
+            got.append(logits[:, 0])
+        out[f"serve/{arch}/{name}/decode"] = torch.stack(got, 1).numpy()
+        res = L.serve(cfg, p, prompts, slots=2, buf=SERVE_BUF, max_new=4,
+                      compute_dtype=f32, device=dev,
+                      mesh=mesh if name == "mesh" else None)
+        out[f"serve/{arch}/{name}/tokens"] = np.asarray(res.outputs)
+
+
+def group_two(rank, world, dev, ref, outdir, out, meta):
+    mesh12 = LM.make_mesh((1, 2), ("data", "model"), device_type="cpu")
+    mesh21 = LM.make_mesh((2, 1), ("data", "model"), device_type="cpu")
+    for case in JR.MOE_CASES:
+        moe_case(ref, case, mesh12, (1, 2), out, meta)
+    for arch in SERVE_ARCHS:
+        serve_case(arch, mesh12, dev, out)
+
+    # four's save (olmo-1b after 3 steps on (2, 2)) onto 2 ranks
+    cfg = get_arch("olmo-1b").reduced()
+    _, pspecs, ospecs = TS.sharded_specs(cfg, mesh12)
+    template = {"params": M.init_params(cfg, 0, device="cpu")}
+    template["opt"] = TS.make_opt_state(template["params"], TCFG)
+    ckpt = CheckpointManager(project(rank, outdir / "lake"), "mesh",
+                             mesh=mesh12)
+    state, step = ckpt.restore(template, mesh=mesh12,
+                               specs={"params": pspecs, "opt": ospecs})
+    specs = convert.flatten({"params": pspecs, "opt": ospecs})
+    local = {}
+    for k, t in convert.flatten(state).items():
+        local[k] = t.to_local() if hasattr(t, "to_local") else t
+        out[f"restored/{rank}/{k}"] = local[k].numpy()
+    meta["restored"] = gathered({
+        "step": step, "coord": mesh12.get_coordinate(),
+        "specs": {k: list(specs.get(k, ())) for k in local},
+        "shapes": {k: list(v.shape) for k, v in local.items()}})
+    for r in range(1, world):       # every rank's shards, to rank 0's file
+        for k in local:
+            got = S.broadcast(local[k], r, dist.group.WORLD)
+            if rank == 0:
+                out[f"restored/{r}/{k}"] = got.numpy()
+
+    # the step's options on (2, 1): int8 gradient compression with error
+    # feedback (residuals under the param specs), and bf16 params with fp32
+    # masters (under the moments' specs), against one device
+    for name, tc in (("int8", TS.TrainConfig(remat="none", compute_dtype=
+                                             "float32",
+                                             grad_compression="int8")),
+                     ("master", TS.TrainConfig(remat="none",
+                                               master_weights=True))):
+        full = M.init_params(cfg, 0, device="cpu")
+        if tc.master_weights:
+            full = M.cast_params(full, torch.bfloat16)
+        _, pspecs, ospecs = TS.sharded_specs(cfg, mesh21)
+        dp, opt = TS.shard_train_state(full, tc, pspecs, ospecs, mesh21)
+        step = TS.make_sharded_train_step(cfg, tc, OCFG, mesh21,
+                                          device="cpu")
+        one = TS.make_train_step(cfg, tc, OCFG, device="cpu")
+        p1 = M.init_params(cfg, 0, device="cpu")
+        if tc.master_weights:
+            p1 = M.cast_params(p1, torch.bfloat16)
+        o1 = TS.make_opt_state(p1, tc)
+        got, want = [], []
+        for batch in JR.train_batches(cfg):
+            dp, opt, m = step(dp, opt, batch)
+            got.append(float(m["loss"]))
+            p1, o1, m = one(p1, o1, batch)
+            want.append(float(m["loss"]))
+        out[f"options/{name}/mesh"] = np.asarray(got)
+        out[f"options/{name}/one"] = np.asarray(want)
+
+    # a supervised run on (2, 1) with a failure at step 3, and an unbroken one
+    pipe_batches = [JR.train_batches(cfg, 5)[i] for i in range(5)]
+    lake = project(rank, outdir / "sup")
+    for run, fail_at in (("broken", 3), ("unbroken", None)):
+        _, pspecs, ospecs = TS.sharded_specs(cfg, mesh21)
+        dp, opt = TS.shard_train_state(M.init_params(cfg, 0, device="cpu"),
+                                       TCFG, pspecs, ospecs, mesh21)
+        step_fn = TS.make_sharded_train_step(cfg, TCFG, OCFG, mesh21,
+                                             device="cpu")
+        fired = []
+
+        def hook(i, fail_at=fail_at, fired=fired):
+            if i == fail_at and not fired:
+                fired.append(i)
+                raise JobPreempted(f"injected at step {i}")
+
+        sup = TrainSupervisor(CheckpointManager(lake, run, mesh=mesh21),
+                              save_every=2)
+        state, report = sup.run(step_fn, {"params": dp, "opt": opt,
+                                          "step": 0}, 5,
+                                lambda i: pipe_batches[i], failure_hook=hook)
+        meta.setdefault("supervised", {})[run] = {
+            "restarts": report.restarts, "steps_run": report.steps_run,
+            "final_step": report.final_step}
+        for k, t in convert.flatten(state["params"]).items():
+            out[f"sup/{run}/{k}"] = full_np(t)
+
+
+# ---------------------------------------------------------------------------
+# two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def group_card(rank, world, dev, ref, outdir, out, meta):
+    import dataclasses
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    heads = {"flash": [], "decode": []}
+    for name, op in (("flash", "flash_attention"),
+                     ("decode", "decode_attention")):
+        orig = getattr(ops, op)
+
+        def seen(q, *a, orig=orig, name=name, **kw):
+            heads[name].append(int(q.shape[2]))     # q: (B, S, H, D)
+            return orig(q, *a, **kw)
+        setattr(ops, op, seen)
+    kernels = {"flash": fa.flash_attention_bhsd,
+               "decode": dec.decode_attention_bhd}
+    mesh = LM.make_mesh((1, 2), ("data", "model"), device_type="cuda")
+    cfg = dataclasses.replace(get_arch("olmo-1b"), n_layers=2)
+    params = M.init_params(cfg, 0, device="cpu")
+    _, pspecs, _ = TS.sharded_specs(cfg, mesh)
+    dparams = S.distribute(convert.from_numpy(convert.to_numpy(params),
+                                              device=dev), pspecs, mesh)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 128)))
+    f32 = torch.float32
+    pre = D.make_sharded_prefill_step(cfg, mesh, compute_dtype=f32,
+                                      device=dev)
+    counts = {name: k.launches for name, k in kernels.items()}
+    out["card/prefill"] = pre(dparams, {"tokens": toks}).cpu().numpy()
+    step = D.make_sharded_serve_step(cfg, mesh, 16, compute_dtype=f32,
+                                     device=dev)
+    states = D.init_sharded_decode_state(cfg, mesh, 2, 16, dtype=f32,
+                                         device=dev)
+    got = []
+    for i in range(8):
+        logits, states, _ = step(dparams, states, {
+            "tokens": toks[:, i:i + 1],
+            "cache_len": torch.full((2,), i, dtype=torch.int32)})
+        got.append(logits[:, 0].cpu())
+    out["card/decode"] = torch.stack(got, 1).numpy()
+    launches = {n: k.launches - counts[n] for n, k in kernels.items()}
+    meta["card"] = gathered({"launches": launches,
+                             "heads": {n: sorted(set(heads[n]))
+                                       for n in ("flash", "decode")}})
+    if rank == 0:       # the plain versions: the one-device port on the CPU
+        cpu = torch.device("cpu")
+        out["card/prefill_plain"] = D.make_prefill_step(
+            cfg, compute_dtype=f32, device=cpu)(params,
+                                                {"tokens": toks}).numpy()
+        from repro_torch.models import transformer as T
+        st1 = T.init_decode_state(cfg, 2, 16, dtype=f32, device=cpu)
+        step1 = D.make_serve_step(cfg, 16, compute_dtype=f32, device=cpu)
+        plain = []
+        for i in range(8):
+            logits, st1, _ = step1(params, st1, {
+                "tokens": toks[:, i:i + 1],
+                "cache_len": torch.full((2,), i, dtype=torch.int32)})
+            plain.append(logits[:, 0])
+        out["card/decode_plain"] = torch.stack(plain, 1).numpy()
+
+
+GROUPS = {"four": group_four, "two": group_two, "card": group_card}
+
+
+def main(argv):
+    group, rank, world, store, outdir = argv[:5]
+    rank, world, outdir = int(rank), int(world), Path(outdir)
+    ref = np.load(argv[5]) if len(argv) > 5 else None
+    torch.set_num_threads(1)
+    dev = LM.init_rank(rank, world, backend="gloo",
+                       device="cuda" if group == "card" else "cpu",
+                       init_method=f"file://{store}", timeout_s=240)
+    out, meta = {}, {"world": world}
+    try:
+        GROUPS[group](rank, world, dev, ref, outdir, out, meta)
+        if rank == 0:
+            np.savez(outdir / f"{group}.npz", **out)
+            (outdir / f"{group}.json").write_text(json.dumps(meta))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
