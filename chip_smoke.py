@@ -37,7 +37,15 @@ their shapes here, in phase 3):
    none for WKV6 or SSD), that call, at the serving paths' shapes (flash
    also at zamba2-7b's, llama4-scout's, musicgen-large's and
    llama-3.2-vision-11b's prefill shapes), beside the card's bound (the
-   bounds' arithmetic is the autotuner's ``KernelSpec.cost``); then the
+   bounds' arithmetic is the autotuner's ``KernelSpec.cost``); flash and
+   decode at a rank's 8 of olmo-1b's 16 heads (phase 10's), flash (bf16
+   4x2048) and decode (fp32, phase 11's ticks) at a rank's heads of
+   zamba2-7b's shared block (16 of 32 of 112), llama-3.2-vision-11b (16
+   on 4 kv of 128) and musicgen-large (16 of 32 of 64), all phase 11's
+   (``mesh_kernel_times``), WKV6 at a rank's 32 of rwkv6-7b's 64 heads and
+   SSD at 56 of zamba2-7b's 112 (phase 11's, ``scan_kernel_times``),
+   each held against its plain version at ``TOL`` of its dtype and timed
+   beside its plain version, SDPA where it applies, and its bound; then the
    autotuner's knobs (5–20 s): each bf16 chunked WKV6 and SSD
    instance's registers, spills, shared memory and CTAs per SM; every rung
    of each kernel's knob (flash's ``group``, decode's ``split``, WKV6's
@@ -63,7 +71,7 @@ their shapes here, in phase 3):
    Mamba-2 layers and the shared block, and 3 trailing; Mamba-2 SSD, and
    flash and decode attention at head dim 112 in the shared block),
    olmoe-1b-7b (64 experts, top-8,
-   all 16 layers; flash and decode attention) and llama4-scout at 2 of its
+   8 of its 16 layers; flash and decode attention) and llama4-scout at 2 of its
    48 layers (16 experts, top-1 and a shared expert; flash and decode
    attention at GQA 40:8). Each runs the prefill step on 4
    prompts of 2048 tokens (three calls, the first a warm-up), then the
@@ -202,9 +210,8 @@ their shapes here, in phase 3):
    full, 3 steps of 4x2048) against the one-device step; gate: each loss
    within 1e-4 relative. (2) Two spawned ranks on gloo, mesh (1, 2):
    olmo-1b at full width and depth in bf16, three 4x2048 prefills (16
-   flash launches a rank a call, each at 8 of the 16 heads) and 4 of
-   phase 5's requests served (its last 4, the shortest; 16 decode launches
-   a rank a tick, at 8 heads); gates: the launch counts and head counts, the prefill logits
+   flash launches a rank a call, each at 8 of the 16 heads) and
+   MESH_REQUESTS (2) of phase 5's requests served (the shortest; 16 decode launches a rank a tick, at 8 heads); gates: the launch counts and head counts, the prefill logits
    within 5e-2 of the one-device bf16 prefill's range, each request's
    served logits within 5e-2 of its sharded prefill's range; at 2 layers
    in fp32 the sharded prefill within 1e-3 of the one-device prefill's
@@ -225,6 +232,33 @@ their shapes here, in phase 3):
    which gloo collectives took CUDA tensors, every gate's reading and
    limit); the prefill and serving launches of (2) count in the kernel
    table's main-path launches.
+11. mesh families (the recurrent, hybrid, VLM and audio layouts on a
+   ``DeviceMesh``; budget 120 s): two spawned gloo ranks sharing the card,
+   mesh (1, 2), each model of MESH_FAMILIES at full width and cut depth
+   from seeded weights (rwkv6-7b 2 of 32 layers, zamba2-7b one period of
+   5 Mamba-2 layers and the shared block, llama-3.2-vision-11b one period
+   of 4 dense and 1 cross-attention layer with 4 seeded vision states of
+   1601 x 1280, musicgen-large 4 of 48 layers over 4 codebooks), freed in
+   turn. Rank 0 runs the one-device port first, then both ranks the
+   sharded steps. Gates (rank 0): a fp32 4x512 prefill within 1e-3 of the
+   one-device prefill's range; 16 fp32 teacher-forced serving ticks of
+   the sharded serve step (its decode state built by
+   ``init_sharded_decode_state``: the rank's heads of the wkv and SSM
+   states, an even share of the conv state's channels, the VLM's vision
+   K/V whole) within 1e-3 of the one-device ticks' range; zamba2-7b's
+   fp32 4x512 train step's loss within 1e-4 relative of the one-device
+   step's; a bf16 4x2048 prefill (two calls, the first a warm-up) within
+   5e-2 of the one-device bf16 prefill's range, or twice the model's own
+   bf16 rounding error (the one-device bf16 prefill against its fp32
+   prefill) where that is larger, as phase 5 rules. Gates (each rank):
+   the launches of a bf16 prefill call, WKV6 2, SSD 5 and flash 1, flash
+   4 and flash 4 (the VLM's cross-attention runs none), each launch at
+   the rank's heads (32 of 64, 56 and 16 of 112 and 32, 16 of 32, 16 of
+   32). It prints a ``mesh_families:`` JSON line (each rank's ms per
+   sharded and one-device prefill and tick, its peak memory during the
+   sharded bf16 prefill and in the phase, launches, heads, every gate's
+   reading and limit, the phase's seconds); the bf16 prefill launches
+   count in the kernel table's main-path launches.
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -357,20 +391,29 @@ DURABLE_REQUESTS = 4
 # per model: slots, cache buffer, requests, new tokens each, prompt lengths;
 # SLICE_LAYERS cuts a model's depth (llama4-scout's 48 layers take 215 GB
 # in bf16; 2 layers, 6.47 B params, take 12.9 GB; zamba2-7b's 81 layers
-# took 99-105 s of the script's 1200 s limit, 39 keep its layout)
+# took 99-105 s of the script's 1200 s limit, 39 keep its layout;
+# olmoe-1b-7b's 16 layers took 81-115 s, so 8 run)
 SLICES = {"olmo-1b": (4, 1024, 8, 32, (128, 512)),
           "rwkv6-7b": (4, 512, 8, 16, (64, 256)),
           "zamba2-7b": (4, 512, 8, 16, (64, 256)),
           "olmoe-1b-7b": (4, 1024, 8, 32, (128, 512)),
           "llama4-scout-17b-a16e": (4, 256, 4, 16, (64, 128))}
-SLICE_LAYERS = {"llama4-scout-17b-a16e": 2, "zamba2-7b": 39}
+SLICE_LAYERS = {"llama4-scout-17b-a16e": 2, "zamba2-7b": 39,
+                "olmoe-1b-7b": 8}
 # the mesh phase: olmo-1b's layers and steps in its train steps, its layers
 # in the fp32 serving check, olmoe-1b-7b's layers and prefill batch, and
 # how many of phase 5's olmo-1b requests the two ranks serve
 MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 3
 MESH_FP32_LAYERS = 2
 MESH_MOE_LAYERS, MESH_MOE_BATCH = 2, (4, 512)
-MESH_REQUESTS = 4
+MESH_REQUESTS = 2
+# phase 11: each family at full width and cut depth on a (1, 2) mesh (its
+# layers), the fp32 prefill batch and ticks, and the phase's time budget
+MESH_FAMILIES = {"rwkv6-7b": 2, "zamba2-7b": 6, "llama-3.2-vision-11b": 5,
+                 "musicgen-large": 4}
+MESH_FAMILY_FP32 = (4, 512)
+MESH_FAMILY_TICKS = 16
+MESH_FAMILIES_BUDGET_S = 120
 
 
 T0 = time.perf_counter()
@@ -730,11 +773,24 @@ def main() -> int:
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
     del flush
     torch.cuda.empty_cache()
-    at_rank = mesh_kernel_times(dev)["kernels_at_8_heads"]
+    at_ranks = mesh_kernel_times(dev)
+    at_rank = at_ranks["kernels_at_8_heads"]
     flash_row["at_olmo_1b_8_of_16_heads"] = at_rank["flash"]
     decode_row["at_olmo_1b_8_of_16_heads"] = at_rank["decode"]
     log("kernels: flash and decode at a rank's share of olmo-1b's heads "
         f"(8 of 16; phase 10): {json.dumps(at_rank)} [{card}]")
+    for arch, got in at_ranks["kernels_at_family_ranks"].items():
+        key = f"at_{arch.replace('-', '_').replace('.', '_')}_rank"
+        flash_row[key], decode_row[key] = got["flash"], got["decode"]
+    log("kernels: flash (bf16 prefill) and decode (fp32 ticks) at a rank's "
+        "share of the heads of phase 11's attention models: "
+        f"{json.dumps(at_ranks['kernels_at_family_ranks'])} [{card}]")
+    scans = scan_kernel_times(dev)
+    wkv_row["at_rwkv6_7b_32_of_64_heads"] = scans["wkv6"]
+    ssd_row["at_zamba2_7b_56_of_112_heads"] = scans["mamba2_ssd"]
+    log("kernels: WKV6 and SSD at a rank's share of rwkv6-7b's and "
+        f"zamba2-7b's heads (32 of 64, 56 of 112; phase 11): "
+        f"{json.dumps(scans)} [{card}]")
     phase("3. kernels: autotune")
     run_autotune(card, dev)
     free()
@@ -840,6 +896,14 @@ def main() -> int:
         for name, n in rank["launches"].items():
             totals[name] += n
     log("mesh: " + json.dumps(mesh))
+
+    # -- 11. the recurrent, hybrid, VLM and audio layouts on a mesh -----------
+    phase("11. mesh families")
+    families = run_mesh_families(card, dev)
+    for rank in families["ranks"]:
+        for name, n in rank["launches"].items():
+            totals[name] += n
+    log("mesh_families: " + json.dumps(families))
 
     for row in rows:
         row["launches"] = totals[row["name"]]
@@ -2909,10 +2973,16 @@ def finish_gloo_cuda_probe(procs: dict) -> dict:
 
 
 def mesh_kernel_times(dev) -> dict:
-    """The flash and decode kernels at a rank's share of olmo-1b's heads
-    (8 of 16, head dim 128, bf16): flash at a 4x2048 causal prefill, decode
-    at 4 slots of a 1024 buffer with seeded lengths. Each wrapper is held
-    against its plain version on the same inputs (``TOL["bfloat16"]``,
+    """The flash and decode kernels at a rank's share of the heads on a model
+    axis of 2. ``kernels_at_8_heads``: olmo-1b's 8 of 16 heads of 128 (phase
+    10), flash at a bf16 4x2048 causal prefill, decode at bf16 4 slots of a
+    1024 buffer with seeded lengths. ``kernels_at_family_ranks``: the
+    shapes phase 11 gives them, per model of MESH_FAMILIES that runs
+    attention (zamba2-7b's shared block 16 of 32 heads of 112,
+    llama-3.2-vision-11b's self-attention 16 on 4 kv of 128, musicgen-large
+    16 of 32 of 64): flash at its bf16 4x2048 prefill, decode at its fp32
+    ticks (4 slots of a MESH_FAMILY_TICKS buffer). Each wrapper is held
+    against its plain version on the same inputs (``TOL`` of the dtype,
     tests/test_kernels.py's allclose; it raises above it), then timed with
     L2 flushed beside its plain version, SDPA on the same inputs, and the
     bound of the same work from ``KernelSpec.cost`` (the kernel table's)."""
@@ -2920,19 +2990,144 @@ def mesh_kernel_times(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs.base import get_arch
     from repro_torch.core.provision import autotune as AT
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     if dev.type != "cuda":
-        return {"kernels_at_8_heads": "not measured (no card)"}
+        return {"kernels_at_8_heads": "not measured (no card)",
+                "kernels_at_family_ranks": "not measured (no card)"}
     flush = l2_flush_buffer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    rtol, atol = TOL["bfloat16"]
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(
-            torch.bfloat16)
+    def randn(*shape, dtype="bfloat16"):
+        return torch.randn(shape, generator=gen, device=dev).to(dtypes[dtype])
+
+    def check(name, got, want, dtype):
+        torch.cuda.synchronize()
+        rtol, atol = TOL[dtype]
+        got, want = got.float(), want.float()
+        err = (got - want).abs().max().item()
+        if not (bool(torch.isfinite(got).all())
+                and torch.allclose(got, want, rtol=rtol, atol=atol)):
+            raise AssertionError(
+                f"{name} at a rank's heads disagrees with its plain version: "
+                f"max_abs_err {err:.3e} (rtol=atol={atol}, {dtype})")
+        return err
+
+    def bound(flops, nbytes, dtype):
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+        return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    def flash_at(h, kv, d):
+        """bf16, causal, (PREFILL_BATCH, PREFILL_LEN, H, D) queries."""
+        b, s = PREFILL_BATCH, PREFILL_LEN
+        q, k, v = randn(b, s, h, d), randn(b, s, kv, d), randn(b, s, kv, d)
+        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        row = {
+            "shape": [b, s, h, kv, d], "dtype": "bfloat16",
+            "max_abs_err": check(
+                f"flash_attention h={h} kv={kv} d={d}",
+                ops.flash_attention(q, k, v),
+                fa.flash_attention_plain(qh, kh, vh).permute(0, 2, 1, 3),
+                "bfloat16"),
+            "tol": TOL["bfloat16"][1],
+            "ms": flushed_ms(lambda: ops.flash_attention(q, k, v), 10, flush),
+            "plain_ms": flushed_ms(
+                lambda: fa.flash_attention_plain(qh, kh, vh), 10, flush),
+            "library_ms": flushed_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=h != kv), 10, flush),
+            **bound(*AT.KERNELS["flash_attention"].cost(
+                {"b": b, "s": s, "h": h, "kv": kv, "d": d,
+                 "dtype": "bfloat16"}), "bfloat16")}
+        del q, k, v, qh, kh, vh
+        return row
+
+    def decode_at(h, kv, d, buf, dtype, iters):
+        """4 slots of a BUF-long cache with seeded lengths in [1, BUF]."""
+        qd = randn(4, 1, h, d, dtype=dtype)
+        kc, vc = randn(4, buf, kv, d, dtype=dtype), \
+            randn(4, buf, kv, d, dtype=dtype)
+        lens = torch.from_numpy(np.random.default_rng(0).integers(
+            1, buf + 1, 4).astype(np.int32)).to(dev)
+        kh, vh = (t.permute(0, 2, 1, 3) for t in (kc, vc))
+        qh = qd.permute(0, 2, 1, 3)                            # (B, H, 1, D)
+        mask = (torch.arange(buf, device=dev)[None, :]
+                < lens[:, None].long())[:, None, None, :]
+        row = {
+            "shape": [4, buf, h, kv, d], "dtype": dtype,
+            "cache_len": lens.tolist(),
+            "max_abs_err": check(
+                f"decode_attention h={h} kv={kv} d={d} buffer {buf}",
+                ops.decode_attention(qd, kc, vc, lens)[:, 0],
+                dec.decode_attention_plain(qd[:, 0], kh, vh, lens), dtype),
+            "tol": TOL[dtype][1],
+            "ms": flushed_ms(lambda: ops.decode_attention(qd, kc, vc, lens),
+                             iters, flush),
+            "plain_ms": flushed_ms(lambda: dec.decode_attention_plain(
+                qd[:, 0], kh, vh, lens), iters, flush),
+            "library_ms": flushed_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=h != kv), iters,
+                flush),
+            **bound(*AT.KERNELS["decode_attention"].cost(
+                {"b": 4, "s": buf, "h": h, "kv": kv, "d": d, "dtype": dtype},
+                valid=int(lens.sum())), dtype)}
+        del qd, kc, vc, qh, kh, vh, mask
+        return row
+
+    out = {"kernels_at_8_heads": {"flash": flash_at(8, 8, 128),
+                                  "decode": decode_at(8, 8, 128, 1024,
+                                                      "bfloat16", 50)},
+           "kernels_at_family_ranks": {}}
+    for arch in MESH_FAMILIES:
+        cfg = get_arch(arch)
+        if cfg.family == "ssm":                  # rwkv6-7b: no attention
+            continue
+        h, kv, d = cfg.n_heads // 2, cfg.n_kv_heads // 2, \
+            cfg.resolved_head_dim
+        out["kernels_at_family_ranks"][arch] = {
+            "of_heads": cfg.n_heads,
+            "flash": flash_at(h, kv, d),
+            "decode": decode_at(h, kv, d, MESH_FAMILY_TICKS, "float32", 50)}
+    del flush
+    free()
+    return out
+
+
+def scan_kernel_times(dev) -> dict:
+    """The WKV6 and SSD kernels at a rank's share of the heads on a model
+    axis of 2 (phase 11's): WKV6 at rwkv6-7b's 32 of 64 heads of 64, SSD at
+    zamba2-7b's 56 of 112 heads (P 64, N 64, one group), both bf16 at a
+    4x2048 prefill, on the layouts a rank's block hands them (r, k, v and
+    the fp32 log decays each a (B, S, 32 * 64) projection; x a
+    (B, S, 56 * 64) projection, dt (B, S, 56) fp32, B and C the two halves
+    of one (B, S, 2 N) projection, as ``mamba_block`` slices them). Each
+    wrapper is held against its plain version on the same inputs
+    (``TOL["bfloat16"]``, tests/test_kernels.py's allclose; it raises above
+    it), then timed with L2 flushed beside its plain version and the bound
+    of the same work from ``KernelSpec.cost`` (the kernel table's); no
+    single PyTorch call computes either scan."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.provision import autotune as AT
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import wkv6 as wkv
+    if dev.type != "cuda":
+        return {"wkv6": "not measured (no card)",
+                "mamba2_ssd": "not measured (no card)"}
+    flush = l2_flush_buffer(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rtol, atol = TOL["bfloat16"]
+    b, s = PREFILL_BATCH, PREFILL_LEN
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
 
     def check(name, got, want):
         torch.cuda.synchronize()
@@ -2941,7 +3136,7 @@ def mesh_kernel_times(dev) -> dict:
         if not (bool(torch.isfinite(got).all())
                 and torch.allclose(got, want, rtol=rtol, atol=atol)):
             raise AssertionError(
-                f"{name} at 8 heads disagrees with its plain version: "
+                f"{name} at a rank's heads disagrees with its plain version: "
                 f"max_abs_err {err:.3e} (rtol=atol={atol})")
         return err
 
@@ -2951,51 +3146,51 @@ def mesh_kernel_times(dev) -> dict:
         return {"bound_ms": max(t_ops, t_bytes) * 1e3,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
-    b, s, h, d, buf = PREFILL_BATCH, PREFILL_LEN, 8, 128, 1024
-    q, k, v = randn(b, s, h, d), randn(b, s, h, d), randn(b, s, h, d)
-    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
-    flash = {
-        "shape": [b, s, h, h, d],
-        "max_abs_err": check("flash_attention", ops.flash_attention(q, k, v),
-                             fa.flash_attention_plain(qh, kh, vh).permute(
-                                 0, 2, 1, 3)),
+    h, k = 32, 64
+    r, kk, v = (randn(b, s, h * k, scale=0.5).view(b, s, h, k)
+                for _ in range(3))
+    logw = -torch.exp(-7.0 + 6.3 * torch.rand((b, s, h * k), generator=gen,
+                                              device=dev)).view(b, s, h, k)
+    u = randn(h, k, scale=0.3, dtype=torch.float32)
+    bhsk = [t.permute(0, 2, 1, 3) for t in (r, kk, v, logw)]
+    out = {"wkv6": {
+        "shape": [b, s, h, k], "of_heads": 64,
+        "max_abs_err": check("wkv6", ops.wkv6(r, kk, v, logw, u),
+                             wkv.wkv6_plain(*bhsk, u).permute(0, 2, 1, 3)),
         "tol": atol,
-        "ms": flushed_ms(lambda: ops.flash_attention(q, k, v), 10, flush),
-        "plain_ms": flushed_ms(lambda: fa.flash_attention_plain(qh, kh, vh),
-                               10, flush),
-        "library_ms": flushed_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), 10, flush),
-        **bound(*AT.KERNELS["flash_attention"].cost(
-            {"b": b, "s": s, "h": h, "kv": h, "d": d,
-             "dtype": "bfloat16"}))}
-    del q, k, v, qh, kh, vh
+        "ms": flushed_ms(lambda: ops.wkv6(r, kk, v, logw, u), 10, flush,
+                         per_call=1),
+        "plain_ms": flushed_ms(lambda: wkv.wkv6_plain(*bhsk, u), 3, flush),
+        "library_ms": None,
+        **bound(*AT.KERNELS["rwkv6"].cost(
+            {"b": b, "s": s, "h": h, "k": k, "dtype": "bfloat16"}))}}
+    del r, kk, v, logw, u, bhsk
 
-    qd, kc, vc = randn(4, 1, h, d), randn(4, buf, h, d), randn(4, buf, h, d)
-    lens = torch.from_numpy(np.random.default_rng(0).integers(
-        1, buf, 4).astype(np.int32)).to(dev)
-    kh, vh = (t.permute(0, 2, 1, 3) for t in (kc, vc))
-    qh = qd.permute(0, 2, 1, 3)                                # (B, H, 1, D)
-    mask = (torch.arange(buf, device=dev)[None, :] < lens[:, None].long()
-            )[:, None, None, :]
-    decode = {
-        "shape": [4, buf, h, h, d], "cache_len": lens.tolist(),
-        "max_abs_err": check("decode_attention",
-                             ops.decode_attention(qd, kc, vc, lens)[:, 0],
-                             dec.decode_attention_plain(qd[:, 0], kh, vh,
-                                                        lens)),
+    h, p, n = 56, 64, 64
+    x = randn(b, s, h * p, scale=0.5).view(b, s, h, p)
+    dtv = F.softplus(randn(b, s, h, dtype=torch.float32) - 1.0)
+    A = -torch.exp(randn(h, scale=0.3, dtype=torch.float32))
+    bc = randn(b, s, 2 * n, scale=0.5)
+    Bm, Cm = bc[..., :n].view(b, s, 1, n), bc[..., n:].view(b, s, 1, n)
+    Dv = torch.ones(h, device=dev)
+    args = (x, dtv, A, Bm, Cm, Dv)
+    plain = (x.permute(0, 2, 1, 3), dtv.permute(0, 2, 1), A,
+             Bm.permute(0, 2, 1, 3), Cm.permute(0, 2, 1, 3), Dv)
+    out["mamba2_ssd"] = {
+        "shape": [b, s, h, p, 1, n], "of_heads": 112,
+        "max_abs_err": check("mamba2_ssd", ops.mamba2_ssd(*args),
+                             ssd.ssd_plain(*plain).permute(0, 2, 1, 3)),
         "tol": atol,
-        "ms": flushed_ms(lambda: ops.decode_attention(qd, kc, vc, lens), 50,
-                         flush),
-        "plain_ms": flushed_ms(lambda: dec.decode_attention_plain(
-            qd[:, 0], kh, vh, lens), 50, flush),
-        "library_ms": flushed_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask), 50, flush),
-        **bound(*AT.KERNELS["decode_attention"].cost(
-            {"b": 4, "s": buf, "h": h, "kv": h, "d": d, "dtype": "bfloat16"},
-            valid=int(lens.sum())))}
-    del qd, kc, vc, qh, kh, vh, mask, flush
+        "ms": flushed_ms(lambda: ops.mamba2_ssd(*args), 10, flush,
+                         per_call=1),
+        "plain_ms": flushed_ms(lambda: ssd.ssd_plain(*plain), 3, flush),
+        "library_ms": None,
+        **bound(*AT.KERNELS["mamba2_ssd"].cost(
+            {"b": b, "s": s, "h": h, "p": p, "n": n, "g": 1,
+             "dtype": "bfloat16"}))}
+    del x, dtv, A, bc, Bm, Cm, Dv, args, plain, flush
     free()
-    return {"kernels_at_8_heads": {"flash": flash, "decode": decode}}
+    return out
 
 
 def _mesh_rank(rank: int, world: int, part: str, outdir: str,
@@ -3075,9 +3270,10 @@ def _mesh_tp(rank: int, dev) -> dict:
         _sync(dev)
         ms.append(1e3 * (time.perf_counter() - t0))
     flash = counters["flash_attention"].launches
-    # the last 4 of phase 5's 8 requests: the 4 shortest (387 ticks, not
-    # the first 4's 511; the ranks' ticks take 112 ms on one card)
-    prompts = slice_prompts(cfg, SLICES["olmo-1b"])[-MESH_REQUESTS:]
+    # the MESH_REQUESTS shortest of phase 5's 8 requests (162 and 221
+    # tokens: 252 ticks; the ranks' ticks take about 112 ms on one card)
+    prompts = sorted(slice_prompts(cfg, SLICES["olmo-1b"]),
+                     key=len)[:MESH_REQUESTS]
     slots, buf, _, max_new, _ = SLICES["olmo-1b"]
     served = L.serve(cfg, params, prompts, slots=slots, buf=buf,
                      max_new=max_new, device=dev, mesh=mesh)
@@ -3203,6 +3399,236 @@ def _mesh_fsdp(rank: int, dev) -> dict:
     res = _mesh_steps(step, params, opt, batches, dev)
     res["local_gb"] = shard_gb
     return res
+
+
+def run_mesh_families(card, dev) -> dict:
+    """Phase 11 (see the module docstring): two spawned gloo ranks on the
+    card, mesh (1, 2), each writing its readings to a file that this
+    process reads and gates."""
+    import tempfile
+
+    from repro_torch.launch import mesh as LM
+    t0 = time.perf_counter()
+    out = {"card": card, "gates": {}}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        LM.run_ranks(_families_rank, 2, (tmp, "tcp://localhost:"
+                                         f"{LM.free_port()}", dev.type))
+        ranks = [json.loads(Path(tmp, f"families.{r}.json").read_text())
+                 for r in range(2)]
+    for r, rank in enumerate(ranks):
+        for name, (value, limit) in rank["gates"].items():
+            out["gates"][f"rank {r} {name}"] = [value, limit]
+            if not value <= limit:
+                raise AssertionError(f"mesh families: rank {r} {name} "
+                                     f"{value:.3e} > {limit:.3e}")
+    out["ranks"] = ranks
+    out["seconds"] = time.perf_counter() - t0
+    out["budget_s"] = MESH_FAMILIES_BUDGET_S
+    return out
+
+
+def _families_rank(rank: int, world: int, outdir: str, init_method: str,
+                   device: str) -> None:
+    """One of phase 11's two gloo ranks on the card; its readings to
+    OUTDIR/families.RANK.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as LM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = LM.init_rank(rank, world, backend="gloo", device=device,
+                       init_method=init_method)
+    try:
+        _reset_peak(dev)
+        res = _mesh_families(rank, dev)
+        res["rank"] = rank
+        Path(outdir, f"families.{rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_families(rank: int, dev) -> dict:
+    """Each of MESH_FAMILIES at full width and cut depth on a (1, 2) mesh,
+    against the one-device port on rank 0: fp32 then bf16 (the weights are
+    cast in place between), the one-device runs before the sharded ones so
+    that each sharded run's peak holds this rank's shards alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import decode as D
+    from repro_torch.sharding import spmd as S
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    mesh = LM.make_mesh((1, 2), ("data", "model"), device_type=dev.type)
+    counters = launch_counters()
+    heads = {}
+    for name in counters:                # the heads each launch sees
+        orig = getattr(ops, name)
+
+        def seen(q, *a, orig=orig, name=name, **kw):
+            heads.setdefault(name, set()).add(int(q.shape[2]))  # (B, S, H, .)
+            return orig(q, *a, **kw)
+        setattr(ops, name, seen)
+    f32, b16 = torch.float32, torch.bfloat16
+    res, gates, launches = {"models": {}}, {}, dict.fromkeys(counters, 0)
+    peak = 0.0                        # the phase's, across the resets below
+
+    def timed(fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = fn()
+        _sync(dev)
+        return got, 1e3 * (time.perf_counter() - t0)
+
+    def ticks(step, params, states, batch):
+        """MESH_FAMILY_TICKS teacher-forced ticks of ``batch``'s tokens:
+        (logits (B, T, ...), ms a tick)."""
+        got, ms = [], []
+        for i in range(MESH_FAMILY_TICKS):
+            cl = torch.full((batch["tokens"].shape[0],), i,
+                            dtype=torch.int32)
+            (logits, states, _), t = timed(lambda: step(params, states, {
+                **batch, "tokens": batch["tokens"][:, i:i + 1],
+                "cache_len": cl}))
+            got.append(logits[:, 0].float().cpu())
+            ms.append(t)
+        return torch.stack(got, 1), ms
+
+    for arch, layers in MESH_FAMILIES.items():
+        start = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        per_call, _ = launches_per_call(cfg)
+        rng = np.random.default_rng(40)
+        small = model_batch(cfg, rng, *MESH_FAMILY_FP32)
+        large = model_batch(cfg, rng, PREFILL_BATCH, PREFILL_LEN)
+        vision = small.get("vision")
+        one = rank == 0
+        row, want = {"layers": layers}, {}
+        full = weights(cfg, dev)                          # fp32
+        _, pspecs, _ = TS.sharded_specs(cfg, mesh)
+
+        # fp32: the one-device runs on rank 0, then the sharded ones
+        if one:
+            want["p32"], row["one_prefill32_ms"] = timed(
+                lambda: D.make_prefill_step(cfg, compute_dtype=f32,
+                                            device=dev)(full, small))
+            want["ticks"], tick_ms = ticks(
+                D.make_serve_step(cfg, MESH_FAMILY_TICKS, compute_dtype=f32,
+                                  device=dev), full, T.init_decode_state(
+                    cfg, PREFILL_BATCH, MESH_FAMILY_TICKS, dtype=f32,
+                    device=dev, vision=vision, params=full), small)
+            row["one_tick32_ms"] = sum(tick_ms[1:]) / len(tick_ms[1:])
+            want["l32"] = D.make_prefill_step(
+                cfg, compute_dtype=f32, device=dev)(full, large).float().cpu()
+            free()
+        params = S.distribute(full, pspecs, mesh)
+        got32, row["prefill32_ms"] = timed(lambda: D.make_sharded_prefill_step(
+            cfg, mesh, compute_dtype=f32, device=dev)(params, small))
+        got_ticks, tick_ms = ticks(
+            D.make_sharded_serve_step(cfg, mesh, MESH_FAMILY_TICKS,
+                                      compute_dtype=f32, device=dev),
+            params, D.init_sharded_decode_state(
+                cfg, mesh, PREFILL_BATCH, MESH_FAMILY_TICKS, dtype=f32,
+                device=dev, vision=vision, params=params), small)
+        row["tick32_ms"] = sum(tick_ms[1:]) / len(tick_ms[1:])
+        if one:
+            gates[f"{arch} prefill (fp32, 4x512) against one device"] = [
+                _range_err(got32, want["p32"]), 1e-3]
+            gates[f"{arch} {MESH_FAMILY_TICKS} ticks (fp32) against one "
+                  "device"] = [_range_err(got_ticks, want["ticks"]), 1e-3]
+        del params, got32, got_ticks
+        free()
+        if cfg.family == "hybrid":        # one fp32 train step
+            tcfg = TS.TrainConfig(remat="full", compute_dtype="float32")
+            ocfg = OptimizerConfig(lr=1e-3, warmup_steps=2)
+            toks = small["tokens"]
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            if one:
+                p1 = _to(full, dev)
+                _, _, m = TS.make_train_step(cfg, tcfg, ocfg, device=dev)(
+                    p1, TS.make_opt_state(p1, tcfg), batch)
+                want["train"] = float(m["loss"])
+                del p1, m
+                free()
+            specs = TS.sharded_specs(cfg, mesh)
+            dp, opt = TS.shard_train_state(full, tcfg, *specs[1:], mesh)
+            (_, _, m), row["train_step_ms"] = timed(
+                lambda: TS.make_sharded_train_step(
+                    cfg, tcfg, ocfg, mesh, device=dev, specs=specs)(
+                    dp, opt, batch))
+            row["train_loss"] = float(m["loss"])
+            if one:
+                gates[f"{arch} train step loss (fp32, 4x512), relative"] = [
+                    abs(row["train_loss"] - want["train"])
+                    / abs(want["train"]), 1e-4]
+            del dp, opt, m
+            free()
+
+        # bf16 at 4x2048: the one-device prefill, then two sharded calls
+        M.cast_params(full, b16)
+        if one:
+            want["l16"], row["one_prefill16_ms"] = timed(
+                lambda: D.make_prefill_step(cfg, device=dev)(
+                    full, large).float().cpu())
+        params = S.distribute(full, pspecs, mesh)
+        del full
+        free()
+        peak = max(peak, _peak_gb(dev))
+        _reset_peak(dev)
+        prefill = D.make_sharded_prefill_step(cfg, mesh, device=dev)
+        for c in counters.values():
+            c.launches = 0
+        heads.clear()
+        ms = []
+        for _ in range(2):                 # the first call warms up
+            got16, t = timed(lambda: prefill(params, large))
+            ms.append(t)
+        row["prefill16_ms"] = ms
+        row["prefill16_peak_gb"] = _peak_gb(dev)
+        row["launches"] = {k: c.launches for k, c in counters.items()}
+        row["heads"] = {k: sorted(v) for k, v in heads.items()}
+        for k, n in row["launches"].items():
+            launches[k] += n
+        want_heads = {k: [_rank_heads(cfg, k)] for k in per_call}
+        gates[f"{arch} launches a bf16 prefill call"] = [sum(
+            abs(row["launches"][k] / 2 - per_call.get(k, 0))
+            for k in counters), 0]
+        gates[f"{arch} heads a launch (0 = the rank's)"] = [
+            0 if row["heads"] == want_heads else 1, 0]
+        if not bool(torch.isfinite(got16).all()):
+            raise AssertionError(f"{arch}: non-finite sharded bf16 logits")
+        if one:
+            err = (got16.float().cpu() - want["l16"]).abs().max().item()
+            rounding = (want["l16"] - want["l32"]).abs().max().item()
+            span = (want["l16"].max() - want["l16"].min()).item()
+            row["bf16_rounding_error"] = rounding
+            gates[f"{arch} prefill (bf16, 4x2048) against one device"] = [
+                err, max(5e-2 * span, 2 * rounding)]
+        del params, prefill, got16, want
+        free()
+        row["seconds"] = time.perf_counter() - start
+        res["models"][arch] = row
+    res["launches"] = launches
+    res["gates"] = gates
+    res["peak_gb"] = max(peak, _peak_gb(dev))
+    return res
+
+
+def _rank_heads(cfg, kernel: str) -> int:
+    """The heads a kernel launch sees on a rank of a model axis of 2."""
+    if kernel == "wkv6":
+        return cfg.d_model // cfg.rwkv.head_dim // 2
+    if kernel == "mamba2_ssd":
+        return cfg.mamba.n_heads(cfg.d_model) // 2
+    return cfg.n_heads // 2
 
 
 def _leaves(tree):

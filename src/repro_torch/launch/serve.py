@@ -46,7 +46,9 @@ def serve(cfg: ArchConfig, params, prompts: list[list[int]], *, slots: int,
     frames (serve them with ``serve.decode.greedy_generate``). With
     ``mesh`` (a ``DeviceMesh``; every rank calls ``serve`` with the same
     prompts), params are DTensors under ``train_step.sharded_specs``' and
-    the loop runs the sharded serve step; every rank gets the results."""
+    the loop runs the sharded serve step (every token-only layout: the
+    recurrent families reset a slot's state on the ranks that hold it);
+    every rank gets the results."""
     dev = resolve_device(device)
     if not token_only(cfg):
         raise ValueError(f"{cfg.name}: the serving driver supports "
@@ -117,7 +119,10 @@ def serve(cfg: ArchConfig, params, prompts: list[list[int]], *, slots: int,
             if len(outputs[r]) >= max_new:
                 done += 1
                 cache_len[s] = 0                    # reset the slot's cache
-                T.reset_slot(states, s)             # and recurrent state
+                if mesh is None:                    # and recurrent state
+                    T.reset_slot(states, s)
+                else:
+                    D.reset_sharded_slot(states, s, mesh, slots)
                 refill(s)
     return ServeResult(outputs, first_logits, ticks, time.perf_counter() - t0)
 

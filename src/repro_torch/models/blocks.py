@@ -245,20 +245,29 @@ def train_attention(q, k, v, n_heads: int, attn_impl: str):
         if attn_impl == "xla-bf16-logits" else torch.float32)
 
 
-def cross_kv(p, src, cfg: ArchConfig):
+def cross_kv(p, src, cfg: ArchConfig, mesh=None, heads=None):
     """Cross-attention's K and V from the source states src (B, Nv, d_src),
     each (B, Nv, KV, D) in src's dtype: the projections, then the k-norm
     under ``qk_norm``, as the reference's ``attention_block`` computes them
     for ``kv_src``. Prefill and training pass the vision states cast to the
     compute dtype; the decode state (``transformer.init_decode_state``)
     passes them in their own dtype, as the reference's ``cross_state`` does,
-    which skips the k-norm (ROADMAP C): the port applies it there too."""
+    which skips the k-norm (ROADMAP C): the port applies it there too.
+
+    On a mesh p holds this rank's wk and wv columns: with ``heads`` (h0, n),
+    the kv heads that query heads h0 .. h0 + n - 1 read (``_local_kv``);
+    without, every kv head, the columns gathered (the decode state's vision
+    K/V, whole on every rank)."""
     b, n, _ = src.shape
     hd, cd = cfg.resolved_head_dim, src.dtype
-    k = (src @ p["wk"].to(cd)).view(b, n, cfg.n_kv_heads, hd)
-    v = (src @ p["wv"].to(cd)).view(b, n, cfg.n_kv_heads, hd)
+    k, v = src @ p["wk"].to(cd), src @ p["wv"].to(cd)
+    if heads is None:
+        k = S.tp_gather(k, mesh, -1, sum_grads=True).view(b, n, -1, hd)
+        v = S.tp_gather(v, mesh, -1, sum_grads=True).view(b, n, -1, hd)
+    else:
+        k, v = _local_kv(k, v, cfg, mesh, *heads)
     if cfg.qk_norm:
-        k = rms_head_norm(k, p["k_norm"].to(cd))
+        k = rms_head_norm(k, S.tp_copy(p["k_norm"], mesh).to(cd))
     return k, v
 
 
@@ -281,43 +290,91 @@ def cross_attention(q, k, v):
     return o.view(b, kv, g, s, d).permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
 
 
-def cross_attention_block(p, x, cfg: ArchConfig, k, v):
-    """Cross-attention sub-block on x (B, S, d) against K and V from
-    ``cross_kv`` (B, Nv, KV, D): q proj -> (q-norm) -> ``cross_attention``
-    (no RoPE, no mask) -> out proj. K and V are cast to x's dtype, as the
-    reference's decode step casts its stored vision K/V."""
+def _local_q(p, x, cfg: ArchConfig, mesh):
+    """q (B, S, n, D) of the query heads h0 .. h0 + n - 1 that this rank's
+    wq columns touch, and the slice of their (B, S, n * D) output that is
+    this rank's columns: (q, (h0, n), keep). Without a mesh, or where the
+    rank's columns are whole heads, q is the product itself and keep every
+    column. Where the columns split a head (llama4-scout's 40 heads on a
+    model axis of 16: 2.5 heads a rank; the spec does not look at head
+    boundaries, ``param_specs``), q's columns are gathered (the gradient
+    summed: two ranks read a split head) and the rank runs the whole heads
+    its columns overlap."""
     b, s, _ = x.shape
-    hd, cd = cfg.resolved_head_dim, x.dtype
-    q = (x @ p["wq"].to(cd)).view(b, s, cfg.n_heads, hd)
+    hd = cfg.resolved_head_dim
+    q = x @ p["wq"].to(x.dtype)
+    cols = q.shape[-1]
+    if not cols % hd:
+        h0 = 0 if mesh is None else mesh.tp_rank * cols // hd
+        return q.view(b, s, cols // hd, hd), (h0, cols // hd), slice(None)
+    c0 = mesh.tp_rank * cols
+    h0, h1 = c0 // hd, -(-(c0 + cols) // hd)
+    q = S.tp_gather(q, mesh, -1, sum_grads=True)[..., h0 * hd:h1 * hd]
+    return q.reshape(b, s, h1 - h0, hd), (h0, h1 - h0), \
+        slice(c0 - h0 * hd, c0 - h0 * hd + cols)
+
+
+def _out_proj(o, p, keep, mesh):
+    """o (B, S, n, D) -> this rank's columns of it @ its wo rows, summed
+    over the model axis."""
+    b, s = o.shape[:2]
+    out = o.reshape(b, s, -1)[..., keep] @ p["wo"].to(o.dtype)
+    return S.tp_reduce(out, mesh)
+
+
+def cross_attention_block(p, x, cfg: ArchConfig, *, kv_src=None, kv=None,
+                          mesh=None):
+    """Cross-attention sub-block on x (B, S, d): q proj -> (q-norm) ->
+    ``cross_attention`` (no RoPE, no mask) -> out proj. K and V come from
+    ``kv_src`` (B, Nv, d_src) through ``cross_kv`` (prefill and training),
+    or are the decode state's vision K/V ``kv`` (B, Nv, KV, D) each, cast
+    to x's dtype, as the reference's decode step casts its stored vision
+    K/V. On a mesh this rank's query heads (``_local_q``) read their kv
+    heads: of its own wk and wv columns from ``kv_src``, of the state's
+    whole heads from ``kv``; its wo rows' output is summed over the model
+    axis."""
+    cd = x.dtype
+    x = S.tp_copy(x, mesh)
+    q, heads, keep = _local_q(p, x, cfg, mesh)
+    if kv is None:
+        k, v = cross_kv(p, kv_src, cfg, mesh, heads)
+    else:
+        k, v = _kv_for_heads(*kv, cfg, *heads) if mesh is not None else kv
     if cfg.qk_norm:
-        q = rms_head_norm(q, p["q_norm"].to(cd))
-    o = cross_attention(q, k.to(cd), v.to(cd))
-    return o.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(cd)
+        q = rms_head_norm(q, S.tp_copy(p["q_norm"], mesh).to(cd))
+    return _out_proj(cross_attention(q, k.to(cd), v.to(cd)), p, keep, mesh)
 
 
-def _local_kv(k, v, cfg: ArchConfig, mesh, h_loc: int):
+def _kv_for_heads(k, v, cfg: ArchConfig, h0: int, n: int):
+    """K and V (B, S, KV, D) of every kv head -> those that query heads
+    h0 .. h0 + n - 1 read, in the kernels' mapping (local head j reads
+    local kv head j // (n / KV_loc)), which needs the heads' kv heads to
+    come in equal runs."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo, hi = h0 // g, (h0 + n - 1) // g + 1
+    if n % (hi - lo) or any((h0 + j) // g - lo != j // (n // (hi - lo))
+                            for j in range(n)):
+        raise NotImplementedError(
+            f"{cfg.name}: query heads {h0}..{h0 + n - 1} of {cfg.n_heads} "
+            f"on {cfg.n_kv_heads} kv heads read unequal runs of kv heads")
+    return k[:, :, lo:hi], v[:, :, lo:hi]
+
+
+def _local_kv(k, v, cfg: ArchConfig, mesh, h0: int, n: int):
     """This rank's K and V columns (B, S, cols) -> (B, S, KV_loc, D), the
-    kv heads that its ``h_loc`` query heads read, in the kernels' mapping
-    (local head j reads local kv head j // (h_loc / KV_loc)). Where the
-    model axis does not divide the KV heads (reduced qwen3-8b has one), the
-    spec still splits the columns: they are gathered to whole heads (the
-    gradient summed over ranks, which read them with different heads) and
-    this rank keeps the heads its query heads read."""
+    kv heads that query heads h0 .. h0 + n - 1 read, in the kernels'
+    mapping. Where the model axis does not divide the KV heads (reduced
+    qwen3-8b has one), the spec still splits the columns: they are
+    gathered to whole heads (the gradient summed over ranks, which read
+    them with different heads) and this rank keeps the heads its query
+    heads read (``_kv_for_heads``)."""
     b, s, _ = k.shape
     hd = cfg.resolved_head_dim
     if mesh is None or mesh.tp == 1 or cfg.n_kv_heads % mesh.tp == 0:
         return k.view(b, s, -1, hd), v.view(b, s, -1, hd)
     k = S.tp_gather(k, mesh, -1, sum_grads=True).view(b, s, -1, hd)
     v = S.tp_gather(v, mesh, -1, sum_grads=True).view(b, s, -1, hd)
-    g = cfg.n_heads // cfg.n_kv_heads
-    h0 = mesh.tp_rank * h_loc
-    lo, hi = h0 // g, (h0 + h_loc - 1) // g + 1
-    if h_loc % (hi - lo) or any((h0 + j) // g - lo != j // (h_loc // (hi - lo))
-                                for j in range(h_loc)):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} heads on {cfg.n_kv_heads} kv heads "
-            f"do not split over a model axis of {mesh.tp}")
-    return k[:, :, lo:hi], v[:, :, lo:hi]
+    return _kv_for_heads(k, v, cfg, h0, n)
 
 
 def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
@@ -334,25 +391,22 @@ def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
     attention is the decode kernel over ``cache_len + 1`` positions.
     K and V are never GQA-expanded for the kernels: they map head h to kv
     head h // (H / KV). kv_src: source states (B, Nv, d_src) for
-    cross-attention, the reference's ``kv_src`` branch: K and V from
-    ``cross_kv``, no RoPE and no mask (``cross_attention_block``, plain
-    PyTorch in every mode, as the reference's einsums are). mesh: this
-    rank's column shards of wq, wk and wv (its heads; ``_local_kv``), its
-    row shard of wo, the partial outputs summed over the model axis; the
+    cross-attention, the reference's ``kv_src`` branch
+    (``cross_attention_block``: no RoPE and no mask, plain PyTorch in every
+    mode, as the reference's einsums are). mesh: this rank's column shards
+    of wq, wk and wv (its heads: ``_local_q``, ``_local_kv``), its row
+    shard of wo, the partial outputs summed over the model axis; the
     qk-norm scales see this rank's heads, so their gradients are summed
     too. Returns (out, cache).
     """
     if kv_src is not None:
-        return cross_attention_block(p, x, cfg, *cross_kv(p, kv_src, cfg)), \
-            None
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
+        return cross_attention_block(p, x, cfg, kv_src=kv_src,
+                                     mesh=mesh), None
     cd = x.dtype
     x = S.tp_copy(x, mesh)
-    h_loc = p["wq"].shape[-1] // hd
-    q = (x @ p["wq"].to(cd)).view(b, s, h_loc, hd)
+    q, heads, keep = _local_q(p, x, cfg, mesh)
     k, v = _local_kv(x @ p["wk"].to(cd), x @ p["wv"].to(cd), cfg, mesh,
-                     h_loc)
+                     *heads)
     if cfg.qk_norm:
         q = rms_head_norm(q, S.tp_copy(p["q_norm"], mesh).to(cd))
         k = rms_head_norm(k, S.tp_copy(p["k_norm"], mesh).to(cd))
@@ -369,11 +423,10 @@ def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
         cache_insert(vc, v, cache_len)
         o = ops.decode_attention(q, kc.to(cd), vc.to(cd), cache_len + 1)
     elif attn_impl is not None:          # train, causal
-        o = train_attention(q, k, v, h_loc, attn_impl)
+        o = train_attention(q, k, v, q.shape[2], attn_impl)
     else:                                # prefill, causal
         o = ops.flash_attention(q, k, v, causal=True)
-    out = o.reshape(b, s, h_loc * hd) @ p["wo"].to(cd)
-    return S.tp_reduce(out, mesh), kv_cache
+    return _out_proj(o, p, keep, mesh), kv_cache
 
 
 def cache_insert(cache, new, idx, *, mode: str = "scatter"):

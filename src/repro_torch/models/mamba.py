@@ -24,6 +24,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.blocks import dense_init
+from repro_torch.sharding import spmd as S
+
+# the block's replicated leaves, which a rank reads for its own heads' part
+# of the output only: their gradients are summed over the model axis
+SSM_SHARED = ("B_proj", "C_proj", "conv_BC", "conv_b_BC", "dt_proj",
+              "dt_bias", "A_log", "D")
 
 
 def init_mamba_layer(cfg: ArchConfig, gen: torch.Generator, lead=()):
@@ -168,43 +174,93 @@ def ssd_recurrent(x, dt, A, B, C, D, state):
     return y[:, None].to(x.dtype), state
 
 
-def mamba_block(p, x, cfg: ArchConfig, *, state=None, train=False):
+def _split_conv(conv, di: int, mesh):
+    """The decode conv state's x part (this rank's d_inner columns) and its
+    B and C part (every channel). On a mesh the state's channels (d_inner
+    of x, then B's and C's) split evenly over the model axis under
+    ``decode_state_specs``, which does not follow the rank's x columns
+    (zamba2-7b at tp 2: 3648 channels a rank against 3584 x columns), so
+    the state is gathered whole first."""
+    if mesh is None or mesh.tp == 1:
+        return conv[..., :di], conv[..., di:]
+    whole = S.all_gather(conv, mesh.model_group, -1)
+    x0 = mesh.tp_rank * di
+    return whole[..., x0:x0 + di], whole[..., di * mesh.tp:]
+
+
+def _write_conv(conv, conv_x, conv_bc, di: int, mesh) -> None:
+    """The new conv state into ``conv`` in place; on a mesh every rank's x
+    part gathered, then this rank's even share of the channels kept."""
+    if mesh is None or mesh.tp == 1:
+        conv[..., :di].copy_(conv_x)
+        conv[..., di:].copy_(conv_bc)
+        return
+    whole = torch.cat([S.all_gather(conv_x, mesh.model_group, -1),
+                       conv_bc.to(conv_x.dtype)], -1)
+    conv.copy_(whole.chunk(mesh.tp, -1)[mesh.tp_rank])
+
+
+def mamba_block(p, x, cfg: ArchConfig, *, state=None, train=False,
+                mesh=None):
     """state: (ssm_state, conv_state) for decode, updated in place; None for
     prefill and train mode; ``train`` takes ``ssd_chunked`` in place of the
-    kernel. Returns (out, state)."""
+    kernel. Returns (out, state).
+
+    On a mesh (``mesh``: a ``spmd.MeshCtx``) p holds this rank's shards
+    under ``param_specs``: the column shards of z_proj, x_proj and conv_x,
+    its d_inner columns of conv_b_x and gate_norm (whole SSD heads), its
+    rows of out_proj, whose output is summed over the model axis. The
+    replicated leaves of ``SSM_SHARED`` (B and C, dt, A and D, read at the
+    rank's heads) and x pass ``tp_copy``, since each rank reads them for
+    its own heads' part of the output. The SSD scan runs at the rank's
+    heads; the gated RMSNorm's sum of squares over d_inner is summed over
+    the model axis both ways (``tp_sum``); the decode state holds the
+    rank's heads of the SSM state and an even share of the conv state's
+    channels (``_split_conv``)."""
     mc = cfg.mamba
     b, s, d = x.shape
-    di = mc.d_inner(d)
     gn = mc.n_groups * mc.d_state
     cd = x.dtype
+    split = mesh is not None and mesh.tp > 1
+    if split:
+        if mc.n_groups > 1:      # a rank's heads would read other groups
+            raise NotImplementedError(
+                f"{cfg.name}: {mc.n_groups} B/C groups on a mesh")
+        p = {**p, **{k: S.tp_copy(p[k], mesh) for k in SSM_SHARED}}
+    x = S.tp_copy(x, mesh)
 
     z = x @ p["z_proj"].to(cd)
     xs = x @ p["x_proj"].to(cd)
+    di = xs.shape[-1]
+    nh = di // mc.head_dim
     bc = torch.cat([x @ p["B_proj"].to(cd), x @ p["C_proj"].to(cd)], dim=-1)
-    dt_raw = x @ p["dt_proj"].to(cd)
+    dt_raw = x @ S.tp_cols(p["dt_proj"], mesh).to(cd)
     ssm, conv = (None, None) if state is None else state
-    xs, conv_x = _causal_conv(xs, p["conv_x"], p["conv_b_x"],
-                              None if conv is None else conv[..., :di])
-    bc, conv_bc = _causal_conv(bc, p["conv_BC"], p["conv_b_BC"],
-                               None if conv is None else conv[..., di:])
+    conv_x, conv_bc = (None, None) if conv is None \
+        else _split_conv(conv, di, mesh)
+    xs, conv_x = _causal_conv(xs, p["conv_x"], p["conv_b_x"], conv_x)
+    bc, conv_bc = _causal_conv(bc, p["conv_BC"], p["conv_b_BC"], conv_bc)
     if conv is not None:
-        conv[..., :di].copy_(conv_x)
-        conv[..., di:].copy_(conv_bc)
-    xs = xs.view(b, s, mc.n_heads(d), mc.head_dim)
+        _write_conv(conv, conv_x, conv_bc, di, mesh)
+    xs = xs.view(b, s, nh, mc.head_dim)
     Bm = bc[..., :gn].reshape(b, s, mc.n_groups, mc.d_state)
     Cm = bc[..., gn:].reshape(b, s, mc.n_groups, mc.d_state)
     # F.softplus returns x itself above x = 20, where JAX's softplus gives
     # x + log1p(exp(-x)): the two differ by less than 2.1e-9
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
+    dt = F.softplus(dt_raw.float()
+                    + S.tp_cols(p["dt_bias"], mesh).float())
+    A = -torch.exp(S.tp_cols(p["A_log"], mesh).float())
+    Dv = S.tp_cols(p["D"], mesh)
     if train:
-        y = ssd_chunked(xs, dt, A, Bm, Cm, p["D"])
+        y = ssd_chunked(xs, dt, A, Bm, Cm, Dv)
     elif ssm is None:
-        y = ops.mamba2_ssd(xs, dt, A, Bm, Cm, p["D"])
+        y = ops.mamba2_ssd(xs, dt, A, Bm, Cm, Dv)
     else:
-        y, _ = ssd_recurrent(xs, dt, A, Bm, Cm, p["D"], ssm)
-    # gated RMSNorm (Mamba-2): norm(y * silu(z)) in fp32
+        y, _ = ssd_recurrent(xs, dt, A, Bm, Cm, Dv, ssm)
+    # gated RMSNorm (Mamba-2): norm(y * silu(z)) in fp32, the mean of the
+    # squares over the whole d_inner
     yf = (y.reshape(b, s, di) * F.silu(z)).float()
-    y = (yf * torch.rsqrt(yf.square().mean(-1, keepdim=True) + 1e-5)
-         * p["gate_norm"]).to(cd)
-    return y @ p["out_proj"].to(cd), state
+    ms = S.tp_sum(yf.square().sum(-1, keepdim=True), mesh) \
+        / (di * (mesh.tp if mesh else 1))
+    y = (yf * torch.rsqrt(ms + 1e-5) * p["gate_norm"]).to(cd)
+    return S.tp_reduce(y @ p["out_proj"].to(cd), mesh), state

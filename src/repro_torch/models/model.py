@@ -115,8 +115,13 @@ def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype, mesh=None):
     building the one-hot, and rounds where the einsum does. On a mesh a
     tied table holds this rank's vocab rows (a token of another rank's
     rows reads zeros, and the sum over the model axis has each row once)
-    and an untied one its d_model columns (gathered)."""
-    if mesh is not None and mesh.tp > 1 and not cfg.n_codebooks:
+    and an untied one, the codebooks' (K, V, d) table included, its
+    d_model columns (gathered)."""
+    if cfg.n_codebooks:
+        books = torch.arange(cfg.n_codebooks, device=tokens.device)
+        rows = params["embed"][books, tokens].to(compute_dtype)  # (B, S, K, d)
+        return S.tp_gather(rows.float().sum(-2).to(compute_dtype), mesh, -1)
+    if mesh is not None and mesh.tp > 1:
         table = params["embed"]
         if not cfg.tie_embeddings:
             return S.tp_gather(table[tokens].to(compute_dtype), mesh, -1)
@@ -124,11 +129,7 @@ def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype, mesh=None):
         mine = (tokens >= v0) & (tokens < v0 + table.shape[0])
         rows = table[torch.where(mine, tokens - v0, 0)].to(compute_dtype)
         return S.tp_reduce(rows * mine[..., None], mesh)
-    if not cfg.n_codebooks:
-        return params["embed"][tokens].to(compute_dtype)
-    books = torch.arange(cfg.n_codebooks, device=tokens.device)
-    rows = params["embed"][books, tokens].to(compute_dtype)   # (B, S, K, d)
-    return rows.float().sum(-2).to(compute_dtype)
+    return params["embed"][tokens].to(compute_dtype)
 
 
 def lm_logits(params, x, cfg: ArchConfig, mesh=None):

@@ -14,6 +14,13 @@ Recurrence per head (K = V = head_dim):
     y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 with w_t in (0,1)^K data-dependent (decay LoRA) and u a learned per-channel
 bonus.
+
+On a mesh (``mesh``: a ``spmd.MeshCtx``) a layer takes this rank's shards
+under ``param_specs``: the column shards of wr, wk, wv and wg (its heads)
+and of cm_wk and cm_wr, the row shards of wo and cm_wv, its heads' ln_x;
+the WKV6 kernel and the decode recurrence run at the rank's heads, and the
+decode state holds the rank's heads of the wkv state (the last-token rows
+stay whole).
 """
 from __future__ import annotations
 
@@ -23,6 +30,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.blocks import dense_init
+from repro_torch.sharding import spmd as S
+
+# the time mix's replicated leaves: every rank reads them, but only for its
+# own heads' part of the output, so their gradients are summed over the
+# model axis (``tp_copy``); the last three are read at the rank's heads
+TM_SHARED = ("mu", "shift_lora_a", "shift_lora_b", "decay_lora_a",
+             "decay_lora_b", "decay_base", "bonus_u")
 
 
 def init_rwkv_layer(cfg: ArchConfig, gen: torch.Generator, lead=()):
@@ -77,12 +91,14 @@ def _ddlerp(p, x, xs):
     return outs
 
 
-def _decay(p, xw):
+def _decay(p, xw, mesh=None):
     """Per-token log decay log(w_t) <= 0, (B, S, D) in fp32: the LoRA in the
-    compute dtype, then -exp(decay_base + lora) in fp32."""
+    compute dtype, then -exp(decay_base + lora) in fp32; on a mesh at this
+    rank's columns (its heads)."""
     lora = torch.tanh(xw @ p["decay_lora_a"].to(xw.dtype)) \
-        @ p["decay_lora_b"].to(xw.dtype)
-    return -torch.exp(p["decay_base"].float() + lora.float())
+        @ S.tp_cols(p["decay_lora_b"], mesh).to(xw.dtype)
+    return -torch.exp(S.tp_cols(p["decay_base"], mesh).float()
+                      + lora.float())
 
 
 def _group_norm_heads(x, scale, n_heads, eps=1e-5):
@@ -189,35 +205,51 @@ def wkv6_recurrent(r, k, v, logw, u, state):
 
 
 def rwkv_time_mix(p, x, cfg: ArchConfig, *, state=None, last_x=None,
-                  train=False):
+                  train=False, mesh=None):
     """Time-mix sub-block. state: the layer's wkv state for decode (updated
     in place), None for prefill and train mode; ``train`` takes
-    ``wkv6_chunked`` in place of the kernel. Returns (out, state)."""
+    ``wkv6_chunked`` in place of the kernel. mesh: this rank's shards (the
+    module docstring); the leaves of ``TM_SHARED`` and x pass ``tp_copy``,
+    and the output of its wo rows is summed over the model axis. Returns
+    (out, state)."""
     hd = cfg.rwkv.head_dim
-    b, s, d = x.shape
-    h = d // hd
+    b, s, _ = x.shape
     cd = x.dtype
+    if mesh is not None and mesh.tp > 1:
+        p = {**p, **{k: S.tp_copy(p[k], mesh) for k in TM_SHARED}}
+    x = S.tp_copy(x, mesh)
     xr, xk, xv, xw, xg = _ddlerp(p, x, _token_shift(x, last_x))
-    r = (xr @ p["wr"].to(cd)).view(b, s, h, hd)
+    r = xr @ p["wr"].to(cd)
+    cols = r.shape[-1]
+    h = cols // hd
+    r = r.view(b, s, h, hd)
     k = (xk @ p["wk"].to(cd)).view(b, s, h, hd)
     v = (xv @ p["wv"].to(cd)).view(b, s, h, hd)
     g = F.silu(xg @ p["wg"].to(cd))
-    logw = _decay(p, xw).view(b, s, h, hd)
-    u = p["bonus_u"].view(h, hd)
+    logw = _decay(p, xw, mesh).view(b, s, h, hd)
+    u = S.tp_cols(p["bonus_u"], mesh).view(h, hd)
     if train:
         y = wkv6_chunked(r, k, v, logw, u)
     elif state is None:
         y = ops.wkv6(r, k, v, logw, u)
     else:
         y, state = wkv6_recurrent(r, k, v, logw, u, state)
-    y = _group_norm_heads(y.reshape(b, s, d), p["ln_x"].float(), h)
-    return (y * g) @ p["wo"].to(cd), state
+    y = _group_norm_heads(y.reshape(b, s, cols), p["ln_x"].float(), h)
+    return S.tp_reduce((y * g) @ p["wo"].to(cd), mesh), state
 
 
-def rwkv_channel_mix(p, x, *, last_x=None):
+def rwkv_channel_mix(p, x, *, last_x=None, mesh=None):
+    """Channel-mix sub-block. On a mesh: the column shards of cm_wk and
+    cm_wr and the row shard of cm_wv; the receptance gate comes out at
+    this rank's d columns, so the cm_wv product's partial sums are
+    reduce-scattered to the same columns (their backward gathers), the
+    product is taken there and gathered whole."""
     cd = x.dtype
+    mu = S.tp_copy(p["cm_mu"], mesh)
+    x = S.tp_copy(x, mesh)
     dx = _token_shift(x, last_x) - x
-    xk = x + dx * p["cm_mu"][0].to(cd)
-    xr = x + dx * p["cm_mu"][1].to(cd)
+    xk = x + dx * mu[0].to(cd)
+    xr = x + dx * mu[1].to(cd)
     k = F.relu(xk @ p["cm_wk"].to(cd)).square()
-    return torch.sigmoid(xr @ p["cm_wr"].to(cd)) * (k @ p["cm_wv"].to(cd))
+    kv = S.tp_reduce_scatter(k @ p["cm_wv"].to(cd), mesh, -1)
+    return S.tp_gather(torch.sigmoid(xr @ p["cm_wr"].to(cd)) * kv, mesh, -1)

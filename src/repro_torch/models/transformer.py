@@ -134,9 +134,10 @@ def unused_subtrees(cfg: ArchConfig) -> tuple[str, ...]:
 def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
     """One layer. Returns (x, state, aux); a decode state is updated in
     place; aux is the layer's auxiliary loss, None for a block without
-    one. On a mesh (``ctx["mesh"]``) the dense and MoE blocks run
-    tensor-parallel; each layer's output is constrained to the batch
-    layout where the reference constrains it."""
+    one. On a mesh (``ctx["mesh"]``) every block runs tensor-parallel on
+    this rank's shards (its heads, d_ff columns or experts) and a decode
+    state is this rank's (``decode_state_specs``); each layer's output is
+    constrained to the batch layout where the reference constrains it."""
     decode = ctx["mode"] == "decode"
     train = ctx["mode"] == "train"
     mesh = ctx.get("mesh")
@@ -157,32 +158,35 @@ def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
     if block == "cross_attn":
         h = B.apply_norm(p["ln1"], x, cfg)
         if decode:       # the vision K/V of the state, never written
-            o = B.cross_attention_block(p["attn"], h, cfg, *state)
+            o = B.cross_attention_block(p["attn"], h, cfg, kv=state,
+                                        mesh=mesh)
         else:            # the vision states, cast to the compute dtype first
             o, _ = B.attention_block(p["attn"], h, cfg,
-                                     kv_src=ctx["vision"].to(h.dtype))
+                                     kv_src=ctx["vision"].to(h.dtype),
+                                     mesh=mesh)
         # tanh of the fp32 gate, then cast, as the reference does
         x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * o
         h = B.apply_norm(p["ln2"], x, cfg)
         x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * \
-            B.mlp_block(p["mlp"], h)
+            B.mlp_block(p["mlp"], h, mesh)
         return constrain(x, BATCH), state, None
     if block == "rwkv":
         wkv, tm_last, cm_last = state if decode else (None, None, None)
         h = B.apply_norm(p["ln1"], x, cfg)
         o, _ = R.rwkv_time_mix(p["tm"], h, cfg, state=wkv, last_x=tm_last,
-                               train=train)
+                               train=train, mesh=mesh)
         x = x + o
         h2 = B.apply_norm(p["ln2"], x, cfg)
         # channel-mix params live under the time-mix key, as in the reference
-        x = x + R.rwkv_channel_mix(p["tm"], h2, last_x=cm_last)
+        x = x + R.rwkv_channel_mix(p["tm"], h2, last_x=cm_last, mesh=mesh)
         if decode:       # the next token shifts in this token's normed inputs
             tm_last.copy_(h[:, -1:])
             cm_last.copy_(h2[:, -1:])
         return constrain(x, BATCH), state, None
     if block == "mamba":
         h = B.apply_norm(p["ln1"], x, cfg)
-        o, state = M.mamba_block(p["m"], h, cfg, state=state, train=train)
+        o, state = M.mamba_block(p["m"], h, cfg, state=state, train=train,
+                                 mesh=mesh)
         return constrain(x + o, BATCH), state, None
     raise NotImplementedError(block)
 
@@ -311,14 +315,34 @@ def init_decode_state(cfg: ArchConfig, batch: int, buffer_len: int,
     if vision is None or params is None:
         raise ValueError(f"{cfg.name}: the decode state needs vision and "
                          "params for its cross-attention layers")
-    vision = torch.as_tensor(vision, device=device)
-    single = params["layers"]["single"]["attn"]
-    kvs = [B.cross_kv(_layer(single, i), vision, cfg)
-           for i in range(layout["periods"])]
     return {"inner": attn_state(layout["periods"], layout["inner_n"]),
-            "single": tuple(torch.stack([kv[j] for kv in kvs]).to(dtype)
-                            for j in range(2)),
+            "single": cross_state(cfg, params, torch.as_tensor(
+                vision, device=device), dtype),
             "trailing": attn_state(max(layout["trailing"], 1))}
+
+
+def kv_cache_keys(cfg: ArchConfig) -> tuple:
+    """The entries of ``init_decode_state``'s tree that hold KV caches (the
+    VLM's vision K/V, which no step writes, left out)."""
+    layout = build_layout(cfg)
+    if layout["kind"] == "uniform":
+        return () if layout["block"] == "rwkv" else ("layers",)
+    if layout["inner_block"] == "mamba":
+        return ("single",)
+    return ("inner", "trailing")
+
+
+def cross_state(cfg: ArchConfig, params, vision, dtype, mesh=None):
+    """The VLM's decode-state vision K/V, (k, v) each (P, B, Nv, KV, D):
+    each period's ``blocks.cross_kv`` of vision (B, Nv, d_src) in its own
+    dtype, cast to ``dtype``. On a mesh params are this rank's shards and
+    the K/V come out whole (every kv head), gathered from every rank's wk
+    and wv columns, as ``decode_state_specs`` keeps them."""
+    single = params["layers"]["single"]["attn"]
+    kvs = [B.cross_kv(_layer(single, i), vision, cfg, mesh)
+           for i in range(build_layout(cfg)["periods"])]
+    return tuple(torch.stack([kv[j] for kv in kvs]).to(dtype)
+                 for j in range(2))
 
 
 def reset_slot(states, s: int) -> None:

@@ -12,7 +12,9 @@ params under ``param_specs`` (FSDP's layout, gathered over data at each
 call), the decode state under ``decode_state_specs(layout="fsdp")`` (KV
 heads over the model axis) and the batch under ``batch_specs``; each rank
 runs the flash and decode kernels at its H/tp query heads and KV/tp KV
-heads, and every rank returns the global batch's logits.
+heads, and every rank returns the global batch's logits. Every layout runs
+so: the recurrent families hold the rank's heads of their wkv and SSM
+states, the VLM its vision K/V whole.
 """
 from __future__ import annotations
 
@@ -113,12 +115,21 @@ def _global_rows(x, mc):
     return S.all_gather(x, mc.data_group, 0) if mc.shards_batch else x
 
 
+def _vision_rows(batch, mc, dev):
+    """This rank's rows of the batch's vision states, or None."""
+    from repro_torch.sharding import spmd as S
+    vision = batch.get("vision")
+    return None if vision is None else S.dp_rows(
+        torch.as_tensor(vision, device=dev), mc)
+
+
 def make_sharded_prefill_step(cfg: ArchConfig, mesh, *,
                               compute_dtype=torch.bfloat16, device="cuda"):
-    """prefill_step(params, batch) -> last-position logits (B, V) of the
-    global batch, on every rank; params: DTensors under the param specs
-    of ``train_step.sharded_specs``; batch: the global batch's tokens
-    (B, S), the same on every rank."""
+    """prefill_step(params, batch) -> last-position logits (B, V), or
+    (B, K, V) with codebooks, of the global batch, on every rank; params:
+    DTensors under the param specs of ``train_step.sharded_specs``; batch:
+    the global batch's tokens (B, S[, K]) and the VLM's vision states
+    (B, Nv, d_src), the same on every rank."""
     from repro_torch.sharding import spmd as S
     from repro_torch.train.train_step import sharded_specs
     dev = resolve_device(device)
@@ -129,6 +140,7 @@ def make_sharded_prefill_step(cfg: ArchConfig, mesh, *,
         tokens = batch["tokens"].to(dev)
         mc, local = _step_ctx(mesh, rules, pspecs, params, tokens.shape[0])
         ctx = M.make_ctx(cfg, tokens.shape[1], "prefill",
+                         vision=_vision_rows(batch, mc, dev),
                          compute_dtype=compute_dtype, device=dev, mesh=mc)
         return _global_rows(M.prefill(local, S.dp_rows(tokens, mc), cfg,
                                       ctx), mc)
@@ -138,41 +150,85 @@ def make_sharded_prefill_step(cfg: ArchConfig, mesh, *,
 
 def init_sharded_decode_state(cfg: ArchConfig, mesh, batch: int,
                               buffer_len: int, *, dtype=torch.bfloat16,
-                              device="cuda"):
-    """This rank's zeroed decode state, as DTensors under
+                              device="cuda", vision=None, params=None):
+    """This rank's decode state, as DTensors under
     ``decode_state_specs(layout="fsdp")``: batch over data where it
-    divides, KV heads over model. A KV sequence sharded over the model
-    axis (KV heads that the model axis does not divide, or a batch too
-    small for the data axis) waits for ROADMAP A11b."""
+    divides; KV heads, the RWKV wkv state's and the Mamba SSM state's heads
+    and the conv state's channels over model, the last-token rows whole.
+    Zeros, but for the VLM's vision K/V, built as on one device from
+    ``vision`` (B, Nv, d_src), this rank's rows of it, and ``params``
+    (DTensors under ``sharded_specs``' param specs): each rank's wk and wv
+    columns, gathered to every kv head, which the state keeps whole. A KV
+    sequence sharded over the mesh (KV heads that the model axis does not
+    divide, or a batch too small for the data axis) waits for ROADMAP
+    A11b.2."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     from repro_torch.sharding import rules as SR
     from repro_torch.sharding import spmd as S
-    from repro_torch.train.train_step import check_sharded
+    from repro_torch.train.train_step import sharded_specs
     dev = resolve_device(device)
-    check_sharded(cfg)
-    specs = SR.decode_state_specs(cfg, batch, SR.AxisRules.for_mesh(mesh),
-                                  layout="fsdp")
-    if any(spec[2] is not None for spec in specs["layers"]):
+    rules = SR.AxisRules.for_mesh(mesh)
+    specs = SR.decode_state_specs(cfg, batch, rules, layout="fsdp")
+    if any(spec[-3] is not None for key in T.kv_cache_keys(cfg)
+           for spec in specs[key]):
         raise NotImplementedError(
             f"{cfg.name} at batch {batch}: a decode state whose KV sequence "
-            "shards over the mesh waits for ROADMAP A11b")
-    from torch._subclasses.fake_tensor import FakeTensorMode
+            "shards over the mesh waits for ROADMAP A11b.2")
+    vlm = cfg.family == "vlm"
+    if vlm and (vision is None or params is None):
+        raise ValueError(f"{cfg.name}: the decode state needs vision and "
+                         "params for its cross-attention layers")
     with FakeTensorMode():
-        shapes = T.init_decode_state(cfg, batch, buffer_len, dtype=dtype)
+        kw = {} if not vlm else {
+            "vision": torch.empty(batch, cfg.n_vision_tokens,
+                                  cfg.vision_dim),
+            "params": M.init_params(cfg, 0, device="cpu")}
+        shapes = T.init_decode_state(cfg, batch, buffer_len, dtype=dtype,
+                                     **kw)
 
     def zeros(shape_of, spec):
         local = torch.zeros(S.local_shape(shape_of.shape, spec, mesh),
-                            dtype=dtype, device=dev)
+                            dtype=shape_of.dtype, device=dev)
         return S.from_local(local, spec, mesh, shape_of.shape)
 
-    return S.map_tree(zeros, shapes, specs)
+    if not vlm:
+        return S.map_tree(zeros, shapes, specs)
+    states = {k: S.map_tree(zeros, shapes[k], specs[k])
+              for k in ("inner", "trailing")}
+    _, pspecs, _ = sharded_specs(cfg, mesh)
+    mc, local = _step_ctx(mesh, rules, pspecs, params, batch)
+    with torch.no_grad():
+        kv = T.cross_state(cfg, local, _vision_rows({"vision": vision}, mc,
+                                                    dev), dtype, mesh=mc)
+    states["single"] = tuple(S.from_local(t, spec, mesh, shape.shape)
+                             for t, spec, shape in zip(kv, specs["single"],
+                                                       shapes["single"]))
+    return states
+
+
+def reset_sharded_slot(states, s: int, mesh, batch: int) -> None:
+    """``transformer.reset_slot`` of global slot ``s`` on this rank's local
+    states (``init_sharded_decode_state``'s, of ``batch`` slots), where
+    this rank holds it: every rank of the slot's data shard, at the slot's
+    local row."""
+    from repro_torch.sharding import rules as SR
+    from repro_torch.sharding import spmd as S
+    mc = S.MeshCtx(mesh, SR.batch_axis(SR.AxisRules.for_mesh(mesh), batch)
+                   is not None)
+    row = S.dp_row(s, batch, mc)
+    if row is not None:
+        T.reset_slot(S.to_local(states), row)
 
 
 def make_sharded_serve_step(cfg: ArchConfig, mesh, buffer_len: int, *,
                             compute_dtype=torch.bfloat16, device="cuda"):
     """The serve step on every rank of ``mesh``: ``init_sharded_decode_state``'s
-    state (updated in place), batch the global batch's tokens (B, 1) and
-    cache_len (B,); returns the global batch's logits (B, 1, V), the
-    state, and next_tok (B,), the same on every rank."""
+    state (updated in place), batch the global batch's tokens (B, 1[, K])
+    and cache_len (B,) (and the VLM's vision, which decode does not read:
+    its K/V are the state's); returns the global batch's logits
+    (B, 1[, K], V), the state, and next_tok (B[, K]), the same on every
+    rank."""
     from repro_torch.sharding import spmd as S
     from repro_torch.train.train_step import sharded_specs
     dev = resolve_device(device)
@@ -183,8 +239,10 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh, buffer_len: int, *,
         tokens = batch["tokens"].to(dev)
         mc, local = _step_ctx(mesh, rules, pspecs, params, tokens.shape[0])
         cache_len = S.dp_rows(batch["cache_len"].to(dev), mc)
-        ctx = M.make_ctx(cfg, buffer_len, "decode", cache_len=cache_len,
-                         compute_dtype=compute_dtype, device=dev, mesh=mc)
+        ctx = M.make_ctx(cfg, buffer_len, "decode",
+                         vision=_vision_rows(batch, mc, dev),
+                         cache_len=cache_len, compute_dtype=compute_dtype,
+                         device=dev, mesh=mc)
         logits, _ = M.decode_step(local, S.dp_rows(tokens, mc),
                                   S.to_local(states), cache_len, cfg, ctx)
         logits = _global_rows(logits, mc)

@@ -134,6 +134,21 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    """Sum over the group, then this rank's chunk along dim (the output of
+    a row-parallel product that the rank goes on with at its own columns);
+    backward: the gradients' chunks gathered along dim."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
 class _Gather(torch.autograd.Function):
     """All-gather along dim. Backward: this rank's chunk of the gradient
     when every rank goes on with the same values (``sum_grads`` False: the
@@ -170,7 +185,7 @@ class MeshCtx:
             raise NotImplementedError(
                 f"mesh axes {names}: the port's sharded steps run on "
                 "('data', 'model') meshes; a 'pod' axis waits for ROADMAP "
-                "A11b")
+                "A11b.3")
         sizes = axis_sizes(mesh)
         self.mesh = mesh
         self.batch_sharded = batch_sharded
@@ -201,6 +216,32 @@ def tp_reduce(x, mc: MeshCtx | None):
     return _Reduce.apply(x, mc.model_group)
 
 
+def tp_sum(x, mc: MeshCtx | None):
+    """Sum over the model axis, and the gradient summed too: a value that
+    every rank reads with only its own part of the output (the gated
+    RMSNorm's sum of squares over ``d_inner``, each rank its columns)."""
+    if mc is None or mc.tp == 1:
+        return x
+    return _Copy.apply(_Reduce.apply(x, mc.model_group), mc.model_group)
+
+
+def tp_reduce_scatter(x, mc: MeshCtx | None, dim: int):
+    """A row-parallel product's partial sums -> this rank's chunk of the
+    sum along dim."""
+    if mc is None or mc.tp == 1:
+        return x
+    return _ReduceScatter.apply(x, mc.model_group, dim % x.dim())
+
+
+def tp_cols(x, mc: MeshCtx | None, dim: int = -1):
+    """This rank's chunk along dim of a tensor that every rank holds whole
+    (a replicated leaf read at the rank's heads or columns). No collective:
+    the caller sums the gradient where it must (``tp_copy`` on x)."""
+    if mc is None or mc.tp == 1:
+        return x
+    return x.chunk(mc.tp, dim)[mc.tp_rank]
+
+
 def tp_gather(x, mc: MeshCtx | None, dim: int, sum_grads: bool = False):
     if mc is None or mc.tp == 1:
         return x
@@ -219,6 +260,15 @@ def dp_rows(x, mc: MeshCtx | None, dim: int = 0):
     if mc is None or not mc.shards_batch:
         return x
     return x.chunk(mc.dp, dim)[mc.dp_rank]
+
+
+def dp_row(s: int, rows: int, mc: MeshCtx | None) -> int | None:
+    """Row ``s`` of a global batch of ``rows`` -> its row in this rank's
+    data shard (``dp_rows``' split), or None where another shard holds it."""
+    if mc is None or not mc.shards_batch:
+        return s
+    owner, row = divmod(s, rows // mc.dp)
+    return row if owner == mc.dp_rank else None
 
 
 # ---------------------------------------------------------------------------

@@ -162,24 +162,12 @@ def make_opt_state(params, tcfg: TrainConfig):
 # the sharded step (the reference's build_sharded_train)
 # ---------------------------------------------------------------------------
 
-SHARDED_FAMILIES = ("dense", "moe")
-
-
-def check_sharded(cfg: ArchConfig) -> None:
-    """The families whose layouts run on a mesh in this slice."""
-    if cfg.family not in SHARDED_FAMILIES or cfg.n_codebooks:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} layout on a mesh waits for "
-            "ROADMAP A11b (the ssm, hybrid, vlm and audio layouts)")
-
-
 def sharded_specs(cfg: ArchConfig, mesh, *, fsdp: bool = True):
     """(rules, param specs, opt-state specs) on ``mesh``, as the
     reference's ``build_sharded_train`` and ``dryrun.build_cell`` derive
     them; the prefill and serve steps take the same param specs."""
     from repro_torch.sharding import rules as SR
     from repro_torch.train.optimizer import opt_state_specs
-    check_sharded(cfg)
     rules = SR.AxisRules.for_mesh(mesh)
     shapes = M.param_shapes(cfg)
     pspecs = SR.param_specs(cfg, rules, fsdp=fsdp, param_shapes=shapes)
@@ -229,7 +217,8 @@ def make_sharded_grad_fn(cfg: ArchConfig, tcfg: TrainConfig, mesh, *,
     if tcfg.microbatches > 1:
         raise NotImplementedError("microbatches on a mesh: the reference "
                                   "splits the global batch's rows, which "
-                                  "this step does not do yet")
+                                  "this step does not do yet (ROADMAP "
+                                  "A11b.3)")
     dev = resolve_device(device)
     rules, pspecs, _ = specs or sharded_specs(cfg, mesh)
 

@@ -1,6 +1,6 @@
 """``python -m repro_torch.launch.train --mesh 2x2 --device cpu --backend
-gloo`` trains reduced olmo-1b and olmoe-1b-7b on 4 ranks it starts itself
-and ends with the reference's ``done:`` line; the meshes of the launcher
+gloo`` trains reduced olmo-1b, olmoe-1b-7b, rwkv6-7b and zamba2-7b on 4
+ranks it starts itself and ends with the reference's ``done:`` line; the meshes of the launcher
 (``launch/mesh.py``) keep the reference's shapes."""
 import os
 import signal
@@ -18,7 +18,8 @@ from repro_torch.sharding import AbstractMesh  # noqa: E402
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "olmoe-1b-7b", "rwkv6-7b",
+                                  "zamba2-7b"])
 def test_launch_train_on_a_2x2_mesh(tmp_path, arch):
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     proc = subprocess.Popen(

@@ -7,12 +7,17 @@ GROUP is ``four`` (4 ranks: compressed_psum, GPipe, the sharded train step
 of reduced olmo-1b and qwen3-8b on (2, 2), the MoE's expert-parallel
 branch on (2, 2) and (1, 4), a save of the trained state), ``two`` (2
 ranks: the MoE on (1, 2), sharded prefill and serving on (1, 2), restore
-of ``four``'s save onto 2 ranks, a supervised run with a failure on (2, 1))
-or ``card`` (2 ranks sharing the card on gloo: the kernels at the local
-heads). Ranks meet through a FileStore at STORE; REF is the npz of
+of ``four``'s save onto 2 ranks, a supervised run with a failure on (2, 1)),
+``card`` (2 ranks sharing the card on gloo: the kernels at the local
+heads), ``fam4`` (4 ranks: the sharded train step of the recurrent,
+hybrid, VLM and audio layouts on (2, 2), zamba2-7b and qwen3-8b at 10 heads
+on (1, 4), their prefill and decode there) or ``fam2`` (2 ranks: the four
+families' sharded prefill, the VLM's and musicgen-large's decode, on
+(1, 2)). Ranks meet through a FileStore at STORE; REF is the npz of
 ``tests/jax_mesh_reference.py``. Rank 0 writes OUTDIR/GROUP.npz and
 OUTDIR/GROUP.json, which the tests read.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -252,7 +257,7 @@ def group_four(rank, world, dev, ref, outdir, out, meta):
 # two ranks
 # ---------------------------------------------------------------------------
 
-SERVE_ARCHS = ("olmo-1b", "olmoe-1b-7b")
+SERVE_ARCHS = ("olmo-1b", "olmoe-1b-7b", "rwkv6-7b", "zamba2-7b")
 SERVE_B, SERVE_S, SERVE_BUF = 2, 24, 32
 
 
@@ -451,7 +456,168 @@ def group_card(rank, world, dev, ref, outdir, out, meta):
         out["card/decode_plain"] = torch.stack(plain, 1).numpy()
 
 
-GROUPS = {"four": group_four, "two": group_two, "card": group_card}
+# ---------------------------------------------------------------------------
+# the recurrent, hybrid, VLM and audio layouts (tests/test_torch_mesh_families)
+# ---------------------------------------------------------------------------
+
+def family_train(case, mesh, dev, ref, out, meta):
+    """The sharded loss and gradients of a ``FAMILY_CASES`` case from the
+    reference's params and batch, on ``mesh``; for the four families also
+    3 steps and every rank's local shapes."""
+    cfg = JR.family_config(case, get_arch)
+    params = convert.from_numpy(ref_tree(ref, f"fam/{case}/params"))
+    batches = JR.family_batches(cfg)
+    _, pspecs, ospecs = TS.sharded_specs(cfg, mesh)
+    dp, opt = TS.shard_train_state(params, TCFG, pspecs, ospecs, mesh)
+    metrics, grads, _ = TS.make_sharded_grad_fn(cfg, TCFG, mesh,
+                                                device=dev)(dp, batches[0])
+    out[f"fam/{case}/loss"] = metrics["loss"].numpy()
+    flat_p, flat_s = convert.flatten(params), convert.flatten(pspecs)
+    for k, g in convert.flatten(grads).items():
+        out[f"fam/{case}/grad/{k}"] = full_np(
+            S.from_local(g, flat_s[k], mesh, flat_p[k].shape))
+    if case not in JR.FAMILY_ARCHS:
+        return
+    meta.setdefault("shapes", {})[case] = gathered(
+        {"params": shapes_of(dp), "mu": shapes_of(opt["mu"]),
+         "coord": mesh.get_coordinate()})
+    step = TS.make_sharded_train_step(cfg, TCFG, OCFG, mesh, device=dev)
+    losses = []
+    for batch in batches:
+        dp, opt, m = step(dp, opt, batch)
+        losses.append(float(m["loss"]))
+    out[f"fam/{case}/steps"] = np.asarray(losses)
+
+
+DECODE_B, DECODE_S = 2, 12
+
+
+@contextlib.contextmanager
+def heads_seen():
+    """{kernel wrapper: the sorted head counts its calls saw}, filled while
+    the block runs (the wrappers' plain versions on the CPU)."""
+    from repro_torch.kernels import ops
+    seen, origs = {}, {}
+    for name in ("flash_attention", "decode_attention", "wkv6",
+                 "mamba2_ssd"):
+        orig = origs[name] = getattr(ops, name)
+
+        def wrapped(q, *a, orig=orig, name=name, **kw):
+            heads = int(q.shape[2])                    # (B, S, H, D)
+            if heads not in seen.setdefault(name, []):
+                seen[name] = sorted(seen[name] + [heads])
+            return orig(q, *a, **kw)
+        setattr(ops, name, wrapped)
+    try:
+        yield seen
+    finally:
+        for name, orig in origs.items():
+            setattr(ops, name, orig)
+
+
+def family_serving(key, cfg, params, mesh, dev, out, meta, decode=True):
+    """A sharded fp32 prefill of DECODE_B x DECODE_S tokens (with the VLM's
+    vision states, musicgen-large's (B, S, K) frames) and, with ``decode``,
+    teacher-forced decode over every position, on ``mesh``; the one-device
+    port's on rank 0. The kernels' launches (their plain versions on the CPU) report the
+    heads each call saw."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(8)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (DECODE_B, DECODE_S, *books)))
+    vision = None
+    if cfg.family == "vlm":
+        vision = torch.from_numpy(rng.standard_normal(
+            (DECODE_B, cfg.n_vision_tokens, cfg.vision_dim)).astype(
+            np.float32))
+    inp = {"tokens": toks} if vision is None else {"tokens": toks,
+                                                   "vision": vision}
+    f32 = torch.float32
+    _, pspecs, _ = TS.sharded_specs(cfg, mesh)
+    dparams = S.distribute(params, pspecs, mesh)
+    runs = {"mesh": (D.make_sharded_prefill_step(
+        cfg, mesh, compute_dtype=f32, device=dev),
+        D.make_sharded_serve_step(cfg, mesh, DECODE_S, compute_dtype=f32,
+                                  device=dev),
+        lambda: D.init_sharded_decode_state(
+            cfg, mesh, DECODE_B, DECODE_S, dtype=f32, device=dev,
+            vision=vision, params=dparams), dparams)}
+    if dist.get_rank() == 0:
+        runs["one"] = (D.make_prefill_step(cfg, compute_dtype=f32,
+                                           device=dev),
+                       D.make_serve_step(cfg, DECODE_S, compute_dtype=f32,
+                                         device=dev),
+                       lambda: T.init_decode_state(
+                           cfg, DECODE_B, DECODE_S, dtype=f32, device=dev,
+                           vision=vision, params=params), params)
+    for name, (pre, step, init, p) in runs.items():
+        with heads_seen() as heads:
+            out[f"serve/{key}/{name}/prefill"] = pre(p, inp).numpy()
+            if decode:
+                states, got = init(), []
+                for i in range(DECODE_S):
+                    cl = torch.full((DECODE_B,), i, dtype=torch.int32)
+                    logits, states, _ = step(p, states, {
+                        **inp, "tokens": toks[:, i:i + 1], "cache_len": cl})
+                    got.append(logits[:, 0])
+                out[f"serve/{key}/{name}/decode"] = torch.stack(
+                    got, 1).numpy()
+        if name == "mesh":
+            meta.setdefault("heads", {})[key] = heads
+
+
+def group_fam4(rank, world, dev, ref, outdir, out, meta):
+    meshes = {(2, 2): LM.make_mesh((2, 2), ("data", "model"),
+                                   device_type="cpu"),
+              (1, 4): LM.make_mesh((1, 4), ("data", "model"),
+                                   device_type="cpu")}
+    for case, (_, shape, _) in JR.FAMILY_CASES.items():
+        family_train(case, meshes[shape], dev, ref, out, meta)
+    # the fp32 prefill where a rank's query columns split a head (its
+    # decode state shards the KV sequence, ROADMAP A11b.2), and zamba2-7b's
+    # prefill and decode with conv state shards of 40 channels against 32 x
+    # columns a rank, both on (1, 4) against the one-device port
+    for case in ("qwen3-8b-10h@1x4", "zamba2-7b@1x4"):
+        cfg = JR.family_config(case, get_arch)
+        family_serving(case, cfg, convert.from_numpy(ref_tree(
+            ref, f"fam/{case}/params")), meshes[(1, 4)], dev, out, meta,
+            decode=case.startswith("zamba"))
+
+
+def group_fam2(rank, world, dev, ref, outdir, out, meta):
+    import dataclasses
+    mesh = LM.make_mesh((1, 2), ("data", "model"), device_type="cpu")
+    for case in JR.FAMILY_ARCHS:
+        cfg = JR.family_config(case, get_arch)
+        params = convert.from_numpy(ref_tree(ref, f"fam/{case}/params"))
+        inp = {k: torch.from_numpy(v)
+               for k, v in JR.family_batches(cfg, 1)[0].items()
+               if k != "labels"}
+        dparams = S.distribute(params, TS.sharded_specs(cfg, mesh)[1], mesh)
+        with heads_seen() as heads:
+            out[f"fam/{case}/prefill"] = D.make_sharded_prefill_step(
+                cfg, mesh, compute_dtype=torch.float32, device=dev)(
+                dparams, inp).numpy()
+        meta.setdefault("heads", {})[f"prefill/{case}"] = heads
+    # teacher-forced decode of the VLM and the audio model; the VLM at 2
+    # kv heads, since its reduced config's one kv head on a model axis of
+    # 2 shards the KV sequence (ROADMAP A11b.2)
+    for key, cfg in (
+            ("llama-3.2-vision-11b", dataclasses.replace(
+                JR.family_config("llama-3.2-vision-11b", get_arch),
+                n_kv_heads=2)),
+            ("musicgen-large", JR.family_config("musicgen-large",
+                                                get_arch))):
+        params = M.init_params(cfg, 0, device=dev)
+        params = convert.from_numpy(JR.seeded(convert.to_numpy(params),
+                                              np.random.default_rng(3)))
+        family_serving(key, cfg, params, mesh, dev, out, meta)
+
+
+GROUPS = {"four": group_four, "two": group_two, "card": group_card,
+          "fam4": group_fam4, "fam2": group_fam2}
 
 
 def main(argv):
