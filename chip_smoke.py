@@ -44,7 +44,14 @@ their shapes here, in phase 3):
    on 4 kv of 128) and musicgen-large (16 of 32 of 64), all phase 11's
    (``mesh_kernel_times``), WKV6 at a rank's 32 of rwkv6-7b's 64 heads and
    SSD at 56 of zamba2-7b's 112 (phase 11's, ``scan_kernel_times``),
-   each held against its plain version at ``TOL`` of its dtype and timed
+   decode with ``return_lse`` (fp32 o and lse) at a rank's shard of 16384
+   positions, bf16, batch 1, at qwen3-8b's heads (32:8 of 128) and
+   zamba2-7b's shared block's (32:32 of 112), and at the same heads
+   without it over the whole 32768 (phase 12's, ``kvseq_kernel_times``:
+   the partial softmax at ``TOL["float32"]``, the whole 32768's bf16 o at
+   rtol 2e-2, atol 1e-4; each check must refuse the plain version over
+   90% of the positions), the others held against their plain versions at
+   ``TOL`` of their dtype, each timed
    beside its plain version, SDPA where it applies, and its bound; then the
    autotuner's knobs (5–20 s): each bf16 chunked WKV6 and SSD
    instance's registers, spills, shared memory and CTAs per SM; every rung
@@ -259,6 +266,42 @@ their shapes here, in phase 3):
    sharded bf16 prefill and in the phase, launches, heads, every gate's
    reading and limit, the phase's seconds); the bf16 prefill launches
    count in the kernel table's main-path launches.
+12. kvseq (decode states whose KV sequence shards over the mesh; budget
+   90 s): two spawned gloo ranks sharing the card, mesh (2, 1), each
+   model of KVSEQ_RUNS at full width and cut depth from seeded weights:
+   qwen3-8b (2 of 36 layers, batch 1) and zamba2-7b (one period, 6
+   layers, batch 1: ``long_500k``'s layout), whose KV sequence shards
+   over ("data", "model"), and olmo-1b (2 of 16 layers, batch 4), whose
+   batch "resident" replicates, all under the "resident" serving layout
+   (the params replicated: at batch 1 "fsdp" gives the same decode state
+   specs, and its per-call gather of the params through gloo's host
+   memory would take seconds a tick). Each buffer holds 32768 positions,
+   16384 a rank; the decode state (KV caches and Mamba states) is seeded
+   whole from one seed on each rank, which takes its shard. 16
+   teacher-forced ticks start at cache_len 16376, so the batch-1 models'
+   writes cross the ranks' edge at 16384; olmo-1b's rows start at 16376,
+   20480, 24576 and 32000, so that rank 1's shard carries a fifth to half
+   of a row's softmax weight (every seeded position is valid); each rank's
+   decode kernel runs over its shard and returns a partial softmax
+   (``return_lse``), and the ranks merge theirs (one gather of
+   (B, H, D + 1) floats a layer). fp32, then bf16 (the weights cast in
+   place); each rank runs the one-device fp32 ticks, rank 0 the bf16 ones.
+   On (2, 1) the KV sequence shards over data only: the path where
+   "model" shards it (q gathered to every head) runs in the CPU tests
+   alone. Gates (rank 0): the bf16 ticks within 5e-2 of the one-device
+   bf16 ticks' range, or twice the model's own bf16 rounding error where
+   that is larger. Gates (each rank): the fp32 ticks within 1e-5 of the
+   one-device ticks' range; its cache shards after the fp32 ticks equal to
+   its part of the one-device caches within 1e-6 of their range; the decode
+   launches of a bf16 tick (qwen3-8b 2, zamba2-7b 1, olmo-1b 2), each over
+   16384 positions, and no other kernel; no collective of a tick (fp32 or
+   bf16) as large as one layer's cache shard (``spmd.watch_collectives``,
+   which sees torch.distributed's and DTensor's collectives). It prints a
+   ``kvseq:`` JSON
+   line (each rank's ms a tick, sharded and one device's, its cache bytes
+   beside one device's, peak memory, launches, every gate's reading and
+   limit, the phase's seconds); the bf16 ticks' launches count in the
+   kernel table's main-path launches.
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -414,6 +457,15 @@ MESH_FAMILIES = {"rwkv6-7b": 2, "zamba2-7b": 6, "llama-3.2-vision-11b": 5,
 MESH_FAMILY_FP32 = (4, 512)
 MESH_FAMILY_TICKS = 16
 MESH_FAMILIES_BUDGET_S = 120
+# phase 12: decode states whose KV sequence shards over a (2, 1) mesh, each
+# model at full width: its layers and batch; the buffer, the rows' first
+# cache_len (row 0's writes cross the ranks' edge at KVSEQ_BUF / 2; the
+# later rows give rank 1's shard a fifth to half of the softmax weight),
+# the ticks and the phase's time budget
+KVSEQ_RUNS = {"qwen3-8b": (2, 1), "zamba2-7b": (6, 1), "olmo-1b": (2, 4)}
+KVSEQ_BUF, KVSEQ_TICKS = 32768, 16
+KVSEQ_STARTS = (16376, 20480, 24576, 32000)
+KVSEQ_BUDGET_S = 90
 
 
 T0 = time.perf_counter()
@@ -785,6 +837,11 @@ def main() -> int:
     log("kernels: flash (bf16 prefill) and decode (fp32 ticks) at a rank's "
         "share of the heads of phase 11's attention models: "
         f"{json.dumps(at_ranks['kernels_at_family_ranks'])} [{card}]")
+    shards = kvseq_kernel_times(dev)
+    decode_row.update(shards)
+    log("kernels: decode attention with return_lse at a rank's shard of "
+        f"{KVSEQ_BUF // 2} positions, and without at the whole "
+        f"{KVSEQ_BUF} (phase 12): {json.dumps(shards)} [{card}]")
     scans = scan_kernel_times(dev)
     wkv_row["at_rwkv6_7b_32_of_64_heads"] = scans["wkv6"]
     ssd_row["at_zamba2_7b_56_of_112_heads"] = scans["mamba2_ssd"]
@@ -904,6 +961,14 @@ def main() -> int:
         for name, n in rank["launches"].items():
             totals[name] += n
     log("mesh_families: " + json.dumps(families))
+
+    # -- 12. decode states whose KV sequence shards over the mesh -------------
+    phase("12. kvseq")
+    kvseq = run_kvseq(card, dev)
+    for rank in kvseq["ranks"]:
+        for name, n in rank["launches"].items():
+            totals[name] += n
+    log("kvseq: " + json.dumps(kvseq))
 
     for row in rows:
         row["launches"] = totals[row["name"]]
@@ -3193,6 +3258,98 @@ def scan_kernel_times(dev) -> dict:
     return out
 
 
+def kvseq_kernel_times(dev) -> dict:
+    """The decode kernel where phase 12 runs it: bf16, batch 1, with
+    ``return_lse`` at a rank's shard of KVSEQ_BUF / 2 positions (every one
+    valid) at qwen3-8b's heads (32 on 8 kv heads of 128) and zamba2-7b's
+    shared block's (32 on 32 of 112), and at the same heads without it over
+    the whole KVSEQ_BUF buffer, for comparison. Each is held against its
+    plain version on the same inputs, then timed with L2 flushed beside its
+    plain version, SDPA on the same inputs (its o only) and the bound of the
+    same work from ``KernelSpec.cost``. The partial softmax's o and lse are
+    fp32 on both sides, computed in fp32 from the same bf16 inputs: held at
+    ``TOL["float32"]``. The whole-buffer rows' o is bf16 of a size near
+    sqrt(e / S) (scores N(0, 1) spread the softmax over about S / e keys):
+    held at rtol 2e-2 and an atol of 1e-4, scaled to it. Each check must
+    also refuse the plain version over 90% of the positions, a kernel that
+    skipped a tenth of them."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.provision import autotune as AT
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+    if dev.type != "cuda":
+        return {"at_kvseq": "not measured (no card)"}
+    flush = l2_flush_buffer(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for arch in ("qwen3-8b", "zamba2-7b"):
+        cfg = get_arch(arch)
+        h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        for s, lse in ((KVSEQ_BUF // 2, True), (KVSEQ_BUF, False)):
+            q = torch.randn((1, 1, h, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            kc, vc = (torch.randn((1, s, kv, d), generator=gen,
+                                  device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+            lens = torch.full((1,), s, dtype=torch.int32, device=dev)
+            kh, vh = (t.permute(0, 2, 1, 3) for t in (kc, vc))
+            qh = q.permute(0, 2, 1, 3)
+            got = ops.decode_attention(q, kc, vc, lens, return_lse=lse)
+            want = dec.decode_attention_plain(q[:, 0], kh, vh, lens,
+                                              return_lse=lse)
+            torch.cuda.synchronize()
+            short = dec.decode_attention_plain(q[:, 0], kh, vh,
+                                               lens * 9 // 10,
+                                               return_lse=lse)
+            rtol, atol = TOL["float32"] if lse else (2e-2, 1e-4)
+            pairs = [(got[0][:, 0], want[0], short[0]),
+                     (got[1], want[1], short[1])] if lse \
+                else [(got[:, 0], want, short)]
+            err = 0.0
+            for g, w, sh in pairs:
+                g, w = g.float(), w.float()
+                err = max(err, (g - w).abs().max().item())
+                if not (bool(torch.isfinite(g).all())
+                        and torch.allclose(g, w, rtol=rtol, atol=atol)):
+                    raise AssertionError(
+                        f"decode attention (return_lse={lse}) at {arch}'s "
+                        f"heads over {s} positions disagrees with its plain "
+                        f"version: max_abs_err {err:.3e}")
+                if torch.allclose(sh.float(), w, rtol=rtol, atol=atol):
+                    raise AssertionError(
+                        f"decode attention's check at {arch}'s heads over "
+                        f"{s} positions (rtol {rtol}, atol {atol}) passes "
+                        "the plain version over 90% of them")
+            key = f"at_{arch.replace('-', '_')}_" + (
+                f"kvseq_shard_of_{s}" if lse else f"whole_{s}")
+            out[key] = {
+                "shape": [1, s, h, kv, d], "dtype": "bfloat16",
+                "return_lse": lse, "cache_len": [s], "max_abs_err": err,
+                "tol": atol, "rtol": rtol,
+                "ms": flushed_ms(lambda: ops.decode_attention(
+                    q, kc, vc, lens, return_lse=lse), 50, flush),
+                "plain_ms": flushed_ms(lambda: dec.decode_attention_plain(
+                    q[:, 0], kh, vh, lens, return_lse=lse), 20, flush),
+                "library_ms": flushed_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, enable_gqa=h != kv), 50, flush)}
+            flops, nbytes = AT.KERNELS["decode_attention"].cost(
+                {"b": 1, "s": s, "h": h, "kv": kv, "d": d,
+                 "dtype": "bfloat16"}, valid=s)
+            t_ops = flops / PEAK_FLOPS["bfloat16"]
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            out[key].update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                            bound_by="operations" if t_ops >= t_bytes
+                            else "bytes")
+            del q, kc, vc, kh, vh, qh, got, want, short
+    del flush
+    free()
+    return out
+
+
 def _mesh_rank(rank: int, world: int, part: str, outdir: str,
                init_method: str, device: str) -> None:
     """One of phase 10's two gloo ranks on the card: part "tp" on a (1, 2)
@@ -3616,6 +3773,218 @@ def _mesh_families(rank: int, dev) -> dict:
         free()
         row["seconds"] = time.perf_counter() - start
         res["models"][arch] = row
+    res["launches"] = launches
+    res["gates"] = gates
+    res["peak_gb"] = max(peak, _peak_gb(dev))
+    return res
+
+
+def run_kvseq(card, dev) -> dict:
+    """Phase 12 (see the module docstring): two spawned gloo ranks on the
+    card, mesh (2, 1), each writing its readings to a file that this
+    process reads and gates."""
+    import tempfile
+
+    from repro_torch.launch import mesh as LM
+    t0 = time.perf_counter()
+    out = {"card": card, "gates": {}}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        LM.run_ranks(_kvseq_rank, 2, (tmp, "tcp://localhost:"
+                                      f"{LM.free_port()}", dev.type))
+        ranks = [json.loads(Path(tmp, f"kvseq.{r}.json").read_text())
+                 for r in range(2)]
+    for r, rank in enumerate(ranks):
+        for name, (value, limit) in rank["gates"].items():
+            out["gates"][f"rank {r} {name}"] = [value, limit]
+            if not value <= limit:
+                raise AssertionError(f"kvseq: rank {r} {name} "
+                                     f"{value:.3e} > {limit:.3e}")
+    out["ranks"] = ranks
+    out["seconds"] = time.perf_counter() - t0
+    out["budget_s"] = KVSEQ_BUDGET_S
+    return out
+
+
+def _kvseq_rank(rank: int, world: int, outdir: str, init_method: str,
+                device: str) -> None:
+    """One of phase 12's two gloo ranks on the card; its readings to
+    OUTDIR/kvseq.RANK.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as LM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = LM.init_rank(rank, world, backend="gloo", device=device,
+                       init_method=init_method)
+    try:
+        _reset_peak(dev)
+        res = _kvseq(rank, dev)
+        res["rank"] = rank
+        Path(outdir, f"kvseq.{rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _seeded_state(cfg, b: int, dtype, dev):
+    """The whole decode state of ``b`` rows and KVSEQ_BUF positions in
+    ``dtype`` (the SSM state fp32, as ``init_decode_state`` keeps it), each
+    leaf 0.5 N(0, 1) in fp32 from seed 12 on the card, then rounded to its
+    dtype: the same values on every rank, which then takes its shard, and
+    the bf16 state the fp32 one rounded."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import spmd as S
+    gen = torch.Generator(device=dev).manual_seed(12)
+    state = T.init_decode_state(cfg, b, KVSEQ_BUF, dtype=dtype, device=dev)
+    return S.map_tree(lambda t: (0.5 * torch.randn(
+        t.shape, generator=gen, device=dev)).to(t.dtype), state)
+
+
+def _kvseq(rank: int, dev) -> dict:
+    """Each of KVSEQ_RUNS at full width on a (2, 1) mesh under the
+    "resident" serving layout (the params replicated, no FSDP gather; at
+    batch 1 the "fsdp" layout gives the same decode state specs, and its
+    per-call gather of the params through gloo's host memory would take
+    seconds a tick), each KV cache's sequence over ("data", "model"): a
+    rank holds KVSEQ_BUF / 2 positions. fp32 then bf16 (the weights cast in
+    place between); the one-device ticks before the sharded ones."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import decode as D
+    from repro_torch.sharding import rules as SR
+    from repro_torch.sharding import spmd as S
+    from repro_torch.train import train_step as TS
+
+    mesh = LM.make_mesh((2, 1), ("data", "model"), device_type=dev.type)
+    counters = launch_counters()
+    positions = set()
+    orig = ops.decode_attention
+
+    def seen(q, kc, *a, **kw):
+        positions.add(int(kc.shape[1]))                   # (B, S, KV, D)
+        return orig(q, kc, *a, **kw)
+    ops.decode_attention = seen
+    f32, b16 = torch.float32, torch.bfloat16
+    res, gates, launches = {"models": {}}, {}, dict.fromkeys(counters, 0)
+    peak = 0.0
+
+    def ticks(step, params, states, tokens, starts):
+        """KVSEQ_TICKS teacher-forced ticks: (logits (B, T, V) on the host,
+        ms a tick)."""
+        got, ms = [], []
+        for i in range(KVSEQ_TICKS):
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, states, _ = step(params, states, {
+                "tokens": tokens[:, i:i + 1], "cache_len": starts + i})
+            _sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            got.append(logits[:, 0].float().cpu())
+        return torch.stack(got, 1), ms
+
+    def caches(states):
+        return [t for key in T.kv_cache_keys(cfg) for t in states[key]]
+
+    for arch, (layers, b) in KVSEQ_RUNS.items():
+        start = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        one = rank == 0
+        row = {"layers": layers, "batch": b}
+        rules = SR.AxisRules.for_mesh(mesh)
+        specs = SR.decode_state_specs(cfg, b, rules, layout="resident")
+        row["kv_spec"] = specs[T.kv_cache_keys(cfg)[0]][0]
+        tokens = torch.from_numpy(np.random.default_rng(13).integers(
+            0, cfg.vocab_size, (b, KVSEQ_TICKS)))
+        starts = torch.tensor(KVSEQ_STARTS[:b], dtype=torch.int32)
+        full = weights(cfg, dev)                              # fp32
+        pspecs = TS.sharded_specs(cfg, mesh, fsdp=False)[1]
+        want = {}
+        for name, dt in (("fp32", f32), ("bf16", b16)):
+            if dt == b16:
+                M.cast_params(full, b16)
+            whole = _seeded_state(cfg, b, dt, dev)
+            states = D.init_sharded_decode_state(
+                cfg, mesh, b, KVSEQ_BUF, dtype=dt, device=dev,
+                layout="resident")
+            S.map_tree(lambda t, w, sp: t.to_local().copy_(
+                S.shard_of(w, sp, mesh)), states, whole, specs)
+            if name == "fp32" or one:          # the one-device ticks
+                want[name], ms = ticks(D.make_serve_step(
+                    cfg, KVSEQ_BUF, compute_dtype=dt, device=dev), full,
+                    whole, tokens, starts)
+                row[f"one_tick_{name}_ms"] = sum(ms[1:]) / len(ms[1:])
+            params = S.distribute(full, pspecs, mesh)
+            step = D.make_sharded_serve_step(cfg, mesh, KVSEQ_BUF,
+                                             compute_dtype=dt, device=dev,
+                                             layout="resident")
+            peak = max(peak, _peak_gb(dev))
+            _reset_peak(dev)
+            for c in counters.values():
+                c.launches = 0
+            positions.clear()
+            with S.watch_collectives() as moved:
+                got, ms = ticks(step, params, states, tokens, starts)
+            row[f"tick_{name}_ms"] = sum(ms[1:]) / len(ms[1:])
+            row[f"{name}_peak_gb"] = _peak_gb(dev)
+            shard = caches(S.to_local(states))
+            layer = shard[0].shape[-4:]                      # (B, S, KV, D)
+            layer_bytes = int(np.prod(layer)) * shard[0].element_size()
+            row[f"{name}_most_moved_bytes"] = max(moved, default=0)
+            gates[f"{arch} {name} collective of a tick, bytes, below one "
+                  f"layer's cache shard ({layer_bytes})"] = [
+                max(moved, default=0), layer_bytes - 1]
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{arch}: non-finite {name} logits")
+            if name == "fp32":
+                gates[f"{arch} {KVSEQ_TICKS} ticks (fp32) against one "
+                      "device"] = [_range_err(got, want["fp32"]), 1e-5]
+                mine = [S.shard_of(w, sp, mesh) for w, sp in zip(
+                    caches(whole), caches(specs))]
+                gates[f"{arch} cache shard after the ticks (fp32) against "
+                      "one device's, over its range"] = [max(
+                          ((a - w).abs().max() / (w.max() - w.min())).item()
+                          for a, w in zip(shard, mine)), 1e-6]
+                del whole, states, params, step, shard, mine
+                free()
+                continue
+            row["launches"] = {k: c.launches for k, c in counters.items()}
+            row["decode_positions"] = sorted(positions)
+            for k, n in row["launches"].items():
+                launches[k] += n
+            per_tick = launches_per_call(cfg)[1]
+            gates[f"{arch} launches a bf16 tick"] = [sum(
+                abs(row["launches"][k] / KVSEQ_TICKS - per_tick.get(k, 0))
+                for k in counters), 0]
+            gates[f"{arch} positions a decode launch (0 = the rank's "
+                  f"{KVSEQ_BUF // 2})"] = [
+                0 if row["decode_positions"] == [KVSEQ_BUF // 2] else 1, 0]
+            row["cache_bytes"] = sum(t.numel() * t.element_size()
+                                     for t in shard)
+            row["one_device_cache_bytes"] = sum(
+                t.numel() * t.element_size() for t in caches(whole))
+            if one:
+                err = (got - want["bf16"]).abs().max().item()
+                rounding = (want["bf16"] - want["fp32"]).abs().max().item()
+                span = (want["bf16"].max() - want["bf16"].min()).item()
+                row["bf16_rounding_error"] = rounding
+                gates[f"{arch} {KVSEQ_TICKS} ticks (bf16) against one "
+                      "device"] = [err, max(5e-2 * span, 2 * rounding)]
+            del whole, states, params, step, shard
+            free()
+        del full
+        free()
+        row["seconds"] = time.perf_counter() - start
+        res["models"][arch] = row
+    ops.decode_attention = orig
     res["launches"] = launches
     res["gates"] = gates
     res["peak_gb"] = max(peak, _peak_gb(dev))

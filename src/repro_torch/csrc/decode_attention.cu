@@ -32,6 +32,15 @@
 // the split length (`decode_attention.split_size`, or the caller's `split`,
 // the autotuner's knob) and allocates the scratch; the kernel allocates
 // nothing.
+//
+// Partial softmax (`lse` given): the instances with LSE write o in fp32, not
+// rounded to the input type, and each row's log-sum-exp lse = m + log(l) of
+// its scaled scores over the valid positions, -inf for a row with none (whose
+// o is zeros). A rank that holds one shard of a sequence-sharded cache
+// attends over its shard so, and the ranks merge their (o, lse) pieces
+// (`sharding/spmd.merge_partials`). Each of the three places that writes a
+// row's o (the empty row, a row of one active split, the merging CTA) writes
+// its lse too. Without `lse` the instances are today's, unchanged.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -121,12 +130,14 @@ size_t smem_bytes(int split, int D, int G, size_t elem) {
          sizeof(float) * ((size_t)G * DMAX + (size_t)G * split + KGROUPS * DMAX);
 }
 
-template <typename T>
+// T: the inputs' type; TO: o's (T, or float with LSE); LSE: write lse (B, H)
+template <typename T, typename TO, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ cache_len,
-              T* __restrict__ o, float* __restrict__ part_acc,
-              float* __restrict__ part_ml, int* __restrict__ tickets, Args a) {
+              TO* __restrict__ o, float* __restrict__ lse,
+              float* __restrict__ part_acc, float* __restrict__ part_ml,
+              int* __restrict__ tickets, Args a) {
   constexpr int EPC = 16 / sizeof(T);                    // values per 16 bytes
   constexpr int CPT = (DMAX / EPC + LPK - 1) / LPK;      // chunks per lane
   constexpr int VKEYS = V_CHUNKS / CPT;                  // V rows per thread
@@ -136,12 +147,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int len = max(0, min(cache_len[b], a.S));
   const int n_act = (len + a.split - 1) / a.split;       // splits with keys
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  T* ob = o + b * a.o_sb + (long long)kvh * G * a.o_sh;
+  TO* ob = o + b * a.o_sb + (long long)kvh * G * a.o_sh;
+  float* lb = LSE ? lse + (long long)b * a.H + kvh * G : nullptr;
 
   if (n_act == 0) {                                      // empty row: zeros
-    if (split == 0)
+    if (split == 0) {
       for (int i = tid; i < G * a.D; i += THREADS)
-        ob[(i / a.D) * a.o_sh + i % a.D] = from_f32<T>(0.f);
+        ob[(i / a.D) * a.o_sh + i % a.D] = from_f32<TO>(0.f);
+      if constexpr (LSE)
+        for (int g = tid; g < G; g += THREADS) lb[g] = -INFINITY;
+    }
     return;
   }
   if (split >= n_act) return;
@@ -289,7 +304,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < KGROUPS; ++j) sum += red[j * DMAX + d];
       if (n_act == 1)
-        ob[g * a.o_sh + d] = from_f32<T>(sum / l_s[g]);
+        ob[g * a.o_sh + d] = from_f32<TO>(sum / l_s[g]);
       else
         part_acc[part * a.D + d] = sum;
     }
@@ -297,6 +312,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       part_ml[2 * part] = m_s[g];
       part_ml[2 * part + 1] = l_s[g];
     }
+    if constexpr (LSE)
+      if (tid == 0 && n_act == 1) lb[g] = m_s[g] + logf(l_s[g]);
     __syncthreads();
   }
   if (n_act == 1) return;
@@ -327,6 +344,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (lane == 0) {
       m_s[g] = mx;
       l_s[g] = l;
+      if constexpr (LSE) lb[g] = mx + logf(l);
     }
   }
   __syncthreads();
@@ -338,19 +356,20 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int s = 0; s < n_act; ++s)
       acc += __ldcg(&part_acc[(base + s) * a.D + d]) *
              expf(__ldcg(&part_ml[2 * (base + s)]) - m_s[g]);
-    ob[g * a.o_sh + d] = from_f32<T>(acc / l_s[g]);
+    ob[g * a.o_sh + d] = from_f32<TO>(acc / l_s[g]);
   }
   if (tid == 0) atomicExch(&tickets[blockIdx.y], 0);     // ready for the next call
 }
 
-template <typename T>
+template <typename T, typename TO, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* cache_len, void* o, float* part_acc,
+                   const int* cache_len, void* o, float* lse, float* part_acc,
                    float* part_ml, int* tickets, int B, const Args& a,
                    cudaStream_t stream) {
   static std::atomic<bool> smem_set[MAX_DEVICES];
   const cudaError_t attr = allow_smem(
-      reinterpret_cast<const void*>(decode_kernel<T>), SMEM_CAP, smem_set);
+      reinterpret_cast<const void*>(decode_kernel<T, TO, LSE>), SMEM_CAP,
+      smem_set);
   if (attr != cudaSuccess) return attr;
   // a thread holds V_CHUNKS 16-byte pieces of V: 8 key groups of
   // V_CHUNKS / (pieces per lane) rows, so 128 (bf16) or 64 (fp32) positions
@@ -360,25 +379,27 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const size_t smem = smem_bytes(a.split, a.D, a.H / a.KV, sizeof(T));
   if (smem > (size_t)SMEM_CAP) return cudaErrorInvalidValue;
   dim3 grid(a.nsplit, B * a.KV);
-  decode_kernel<T><<<grid, THREADS, smem, stream>>>(
+  decode_kernel<T, TO, LSE><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), cache_len, static_cast<T*>(o), part_acc,
-      part_ml, tickets, a);
+      static_cast<const T*>(v), cache_len, static_cast<TO*>(o), lse,
+      part_acc, part_ml, tickets, a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. cache_len is int32 on the device. split
-// is the positions per CTA; part_acc holds B*H*nsplit*D floats, part_ml
-// B*H*nsplit*2 floats, tickets B*KV int32 zeros (left zero after the call),
-// nsplit = ceil(S / split). The caches' base and position and head strides
-// must be 16-byte aligned and D * elem a multiple of 16 bytes. Returns a
-// cudaError_t as int (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. cache_len is int32 on the device. lse:
+// null, or B*H floats (row b, head h at b*H + h) for each row's log-sum-exp,
+// and then o is float32 whatever dtype is. split is the positions per CTA;
+// part_acc holds B*H*nsplit*D floats, part_ml B*H*nsplit*2 floats, tickets
+// B*KV int32 zeros (left zero after the call), nsplit = ceil(S / split). The
+// caches' base and position and head strides must be 16-byte aligned and
+// D * elem a multiple of 16 bytes. Returns a cudaError_t as int (0 =
+// launched).
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const void* cache_len, void* o,
-    void* part_acc, void* part_ml, void* tickets, int dtype, int B, int S,
-    int H, int KV, int D, int split, long long q_sb, long long q_sh,
+    void* lse, void* part_acc, void* part_ml, void* tickets, int dtype, int B,
+    int S, int H, int KV, int D, int split, long long q_sb, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_sh,
     float scale, int device, void* stream) {
@@ -395,10 +416,19 @@ extern "C" int decode_attention_fwd(
   float* pml = static_cast<float*>(part_ml);
   int* tk = static_cast<int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    err = launch<float>(q, k, v, lens, o, pa, pml, tk, B, a, st);
+  float* ls = static_cast<float*>(lse);
+  if (dtype == 0 && !ls)
+    err = launch<float, float, false>(q, k, v, lens, o, ls, pa, pml, tk, B, a,
+                                      st);
+  else if (dtype == 1 && !ls)
+    err = launch<__nv_bfloat16, __nv_bfloat16, false>(q, k, v, lens, o, ls, pa,
+                                                      pml, tk, B, a, st);
+  else if (dtype == 0)
+    err = launch<float, float, true>(q, k, v, lens, o, ls, pa, pml, tk, B, a,
+                                     st);
   else if (dtype == 1)
-    err = launch<__nv_bfloat16>(q, k, v, lens, o, pa, pml, tk, B, a, st);
+    err = launch<__nv_bfloat16, float, true>(q, k, v, lens, o, ls, pa, pml, tk,
+                                             B, a, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)err;

@@ -21,6 +21,12 @@ fp32 kernels; ``None`` keeps ``split_size``'s rule, and the autotuner
 ``decode_attention_bhd`` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors. ``decode_attention_bhd.launches`` counts
 kernel launches (one per call).
+
+With ``return_lse`` both return a partial softmax, for a rank that holds one
+shard of a sequence-sharded cache: o in fp32 (not rounded to the input
+dtype) and each row's log-sum-exp of its scaled scores over its valid
+positions, ``-inf`` for a row with none (whose o is zeros); the ranks merge
+their pieces with ``sharding/spmd.merge_partials``.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "decode_attention_fwd": (
-        [_P] * 8 + [_I] * 7 + [_L] * 10 + [ctypes.c_float, _I, _P], _I),
+        [_P] * 9 + [_I] * 7 + [_L] * 10 + [ctypes.c_float, _I, _P], _I),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -108,13 +114,16 @@ def check_cache_layout(name, t):
                          f"{t.shape[3]} must come to multiples of 16 bytes")
 
 
-def decode_attention_plain(q, k_cache, v_cache, cache_len):
+def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
+                           return_lse: bool = False):
     """Plain PyTorch version. q: (B, H, D); caches (B, KV, S, D); cache_len
     (B,). fp32 math, scale 1/sqrt(D); positions >= cache_len[b] are masked,
     and a row with no valid position gives zeros (the Pallas kernel's finite
     mask averages all of V there; the model never asks for such a row). It
     has no knob: on CPU tensors the wrapper checks a ``split`` it is given
-    and ignores it."""
+    and ignores it. ``return_lse``: (o fp32 (B, H, D), lse fp32 (B, H)),
+    lse = m + log(l) of the scaled scores, -inf for a row with no valid
+    position."""
     b, h, d = q.shape
     kv, s = k_cache.shape[1], k_cache.shape[2]
     qf = q.float().reshape(b, kv, h // kv, 1, d) * d ** -0.5
@@ -126,12 +135,17 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len):
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     e = torch.exp(sc - m)                                    # (B, KV, G, S)
     o = (e[..., None, :] @ v_cache.float()[:, :, None])[..., 0, :]
-    o = o / e.sum(-1, keepdim=True).clamp_min(1e-37)
-    return o.reshape(b, h, d).to(q.dtype)
+    l = e.sum(-1, keepdim=True)
+    o = (o / l.clamp_min(1e-37)).reshape(b, h, d)
+    if return_lse:
+        return o, (m + torch.log(l)).reshape(b, h)
+    return o.to(q.dtype)
 
 
-def decode_attention_bhd(q, k_cache, v_cache, cache_len, *, split=None):
-    """q: (B, H, D); caches (B, KV, S, D); cache_len (B,) -> (B, H, D).
+def decode_attention_bhd(q, k_cache, v_cache, cache_len, *, split=None,
+                         return_lse: bool = False):
+    """q: (B, H, D); caches (B, KV, S, D); cache_len (B,) -> (B, H, D), or
+    with ``return_lse`` (o fp32 (B, H, D), lse fp32 (B, H)).
 
     Any strides are accepted as long as the head dim is contiguous; on the
     card the caches' base and strides must also be 16-byte aligned
@@ -148,16 +162,17 @@ def decode_attention_bhd(q, k_cache, v_cache, cache_len, *, split=None):
                          f"cache_len{tuple(cache_len.shape)}")
     check_split(split, d, h // k_cache.shape[1], q.element_size())
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, cache_len)
+        return decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                      return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no decode attention for device {q.device}")
-    return _launch(q, k_cache, v_cache, cache_len, split)
+    return _launch(q, k_cache, v_cache, cache_len, split, return_lse)
 
 
 decode_attention_bhd.launches = 0
 
 
-def _launch(q, k_cache, v_cache, cache_len, split):
+def _launch(q, k_cache, v_cache, cache_len, split, return_lse):
     b, h, d = q.shape
     kv, s = k_cache.shape[1], k_cache.shape[2]
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
@@ -172,7 +187,9 @@ def _launch(q, k_cache, v_cache, cache_len, split):
     if h // kv > MAX_GROUP:
         raise ValueError(f"{h // kv} query heads per kv head > {MAX_GROUP}")
     lens = cache_len.to(torch.int32).contiguous()
-    o = torch.empty_like(q)
+    o = torch.empty_like(q, dtype=torch.float32 if return_lse else q.dtype)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     for name, t in (("q", q), ("o", o)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
@@ -190,7 +207,8 @@ def _launch(q, k_cache, v_cache, cache_len, split):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        o.data_ptr(), None if lse is None else lse.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(),
         _ticket_buffer(q.device, stream, b * kv).data_ptr(),
         _DTYPES[q.dtype], b, s, h, kv, d, split,
         q.stride(0), q.stride(1),
@@ -202,7 +220,7 @@ def _launch(q, k_cache, v_cache, cache_len, split):
         raise RuntimeError(f"decode attention kernel failed to launch: "
                            f"cudaError {rc}")
     decode_attention_bhd.launches += 1
-    return o
+    return o if lse is None else (o, lse)
 
 
 def _ticket_buffer(device, stream: int, n: int):

@@ -33,13 +33,19 @@ def flash_attention(q, k, v, *, causal: bool = True, group=None):
     return o.permute(0, 2, 1, 3)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *, split=None):
+def decode_attention(q, k_cache, v_cache, cache_len, *, split=None,
+                     return_lse: bool = False):
     """q: (B, 1, H, D); caches (B, S, KV, D); cache_len (B,) ->
-    (B, 1, H, D)."""
-    o = _dec.decode_attention_bhd(q[:, 0], k_cache.permute(0, 2, 1, 3),
-                                  v_cache.permute(0, 2, 1, 3), cache_len,
-                                  **_knob("split", split))
-    return o[:, None]
+    (B, 1, H, D); with ``return_lse`` the partial softmax (o fp32
+    (B, 1, H, D), lse fp32 (B, H)) of ``decode_attention_bhd``."""
+    out = _dec.decode_attention_bhd(q[:, 0], k_cache.permute(0, 2, 1, 3),
+                                    v_cache.permute(0, 2, 1, 3), cache_len,
+                                    **_knob("split", split),
+                                    **({"return_lse": True} if return_lse
+                                       else {}))
+    if return_lse:
+        return out[0][:, None], out[1]
+    return out[:, None]
 
 
 def wkv6(r, k, v, logw, u, *, value_tile=None):

@@ -36,7 +36,7 @@ class ServeResult:
 
 def serve(cfg: ArchConfig, params, prompts: list[list[int]], *, slots: int,
           buf: int, max_new: int, compute_dtype=torch.bfloat16,
-          device="cuda", mesh=None) -> ServeResult:
+          device="cuda", mesh=None, layout: str = "fsdp") -> ServeResult:
     """Serve ``prompts`` through ``slots`` decode slots with caches of
     ``buf`` positions. Slots hold independent requests; a finished slot is
     refilled from the queue without stalling the others. A prompt is fed
@@ -44,9 +44,12 @@ def serve(cfg: ArchConfig, params, prompts: list[list[int]], *, slots: int,
     generated greedily. Token-only archs: the reference's driver refuses
     the VLM and codebook archs, whose requests carry vision states or code
     frames (serve them with ``serve.decode.greedy_generate``). With
-    ``mesh`` (a ``DeviceMesh``; every rank calls ``serve`` with the same
-    prompts), params are DTensors under ``train_step.sharded_specs``' and
-    the loop runs the sharded serve step (every token-only layout: the
+    ``mesh`` (a ``DeviceMesh`` of any (D, M) shape; every rank calls
+    ``serve`` with the same prompts), params are DTensors under
+    ``train_step.sharded_specs``' of the serving ``layout`` ("fsdp", or
+    "resident": ``fsdp=False``, the batch replicated) and the loop runs the
+    sharded serve step at any slot count (every token-only layout; a KV
+    cache's sequence shards where the spec puts it on the mesh; the
     recurrent families reset a slot's state on the ranks that hold it);
     every rank gets the results."""
     dev = resolve_device(device)
@@ -66,10 +69,11 @@ def serve(cfg: ArchConfig, params, prompts: list[list[int]], *, slots: int,
                                device=dev)
     else:
         states = D.init_sharded_decode_state(cfg, mesh, slots, buf,
-                                             dtype=compute_dtype, device=dev)
+                                             dtype=compute_dtype, device=dev,
+                                             layout=layout)
         step = D.make_sharded_serve_step(cfg, mesh, buf,
                                          compute_dtype=compute_dtype,
-                                         device=dev)
+                                         device=dev, layout=layout)
 
     cache_len = np.zeros((slots,), np.int32)
     cur = np.zeros((slots, 1), np.int64)

@@ -314,6 +314,23 @@ def _local_q(p, x, cfg: ArchConfig, mesh):
         slice(c0 - h0 * hd, c0 - h0 * hd + cols)
 
 
+def _all_q(p, x, cfg: ArchConfig, mesh):
+    """q (B, S, H, D) of every query head, this rank's wq columns gathered
+    over the model axis, and the slice of its (B, S, H * D) output that is
+    this rank's columns: (q, (0, H), keep). For decode where the KV cache
+    holds a sequence shard of every kv head (its kv heads do not divide the
+    model axis, so the spec shards its sequence over model): every rank of
+    the sequence's group attends with every head, and keeps its columns for
+    its rows of wo."""
+    b, s, _ = x.shape
+    q = x @ p["wq"].to(x.dtype)
+    cols = q.shape[-1]
+    c0 = mesh.tp_rank * cols
+    q = S.tp_gather(q, mesh, -1, sum_grads=True)
+    return q.view(b, s, cfg.n_heads, cfg.resolved_head_dim), \
+        (0, cfg.n_heads), slice(c0, c0 + cols)
+
+
 def _out_proj(o, p, keep, mesh):
     """o (B, S, n, D) -> this rank's columns of it @ its wo rows, summed
     over the model axis."""
@@ -397,14 +414,23 @@ def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
     of wq, wk and wv (its heads: ``_local_q``, ``_local_kv``), its row
     shard of wo, the partial outputs summed over the model axis; the
     qk-norm scales see this rank's heads, so their gradients are summed
-    too. Returns (out, cache).
+    too. A decode cache whose sequence shards over the mesh
+    (``mesh.kv_seq_axes``) holds this rank's positions: the new token is
+    written on the rank that holds its position, the decode kernel runs
+    over the rank's shard and gives a partial softmax, and the ranks of the
+    sequence's group merge theirs (``spmd.merge_partials``); where "model"
+    shards the sequence the cache holds every kv head, so every rank
+    attends with every query head (``_all_q``). Returns (out, cache).
     """
     if kv_src is not None:
         return cross_attention_block(p, x, cfg, kv_src=kv_src,
                                      mesh=mesh), None
     cd = x.dtype
     x = S.tp_copy(x, mesh)
-    q, heads, keep = _local_q(p, x, cfg, mesh)
+    seq = mesh.kv_seq_axes if kv_cache is not None and mesh is not None \
+        else ()
+    q, heads, keep = (_all_q if "model" in seq else _local_q)(p, x, cfg,
+                                                               mesh)
     k, v = _local_kv(x @ p["wk"].to(cd), x @ p["wv"].to(cd), cfg, mesh,
                      *heads)
     if cfg.qk_norm:
@@ -417,7 +443,16 @@ def attention_block(p, x, cfg: ArchConfig, *, rope=None, positions=None,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    if kv_cache is not None:             # decode step
+    if kv_cache is not None and seq:     # decode, the sequence sharded
+        kc, vc = kv_cache
+        n = kc.shape[1]
+        at = cache_len - mesh.kv_shard * n   # this shard's position of it
+        cache_insert(kc, k, at, mode="shard")
+        cache_insert(vc, v, at, mode="shard")
+        o, lse = ops.decode_attention(q, kc.to(cd), vc.to(cd),
+                                      (at + 1).clamp(0, n), return_lse=True)
+        o = S.merge_partials(o[:, 0], lse, mesh.kv_seq_group, cd)[:, None]
+    elif kv_cache is not None:           # decode step
         kc, vc = kv_cache
         cache_insert(kc, k, cache_len)
         cache_insert(vc, v, cache_len)
@@ -436,12 +471,24 @@ def cache_insert(cache, new, idx, *, mode: str = "scatter"):
 
     "scatter" writes only the B rows; the caller guarantees idx < S
     (``model.make_ctx`` checks it), since an index past the end raises on
-    the CPU and faults the device. "onehot" rewrites every row with the
-    reference's one-hot blend, which drops idx >= S as the reference does.
+    the CPU and faults the device. "shard" is the write into one shard of
+    a sequence-sharded cache, where idx (the position less the shard's
+    offset) may fall outside the shard: a row whose idx is outside keeps
+    its values (its position is another rank's), written back at an index
+    clamped into the shard, so that no index leaves it and no host sync
+    decides. "onehot" rewrites every row with the reference's one-hot
+    blend, which drops idx >= S as the reference does.
     """
     if mode == "scatter":
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache[rows, idx.long()] = new[:, 0].to(cache.dtype)
+    elif mode == "shard":
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        inside = (idx >= 0) & (idx < cache.shape[1])
+        at = idx.clamp(0, cache.shape[1] - 1).long()
+        cache[rows, at] = torch.where(inside[:, None, None],
+                                      new[:, 0].to(cache.dtype),
+                                      cache[rows, at])
     elif mode == "onehot":
         pos = torch.arange(cache.shape[1], device=cache.device)
         onehot = (pos[None, :] == idx[:, None]).to(cache.dtype)

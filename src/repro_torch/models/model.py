@@ -89,7 +89,11 @@ def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *,
     "train" mode only (``blocks.train_attention``,
     ``transformer._maybe_remat``); prefill and decode run the kernels.
     ``mesh``: a ``spmd.MeshCtx`` when the params are this rank's shards
-    and the batch its rows (the sharded steps), else None."""
+    and the batch its rows (the sharded steps), else None; it carries the
+    KV caches' sequence layout (``MeshCtx.kv_seq_axes``) to every
+    attention layer of the stack (the uniform layers, the hybrid's shared
+    block, the VLM's self-attention layers), while ``positions`` and the
+    buffer check here stay global."""
     dev = resolve_device(device)
     ctx = {"mode": mode, "attn_impl": attn_impl, "remat": remat,
            "compute_dtype": compute_dtype, "mesh": mesh}

@@ -9,12 +9,17 @@ reference); their plain versions serve CPU tensors only.
 The sharded prefill and serve steps run them on a ``DeviceMesh``, one
 process per rank, as the reference's ``dryrun.build_cell`` assembles them:
 params under ``param_specs`` (FSDP's layout, gathered over data at each
-call), the decode state under ``decode_state_specs(layout="fsdp")`` (KV
-heads over the model axis) and the batch under ``batch_specs``; each rank
-runs the flash and decode kernels at its H/tp query heads and KV/tp KV
-heads, and every rank returns the global batch's logits. Every layout runs
-so: the recurrent families hold the rank's heads of their wkv and SSM
-states, the VLM its vision K/V whole.
+call; or, for the serve step's ``layout="resident"``, model-axis TP only,
+no FSDP, and the batch replicated), the decode state under
+``decode_state_specs`` and the batch under ``batch_specs``; each rank runs
+the flash and decode kernels at its H/tp query heads and KV/tp KV heads,
+and every rank returns the global batch's logits. Every layout runs so:
+the recurrent families hold the rank's heads of their wkv and SSM states,
+the VLM its vision K/V whole. Where the spec shards a KV cache's sequence
+(KV heads that the model axis does not divide, or a batch that the data
+axis does not), each rank holds its positions of it, attends over them
+and merges the ranks' partial softmaxes (``blocks.attention_block``): no
+rank gathers a cache.
 """
 from __future__ import annotations
 
@@ -100,13 +105,32 @@ def greedy_generate(cfg: ArchConfig, params, prompt, max_new: int, *,
 # the sharded steps (the reference's dryrun.build_cell, prefill and decode)
 # ---------------------------------------------------------------------------
 
-def _step_ctx(mesh, rules, pspecs, params, rows: int):
+LAYOUTS = ("fsdp", "resident")
+
+
+def _check_layout(layout: str) -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown serving layout {layout!r}; one of "
+                         f"{LAYOUTS}")
+
+
+def _batch_entry(states):
+    """The batch dim's spec entry of a sharded decode state, read from its
+    DTensors' placements: dim -4 of its first leaf in every layout (a KV
+    cache (..., B, S, KV, D), the wkv state (..., B, H, K, V) or the SSM
+    state (..., B, H, N, P))."""
+    from repro_torch.sharding import spmd as S
+    return S.spec_of(states["layers" if "layers" in states
+                            else "inner"][0])[-4]
+
+
+def _step_ctx(mesh, rules, pspecs, params, rows: int, layout: str = "fsdp"):
     """(MeshCtx, this rank's params whole over data) for a call of
     ``rows`` global rows."""
     from repro_torch.sharding import spmd as S
     from repro_torch.sharding.rules import batch_axis, set_rules
     set_rules(rules)
-    mc = S.MeshCtx(mesh, batch_axis(rules, rows) is not None)
+    mc = S.MeshCtx(mesh, batch_axis(rules, rows, layout) is not None)
     return mc, S.whole_over_data(params, pspecs, mc)
 
 
@@ -150,31 +174,27 @@ def make_sharded_prefill_step(cfg: ArchConfig, mesh, *,
 
 def init_sharded_decode_state(cfg: ArchConfig, mesh, batch: int,
                               buffer_len: int, *, dtype=torch.bfloat16,
-                              device="cuda", vision=None, params=None):
+                              device="cuda", vision=None, params=None,
+                              layout: str = "fsdp"):
     """This rank's decode state, as DTensors under
-    ``decode_state_specs(layout="fsdp")``: batch over data where it
-    divides; KV heads, the RWKV wkv state's and the Mamba SSM state's heads
-    and the conv state's channels over model, the last-token rows whole.
-    Zeros, but for the VLM's vision K/V, built as on one device from
-    ``vision`` (B, Nv, d_src), this rank's rows of it, and ``params``
-    (DTensors under ``sharded_specs``' param specs): each rank's wk and wv
-    columns, gathered to every kv head, which the state keeps whole. A KV
-    sequence sharded over the mesh (KV heads that the model axis does not
-    divide, or a batch too small for the data axis) waits for ROADMAP
-    A11b.2."""
+    ``decode_state_specs(layout=layout)``: batch over data where it divides
+    (replicated for "resident"); KV heads over model where it divides them,
+    else the KV sequence over model (and over data too where the batch is
+    not sharded); the RWKV wkv state's and the Mamba SSM state's heads and
+    the conv state's channels over model, the last-token rows whole. Zeros,
+    but for the VLM's vision K/V, built as on one device from ``vision``
+    (B, Nv, d_src), this rank's rows of it, and ``params`` (DTensors under
+    ``sharded_specs``' param specs of the layout): each rank's wk and wv
+    columns, gathered to every kv head, which the state keeps whole."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.sharding import rules as SR
     from repro_torch.sharding import spmd as S
     from repro_torch.train.train_step import sharded_specs
+    _check_layout(layout)
     dev = resolve_device(device)
     rules = SR.AxisRules.for_mesh(mesh)
-    specs = SR.decode_state_specs(cfg, batch, rules, layout="fsdp")
-    if any(spec[-3] is not None for key in T.kv_cache_keys(cfg)
-           for spec in specs[key]):
-        raise NotImplementedError(
-            f"{cfg.name} at batch {batch}: a decode state whose KV sequence "
-            "shards over the mesh waits for ROADMAP A11b.2")
+    specs = SR.decode_state_specs(cfg, batch, rules, layout=layout)
     vlm = cfg.family == "vlm"
     if vlm and (vision is None or params is None):
         raise ValueError(f"{cfg.name}: the decode state needs vision and "
@@ -196,8 +216,8 @@ def init_sharded_decode_state(cfg: ArchConfig, mesh, batch: int,
         return S.map_tree(zeros, shapes, specs)
     states = {k: S.map_tree(zeros, shapes[k], specs[k])
               for k in ("inner", "trailing")}
-    _, pspecs, _ = sharded_specs(cfg, mesh)
-    mc, local = _step_ctx(mesh, rules, pspecs, params, batch)
+    _, pspecs, _ = sharded_specs(cfg, mesh, fsdp=layout == "fsdp")
+    mc, local = _step_ctx(mesh, rules, pspecs, params, batch, layout)
     with torch.no_grad():
         kv = T.cross_state(cfg, local, _vision_rows({"vision": vision}, mc,
                                                     dev), dtype, mesh=mc)
@@ -211,33 +231,60 @@ def reset_sharded_slot(states, s: int, mesh, batch: int) -> None:
     """``transformer.reset_slot`` of global slot ``s`` on this rank's local
     states (``init_sharded_decode_state``'s, of ``batch`` slots), where
     this rank holds it: every rank of the slot's data shard, at the slot's
-    local row."""
-    from repro_torch.sharding import rules as SR
+    local row; every rank where the state replicates the batch ("resident",
+    or a batch that the data axis does not divide)."""
     from repro_torch.sharding import spmd as S
-    mc = S.MeshCtx(mesh, SR.batch_axis(SR.AxisRules.for_mesh(mesh), batch)
-                   is not None)
+    mc = S.MeshCtx(mesh, _batch_entry(states) is not None)
     row = S.dp_row(s, batch, mc)
     if row is not None:
         T.reset_slot(S.to_local(states), row)
 
 
 def make_sharded_serve_step(cfg: ArchConfig, mesh, buffer_len: int, *,
-                            compute_dtype=torch.bfloat16, device="cuda"):
+                            compute_dtype=torch.bfloat16, device="cuda",
+                            layout: str = "fsdp"):
     """The serve step on every rank of ``mesh``: ``init_sharded_decode_state``'s
-    state (updated in place), batch the global batch's tokens (B, 1[, K])
-    and cache_len (B,) (and the VLM's vision, which decode does not read:
-    its K/V are the state's); returns the global batch's logits
-    (B, 1[, K], V), the state, and next_tok (B[, K]), the same on every
-    rank."""
+    state of the same ``layout`` (updated in place), batch the global
+    batch's tokens (B, 1[, K]) and cache_len (B,) (and the VLM's vision,
+    which decode does not read: its K/V are the state's); returns the
+    global batch's logits (B, 1[, K], V), the state, and next_tok (B[, K]),
+    the same on every rank. ``layout``: "fsdp" (params under the FSDP
+    specs, gathered over data each call, the batch over data where it
+    divides) or "resident" (the reference's serving layout,
+    ``dryrun.build_cell``'s ``serve_layout``: params under
+    ``sharded_specs(fsdp=False)``, model-axis TP only, which the caller
+    casts to bf16; the batch replicated). The step reads the state's
+    layout from its DTensors' placements: the batch's entry, which must be
+    the one ``layout`` gives, and the KV caches' sequence entry; it builds
+    the ``MeshCtx`` of each such layout and row count once."""
     from repro_torch.sharding import spmd as S
+    from repro_torch.sharding.rules import batch_axis, set_rules
     from repro_torch.train.train_step import sharded_specs
+    _check_layout(layout)
     dev = resolve_device(device)
-    rules, pspecs, _ = sharded_specs(cfg, mesh)
+    rules, pspecs, _ = sharded_specs(cfg, mesh, fsdp=layout == "fsdp")
+    keys = T.kv_cache_keys(cfg)
+    ctxs = {}
+
+    def step_ctx(rows, states):
+        b_ax = _batch_entry(states)
+        kv_seq = S.spec_of(states[keys[0]][0])[-3] if keys else None
+        if (rows, b_ax, kv_seq) not in ctxs:
+            if b_ax != batch_axis(rules, rows, layout):
+                raise ValueError(
+                    f"a decode state whose batch spec entry is {b_ax!r} for "
+                    f"a {layout!r} serve step of {rows} rows: build it with "
+                    f"init_sharded_decode_state(..., layout={layout!r})")
+            ctxs[rows, b_ax, kv_seq] = S.MeshCtx(mesh, b_ax is not None,
+                                                 kv_seq=kv_seq)
+        return ctxs[rows, b_ax, kv_seq]
 
     @torch.no_grad()
     def serve_step(params, states, batch):
         tokens = batch["tokens"].to(dev)
-        mc, local = _step_ctx(mesh, rules, pspecs, params, tokens.shape[0])
+        mc = step_ctx(tokens.shape[0], states)
+        set_rules(rules)
+        local = S.whole_over_data(params, pspecs, mc)
         cache_len = S.dp_rows(batch["cache_len"].to(dev), mc)
         ctx = M.make_ctx(cfg, buffer_len, "decode",
                          vision=_vision_rows(batch, mc, dev),

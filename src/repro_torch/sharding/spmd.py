@@ -20,6 +20,9 @@ the reference's GSPMD partitioning and ``shard_map``.
 """
 from __future__ import annotations
 
+import contextlib
+import sys
+
 import torch
 import torch.distributed as dist
 
@@ -103,6 +106,82 @@ def exchange(send: torch.Tensor | None, dst: int | None,
     return None if buf is None else buf.to(recv_like.device)
 
 
+# the collective calls of torch.distributed and of its functional
+# collectives (DTensor's redistribution) that ``watch_collectives`` wraps,
+# where the installed torch has them; not isend and irecv, which
+# batch_isend_irecv checks by identity (their tensors show in its P2POps)
+_DIST_CALLS = ("all_gather", "all_gather_into_tensor", "all_reduce",
+               "reduce_scatter", "reduce_scatter_tensor", "broadcast",
+               "all_to_all", "all_to_all_single", "gather", "scatter",
+               "send", "recv", "batch_isend_irecv")
+_FUNCOL_CALLS = ("all_gather_tensor", "all_gather_tensor_autograd",
+                 "all_gather_single", "all_gather_single_autograd",
+                 "all_gather_into_tensor_coalesced", "all_reduce",
+                 "all_reduce_coalesced", "reduce_scatter_tensor",
+                 "reduce_scatter_tensor_autograd", "reduce_scatter_single",
+                 "reduce_scatter_single_autograd",
+                 "reduce_scatter_tensor_coalesced", "all_to_all_single",
+                 "all_to_all_single_autograd", "broadcast")
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for y in x:
+            yield from _tensors(y)
+    elif isinstance(x, dist.P2POp):
+        yield x.tensor
+
+
+@contextlib.contextmanager
+def watch_collectives():
+    """Yields a list that gets, for each collective call while the block
+    runs, the bytes of the largest tensor the call reads or writes. It
+    wraps the lowest calls that every path takes: ``torch.distributed``'s
+    (this module's collectives, gloo's host copies included) and the
+    functional collectives of DTensor's own redistribution
+    (``DTensor.full_tensor``). Calls inside ``whole_over_data`` (FSDP's
+    gather of the params, which moves the params whatever a cache holds)
+    are left out."""
+    import torch.distributed._functional_collectives as funcol
+    seen, paused, saved = [], [0], []
+    me = sys.modules[__name__]
+
+    def wrap(mod, name, fn):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    def watched(orig):
+        def call(*a, **kw):
+            if not paused[0]:
+                seen.append(max((t.numel() * t.element_size()
+                                 for t in _tensors((a, tuple(kw.values())))),
+                                default=0))
+            return orig(*a, **kw)
+        return call
+
+    def unwatched(orig):
+        def call(*a, **kw):
+            paused[0] += 1
+            try:
+                return orig(*a, **kw)
+            finally:
+                paused[0] -= 1
+        return call
+
+    try:
+        for mod, names in ((dist, _DIST_CALLS), (funcol, _FUNCOL_CALLS)):
+            for name in names:
+                if callable(getattr(mod, name, None)):
+                    wrap(mod, name, watched(getattr(mod, name)))
+        wrap(me, "whole_over_data", unwatched(me.whole_over_data))
+        yield seen
+    finally:
+        for mod, name, orig in reversed(saved):
+            setattr(mod, name, orig)
+
+
 # ---------------------------------------------------------------------------
 # differentiable collectives (the Megatron pairs)
 # ---------------------------------------------------------------------------
@@ -173,13 +252,35 @@ class _Gather(torch.autograd.Function):
 # the mesh as one step's model code reads it
 # ---------------------------------------------------------------------------
 
+def _group_over(mesh, axes: tuple[str, ...]):
+    """The process group over ``axes`` of ``mesh``: the axis's own group
+    for one axis; for both axes of a 2-D mesh, the world's, which every
+    rank created together at its start (``launch.mesh.make_mesh`` lays a
+    mesh over the whole world)."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    if mesh.size() != dist.get_world_size():
+        raise NotImplementedError(
+            f"a KV sequence over {axes} of a mesh of {mesh.size()} ranks in "
+            f"a world of {dist.get_world_size()}")
+    return dist.group.WORLD
+
+
 class MeshCtx:
     """A 1- or 2-D ``DeviceMesh`` over ("data", "model") axes, as the model
     code reads it during one step: the groups, sizes and coordinates of
     this rank, and whether the step's batch is sharded over data
-    (``batch_specs``: when the data axis divides the global batch)."""
+    (``batch_specs``: when the data axis divides the global batch).
 
-    def __init__(self, mesh, batch_sharded: bool = True):
+    ``kv_seq``: the sequence entry of the decode state's KV cache spec
+    (``decode_state_specs``: "model", "data", ("data", "model") or None).
+    Of its axes, those of size above 1 shard the KV sequence
+    (``kv_seq_axes``); the step's attention then runs over this rank's
+    shard, ``kv_shard`` (major to minor, as ``shard_of`` orders the
+    shards), and merges the ranks' partial softmaxes over
+    ``kv_seq_group`` (``merge_partials``)."""
+
+    def __init__(self, mesh, batch_sharded: bool = True, kv_seq=None):
         names = axis_names(mesh)
         if set(names) - {"data", "model"}:
             raise NotImplementedError(
@@ -197,6 +298,13 @@ class MeshCtx:
         self.tp_rank = mesh.get_local_rank("model") if "model" in names \
             else 0
         self.dp_rank = mesh.get_local_rank("data") if "data" in names else 0
+        self.kv_seq_axes = tuple(a for a in _axes(kv_seq)
+                                 if sizes.get(a, 1) > 1)
+        self.kv_shard = 0
+        for a in self.kv_seq_axes:
+            self.kv_shard = self.kv_shard * sizes[a] + mesh.get_local_rank(a)
+        self.kv_seq_group = _group_over(mesh, self.kv_seq_axes) \
+            if self.kv_seq_axes else None
 
     @property
     def shards_batch(self) -> bool:
@@ -260,6 +368,35 @@ def dp_rows(x, mc: MeshCtx | None, dim: int = 0):
     if mc is None or not mc.shards_batch:
         return x
     return x.chunk(mc.dp, dim)[mc.dp_rank]
+
+
+def merge_pieces(pieces):
+    """Partial softmaxes over disjoint pieces of one sequence -> the whole
+    sequence's (o, lse). ``pieces``: [(o (B, H, D), lse (B, H)), ...] in
+    fp32, lse ``-inf`` (and o zeros) where a piece holds no valid position
+    of a row. The log-sum-exp merge: the max m of the pieces' lse, weights
+    exp(lse - m) (0 for an empty piece, with m taken as 0 where every piece
+    is empty, so that no -inf - -inf is taken), o the weighted sum over the
+    weights' sum; a row that no piece holds gives zeros and -inf."""
+    o = torch.stack([p[0] for p in pieces])              # (n, B, H, D)
+    lse = torch.stack([p[1] for p in pieces])            # (n, B, H)
+    m = lse.amax(0)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    w = torch.exp(lse - m)
+    total = w.sum(0)
+    out = (w[..., None] * o).sum(0) / total.clamp_min(1e-37)[..., None]
+    return out, m + torch.log(total)
+
+
+def merge_partials(o, lse, group, dtype=None):
+    """This rank's partial softmax o (B, H, D) and lse (B, H), both fp32,
+    merged with the other ranks' of ``group`` (``merge_pieces``); the
+    merged o cast once to ``dtype`` (o's by default). One gather of
+    (B, H, D + 1) floats a rank: the ranks' pieces, never their caches."""
+    both = torch.cat([o.float(), lse.float()[..., None]], -1)[None]
+    got = all_gather(both, group, 0)                     # (n, B, H, D + 1)
+    out, _ = merge_pieces([(g[..., :-1], g[..., -1]) for g in got])
+    return out.to(dtype or o.dtype)
 
 
 def dp_row(s: int, rows: int, mc: MeshCtx | None) -> int | None:

@@ -2,7 +2,8 @@
 process on 4 forced host devices (run as a script; it writes an npz):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
-        python tests/jax_mesh_reference.py out.npz [train|moe|families ...]
+        python tests/jax_mesh_reference.py out.npz \
+            [train|moe|families|kvseq ...]
 
 Meshes are built with ``AxisType.Auto`` axes: on JAX 0.9 the default
 Explicit axes make ``with_sharding_constraint`` refuse the reference's
@@ -23,6 +24,12 @@ init, inputs from numpy seeds; the ranks of the port read both.
   columns a rank: a rank's columns split a head): the loss and every
   gradient, and the losses of 3 steps, as ``train``; and the four
   families' fp32 prefill jitted with ``build_cell``'s specs on (1, 2).
+- ``kvseq``: decode states whose KV sequence shards over the mesh
+  (``KVSEQ_CASES``): the reference's serve step jitted with
+  ``decode_state_specs`` and ``batch_specs`` (and the layout's param
+  specs) as ``in_shardings``, fp32, from seeded states of a KV_BUF-long
+  buffer, KV_TICKS teacher-forced ticks whose writes cross a shard's
+  edge; each tick's logits and the states after the ticks.
 """
 import dataclasses
 import sys
@@ -50,6 +57,29 @@ PREFILL_MESH = (1, 2)
 SEEDED = {"bonus_u": 0.1, "shift_lora_b": 0.01, "decay_lora_b": 0.01,
           "conv_b_x": 0.1, "conv_b_BC": 0.1}
 GATES = ("gate_attn", "gate_mlp")
+# kvseq: case -> (arch, mesh, batch, serving layout, config fields). The
+# KV cache's sequence shards over model (qwen3-8b's 1 kv head, the VLM's,
+# qwen3-8b at 10 heads on 2 kv heads, whose 2.5 heads a rank split a head),
+# over data (olmo-1b and zamba2-7b's shared block at batch 1, their heads
+# over model) and over data x model (qwen3-8b at batch 1, and "resident",
+# whose batch is replicated); olmo-1b on (2, 1) at batch 4 puts it on a
+# model axis of 1, which splits nothing.
+KVSEQ_CASES = {
+    "qwen3-8b@2x2/4": ("qwen3-8b", (2, 2), 4, "fsdp", {}),
+    "qwen3-8b@2x2/1": ("qwen3-8b", (2, 2), 1, "fsdp", {}),
+    "olmo-1b@2x2/1": ("olmo-1b", (2, 2), 1, "fsdp", {}),
+    "olmo-1b@2x1/4": ("olmo-1b", (2, 1), 4, "fsdp", {}),
+    "zamba2-7b@2x2/1": ("zamba2-7b", (2, 2), 1, "fsdp", {}),
+    "qwen3-8b-10h@1x4/4": ("qwen3-8b", (1, 4), 4, "fsdp",
+                           {"n_heads": 10, "n_kv_heads": 2}),
+    "llama-3.2-vision-11b@1x2/4": ("llama-3.2-vision-11b", (1, 2), 4,
+                                   "fsdp", {}),
+    "qwen3-8b-resident@2x2/4": ("qwen3-8b", (2, 2), 4, "resident", {}),
+}
+KV_BUF, KV_TICKS = 64, 3
+# each row's cache_len at the first tick: the ticks' writes cross the edges
+# of 4 shards of 16 positions (and of 2 of 32)
+KV_STARTS = {4: (15, 31, 47, 61), 1: (31,)}
 
 
 def train_batches(cfg, steps=TRAIN_STEPS):
@@ -101,6 +131,34 @@ def seeded(tree, rng):
         else:
             out[key] = np.asarray(val)
     return out
+
+
+def kvseq_config(case, get_arch):
+    """The reduced config of a ``KVSEQ_CASES`` case from ``get_arch``."""
+    arch, _, _, _, fields = KVSEQ_CASES[case]
+    return dataclasses.replace(get_arch(arch).reduced(), **fields)
+
+
+def kvseq_inputs(cfg, case):
+    """Seeded tokens (B, KV_TICKS), the first tick's cache_len (B,) and,
+    for the VLM, vision states (B, Nv, d_src)."""
+    b = KVSEQ_CASES[case][2]
+    rng = np.random.default_rng(300)
+    out = {"tokens": rng.integers(0, cfg.vocab_size,
+                                  (b, KV_TICKS)).astype(np.int32),
+           "cache_len": np.asarray(KV_STARTS[b], np.int32)}
+    if cfg.family == "vlm":
+        out["vision"] = rng.standard_normal(
+            (b, cfg.n_vision_tokens, cfg.vision_dim)).astype(np.float32)
+    return out
+
+
+def bf16_rounded(tree):
+    """A numpy param tree with every value rounded to bf16 (kept fp32)."""
+    import jax.numpy as jnp
+    return {k: bf16_rounded(v) if isinstance(v, dict) else np.asarray(
+        jnp.asarray(v).astype(jnp.bfloat16).astype(jnp.float32))
+        for k, v in tree.items()}
 
 
 def moe_config(case):
@@ -271,13 +329,88 @@ def run_families(out, cases=None):
         SR.set_rules(None)
 
 
+def run_kvseq(out, cases=None):
+    """The ``kvseq`` part for ``cases`` (KVSEQ_CASES' keys; all by
+    default): params (bf16-rounded for "resident"), the seeded initial
+    states (every leaf but the VLM's vision K/V, which the state builds
+    from params and vision), each tick's logits and the states after the
+    ticks, under ``kv/CASE/``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs.base import get_arch
+    from repro.models import model as M
+    from repro.models import transformer as RT
+    from repro.serve.decode import make_serve_step
+    from repro.sharding import rules as SR
+
+    for case in cases or KVSEQ_CASES:
+        _, shape, b, layout, _ = KVSEQ_CASES[case]
+        mesh = _mesh(shape)
+        named = lambda t, mesh=mesh: jax.tree.map(
+            lambda sp: NamedSharding(mesh, sp), t,
+            is_leaf=lambda x: isinstance(x, P))
+        cfg = kvseq_config(case, get_arch)
+        init = jax.jit(M.init_params, static_argnums=0)
+        params = seeded(jax.tree.map(np.asarray, init(
+            cfg, jax.random.PRNGKey(0))), np.random.default_rng(1))
+        if layout == "resident":
+            params = bf16_rounded(params)
+        out.update(_flat(params, f"kv/{case}/params"))
+        inp = kvseq_inputs(cfg, case)
+        vision = inp.get("vision")
+        states = RT.init_decode_state(
+            cfg, b, KV_BUF, dtype=jnp.float32,
+            vision=None if vision is None else jnp.asarray(vision),
+            params=jax.tree.map(jnp.asarray, params))
+        rng = np.random.default_rng(301)
+        states = {key: tuple(np.asarray(t) if key == "single"
+                             and cfg.family == "vlm"
+                             else rng.standard_normal(t.shape).astype(
+                                 np.float32) for t in part)
+                  for key, part in states.items()}
+        for key, part in states.items():
+            for i, t in enumerate(part):
+                out[f"kv/{case}/state0/{key}/{i}"] = t
+        rules = SR.AxisRules.for_mesh(mesh)
+        SR.set_rules(rules)
+        pspecs = SR.param_specs(cfg, rules, fsdp=layout == "fsdp")
+        sspecs = SR.decode_state_specs(cfg, b, rules, layout=layout)
+        bspecs = SR.batch_specs(cfg, "decode", b, rules, layout=layout)
+        fn = jax.jit(make_serve_step(cfg, KV_BUF,
+                                     compute_dtype=jnp.float32),
+                     in_shardings=(named(pspecs), named(sspecs),
+                                   named(bspecs)))
+        p = jax.device_put(jax.tree.map(jnp.asarray, params),
+                           named(pspecs))
+        logits = []
+        for t in range(KV_TICKS):
+            batch = {"tokens": inp["tokens"][:, t:t + 1],
+                     "cache_len": inp["cache_len"] + t}
+            if vision is not None:
+                batch["vision"] = vision
+            lg, states, _ = fn(p, jax.device_put(states, named(sspecs)),
+                               jax.device_put(jax.tree.map(jnp.asarray,
+                                                           batch),
+                                              named(bspecs)))
+            logits.append(np.asarray(lg[:, 0]))
+        out[f"kv/{case}/logits"] = np.stack(logits)
+        for key, part in states.items():
+            for i, t in enumerate(part):
+                out[f"kv/{case}/state/{key}/{i}"] = np.asarray(t)
+        SR.set_rules(None)
+
+
 def main(path, parts):
-    """Each part by name; ``families=CASE,CASE`` runs those cases only."""
+    """Each part by name; ``families=CASE,CASE`` (and ``kvseq=...``) runs
+    those cases only."""
     out = {}
     for part in parts:
         name, _, cases = part.partition("=")
-        if name == "families":
-            run_families(out, cases.split(",") if cases else None)
+        if name in ("families", "kvseq"):
+            {"families": run_families, "kvseq": run_kvseq}[name](
+                out, cases.split(",") if cases else None)
         else:
             {"train": run_train, "moe": run_moe}[name](out)
     np.savez(path, **out)

@@ -193,6 +193,82 @@ def test_decode_kernel_cache_len_edges(card, b, s, h, kv, d, dtype):
         assert not bool(got[2].any())           # the empty row gives zeros
 
 
+# the partial softmax (return_lse) at GQA 4:1, head dims 128 and 112, a
+# split of 64 positions; rows of 0, 1, one whole split and the whole buffer
+LSE_SHAPES = [(4, 512, 16, 4, 128), (4, 320, 16, 4, 112)]
+LSE_SPLIT = 64
+
+
+def _lse_inputs(b, s, h, kv, d, dtype, card):
+    q, kc, vc = _randn(18, [(b, 1, h, d), (b, s, kv, d), (b, s, kv, d)],
+                       dtype, card)
+    lens = torch.tensor([0, 1, LSE_SPLIT, s][:b], dtype=torch.int32,
+                        device=card)
+    return q, kc, vc, lens
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", LSE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_partial_softmax_matches_plain(card, b, s, h, kv, d, dtype):
+    """o in fp32 and lse against the plain version's; the empty row's o is
+    zeros and its lse -inf; one launch a call."""
+    q, kc, vc, lens = _lse_inputs(b, s, h, kv, d, dtype, card)
+    before = dec.decode_attention_bhd.launches
+    o, lse = ops.decode_attention(q, kc, vc, lens, split=LSE_SPLIT,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    assert dec.decode_attention_bhd.launches == before + 1
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    want_o, want_lse = dec.decode_attention_plain(
+        q[:, 0], kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3), lens,
+        return_lse=True)
+    assert not bool(o[0].any()) and bool(torch.isneginf(lse[0]).all())
+    # both sides compute in fp32 from the same inputs: fp32's tolerance
+    np.testing.assert_allclose(_np(o[:, 0]), _np(want_o), **_tol("float32"))
+    np.testing.assert_allclose(_np(lse[1:]), _np(want_lse[1:]),
+                               **_tol("float32"))
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", LSE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_output_without_lse_is_the_partial_softmax_rounded(
+        card, b, s, h, kv, d, dtype):
+    """The call without return_lse gives the partial softmax's o rounded to
+    the input dtype, bit for bit: the two instances compute one thing."""
+    q, kc, vc, lens = _lse_inputs(b, s, h, kv, d, dtype, card)
+    o, _ = ops.decode_attention(q, kc, vc, lens, split=LSE_SPLIT,
+                                return_lse=True)
+    plain = ops.decode_attention(q, kc, vc, lens, split=LSE_SPLIT)
+    assert plain.dtype == q.dtype
+    assert torch.equal(o.to(q.dtype), plain)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_pieces_merged_on_the_card_match_the_whole_cache(card, dtype):
+    """Each half of the buffer through the kernel's partial softmax, merged
+    by ``spmd.merge_pieces``, against the whole cache's partial softmax
+    (fp32 both, fp32's tolerance) and its output in the input dtype."""
+    from repro_torch.sharding import spmd as S
+    b, s, h, kv, d = 4, 512, 16, 4, 128
+    q, kc, vc, _ = _lse_inputs(b, s, h, kv, d, dtype, card)
+    lens = torch.tensor([300, 256, 17, 512], dtype=torch.int32, device=card)
+    n = s // 2
+    pieces = [ops.decode_attention(
+        q, kc[:, j * n:(j + 1) * n], vc[:, j * n:(j + 1) * n],
+        (lens - j * n).clamp(0, n), return_lse=True) for j in range(2)]
+    merged, merged_lse = S.merge_pieces([(o[:, 0], lse) for o, lse in pieces])
+    whole_o, whole_lse = ops.decode_attention(q, kc, vc, lens,
+                                              return_lse=True)
+    np.testing.assert_allclose(_np(merged), _np(whole_o[:, 0]),
+                               **_tol("float32"))
+    np.testing.assert_allclose(_np(merged_lse), _np(whole_lse),
+                               **_tol("float32"))
+    whole = ops.decode_attention(q, kc, vc, lens)
+    np.testing.assert_allclose(_np(merged.to(q.dtype)), _np(whole[:, 0]),
+                               **_tol(dtype))
+
+
 def _one_kernel_per_call(fn, calls=5):
     """Whether each of ``calls`` calls of fn enqueues exactly one CUDA
     kernel, from the profiler: the window holds the calls between two
@@ -1059,3 +1135,28 @@ def test_two_ranks_sharing_the_card_run_the_kernels_at_their_heads(
         got, want = npz[f"card/{what}"], npz[f"card/{what}_plain"]
         assert got.shape == want.shape
         assert np.abs(got - want).max() <= 1e-3 * (want.max() - want.min())
+
+
+def test_two_ranks_on_the_card_decode_a_kv_sequence_sharded_over_model(
+        card, tmp_path):
+    """Two ranks on gloo share the card on a (1, 2) mesh: reduced qwen3-8b's
+    one kv head makes its KV sequence shard over model, so each rank
+    gathers q to every head and runs the decode kernel's partial softmax
+    over its half of the buffer, once a layer a tick; 40 fp32 ticks from an
+    empty cache cross the ranks' edge at 32 of 64 positions, so that the
+    later ticks weigh both ranks' pieces. The global logits match the
+    one-device plain version on the CPU within 1e-5 of their range."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_ranks as TR
+    npz, meta = TR.spawn("card_kv", 2, tmp_path, timeout=600)
+    for rank in meta["card_kv"]:
+        assert rank["kv_spec"][2] == "model", rank
+        assert rank["launches"] == rank["layers"] * TR.CARD_KV_TICKS
+        assert rank["calls"] == [[rank["n_heads"], TR.CARD_KV_BUF // 2,
+                                  True]]
+    got, want = npz["card_kv/decode"], npz["card_kv/decode_plain"]
+    assert got.shape == want.shape
+    for t in range(TR.CARD_KV_TICKS):
+        span = want[:, t].max() - want[:, t].min()
+        assert np.abs(got[:, t] - want[:, t]).max() <= 1e-5 * span, t

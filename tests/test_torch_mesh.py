@@ -275,10 +275,17 @@ def test_sharded_serving_matches_one_device(two, arch, what):
     assert np.abs(got - want).max() <= 1e-4 * (want.max() - want.min())
 
 
-@pytest.mark.parametrize("arch", TR.SERVE_ARCHS)
-def test_sharded_serving_driver_gives_the_same_tokens(two, arch):
-    np.testing.assert_array_equal(two[0][f"serve/{arch}/mesh/tokens"],
-                                  two[0][f"serve/{arch}/one/tokens"])
+@pytest.mark.parametrize("arch", TR.SERVE_ARCHS + tuple(TR.DRIVER_CASES))
+def test_sharded_serving_driver_gives_the_same_tokens(four, two, arch):
+    """The driver on (1, 2) for each of SERVE_ARCHS; and where the slots'
+    caches shard their sequence (``DRIVER_CASES``): olmo-1b on (2, 1) at 4
+    slots (over a model axis of 1), at 1 (over data) and at 4 under
+    "resident" (the batch replicated, the sequence over data), zamba2-7b's
+    shared block on (2, 2) at 1 slot (over data, its heads over model)."""
+    case = TR.DRIVER_CASES.get(arch)
+    npz = four[0] if case is not None and case[1] == (2, 2) else two[0]
+    np.testing.assert_array_equal(npz[f"serve/{arch}/mesh/tokens"],
+                                  npz[f"serve/{arch}/one/tokens"])
 
 
 # ---------------------------------------------------------------------------

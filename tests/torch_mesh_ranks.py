@@ -11,11 +11,15 @@ of ``four``'s save onto 2 ranks, a supervised run with a failure on (2, 1)),
 ``card`` (2 ranks sharing the card on gloo: the kernels at the local
 heads), ``fam4`` (4 ranks: the sharded train step of the recurrent,
 hybrid, VLM and audio layouts on (2, 2), zamba2-7b and qwen3-8b at 10 heads
-on (1, 4), their prefill and decode there) or ``fam2`` (2 ranks: the four
+on (1, 4), their prefill and decode there), ``fam2`` (2 ranks: the four
 families' sharded prefill, the VLM's and musicgen-large's decode, on
-(1, 2)). Ranks meet through a FileStore at STORE; REF is the npz of
-``tests/jax_mesh_reference.py``. Rank 0 writes OUTDIR/GROUP.npz and
-OUTDIR/GROUP.json, which the tests read.
+(1, 2)), or ``kv4`` and ``kv2`` (4 and 2 ranks: the ``kvseq`` cases of
+``jax_mesh_reference.KVSEQ_CASES`` on their meshes, decode states whose KV
+sequence shards). ``two`` and ``four`` also run the serving driver at
+slot counts whose caches shard their sequence (olmo-1b on (2, 1) at 4
+and 1 slots, zamba2-7b on (2, 2) at 1). Ranks meet through a FileStore at
+STORE; REF is the npz of ``tests/jax_mesh_reference.py``. Rank 0 writes
+OUTDIR/GROUP.npz and OUTDIR/GROUP.json, which the tests read.
 """
 import contextlib
 import json
@@ -251,6 +255,9 @@ def group_four(rank, world, dev, ref, outdir, out, meta):
             moe_case(ref, case, mesh, shape, out, meta)
         if rank == 0:
             moe_case(ref, case, None, None, out, meta)
+    for key, (arch, shape, slots, layout) in DRIVER_CASES.items():
+        if shape == (2, 2):
+            driver_case(key, arch, mesh22, slots, layout, dev, out)
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +266,36 @@ def group_four(rank, world, dev, ref, outdir, out, meta):
 
 SERVE_ARCHS = ("olmo-1b", "olmoe-1b-7b", "rwkv6-7b", "zamba2-7b")
 SERVE_B, SERVE_S, SERVE_BUF = 2, 24, 32
+
+
+def driver_case(key, arch, mesh, slots, layout, dev, out):
+    """The serving driver on ``mesh`` with ``slots`` slots under the
+    serving ``layout`` (fp32), and the one-device port's on rank 0: its
+    tokens to ``out`` under ``serve/KEY/{mesh,one}/tokens``."""
+    cfg = get_arch(arch).reduced()
+    params = M.init_params(cfg, 0, device=dev)
+    dparams = S.distribute(params, TS.sharded_specs(
+        cfg, mesh, fsdp=layout == "fsdp")[1], mesh)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, 12).tolist()
+    prompts = [toks[:9], toks[2:7], toks[4:11]]
+    f32 = torch.float32
+    runs = {"mesh": (dparams, mesh)}
+    if dist.get_rank() == 0:
+        runs["one"] = (params, None)
+    for name, (p, m) in runs.items():
+        res = L.serve(cfg, p, prompts, slots=slots, buf=SERVE_BUF,
+                      max_new=4, compute_dtype=f32, device=dev, mesh=m,
+                      layout=layout)
+        out[f"serve/{key}/{name}/tokens"] = np.asarray(res.outputs)
+
+
+# the driver at slot counts whose caches shard their sequence: key ->
+# (arch, mesh, slots, serving layout); ``two`` runs the (2, 1) ones,
+# ``four`` the (2, 2)
+DRIVER_CASES = {"olmo-1b@2x1/4": ("olmo-1b", (2, 1), 4, "fsdp"),
+                "olmo-1b@2x1/1": ("olmo-1b", (2, 1), 1, "fsdp"),
+                "olmo-1b@2x1/4/resident": ("olmo-1b", (2, 1), 4, "resident"),
+                "zamba2-7b@2x2/1": ("zamba2-7b", (2, 2), 1, "fsdp")}
 
 
 def serve_case(arch, mesh, dev, out):
@@ -308,6 +345,9 @@ def group_two(rank, world, dev, ref, outdir, out, meta):
         moe_case(ref, case, mesh12, (1, 2), out, meta)
     for arch in SERVE_ARCHS:
         serve_case(arch, mesh12, dev, out)
+    for key, (arch, shape, slots, layout) in DRIVER_CASES.items():
+        if shape == (2, 1):
+            driver_case(key, arch, mesh21, slots, layout, dev, out)
 
     # four's save (olmo-1b after 3 steps on (2, 2)) onto 2 ranks
     cfg = get_arch("olmo-1b").reduced()
@@ -454,6 +494,71 @@ def group_card(rank, world, dev, ref, outdir, out, meta):
                 "cache_len": torch.full((2,), i, dtype=torch.int32)})
             plain.append(logits[:, 0])
         out["card/decode_plain"] = torch.stack(plain, 1).numpy()
+
+
+CARD_KV_BUF, CARD_KV_TICKS = 64, 40
+
+
+def group_card_kv(rank, world, dev, ref, outdir, out, meta):
+    """Two ranks on the card, (1, 2), fp32: reduced qwen3-8b (2 layers)
+    has one kv head, which a model axis of 2 does not divide, so its KV
+    sequence shards over model and each rank gathers q to every head
+    (``blocks._all_q``). CARD_KV_TICKS teacher-forced ticks from an empty
+    cache, whose writes cross the ranks' edge at half the buffer; each
+    decode launch's heads, positions and ``return_lse``; rank 0 also the
+    one-device plain version on the CPU."""
+    import dataclasses
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+    seen = []
+    orig = ops.decode_attention
+
+    def watch(q, kc, *a, **kw):
+        seen.append([int(q.shape[2]), int(kc.shape[1]),
+                     bool(kw.get("return_lse"))])
+        return orig(q, kc, *a, **kw)
+    ops.decode_attention = watch
+    mesh = LM.make_mesh((1, 2), ("data", "model"), device_type="cuda")
+    cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(), n_layers=2)
+    params = M.init_params(cfg, 0, device="cpu")
+    dparams = S.distribute(convert.from_numpy(convert.to_numpy(params),
+                                              device=dev),
+                           TS.sharded_specs(cfg, mesh)[1], mesh)
+    b, f32 = 4, torch.float32
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (b, CARD_KV_TICKS)))
+    step = D.make_sharded_serve_step(cfg, mesh, CARD_KV_BUF,
+                                     compute_dtype=f32, device=dev)
+    states = D.init_sharded_decode_state(cfg, mesh, b, CARD_KV_BUF,
+                                         dtype=f32, device=dev)
+    before = dec.decode_attention_bhd.launches
+    got = []
+    for i in range(CARD_KV_TICKS):
+        logits, states, _ = step(dparams, states, {
+            "tokens": toks[:, i:i + 1],
+            "cache_len": torch.full((b,), i, dtype=torch.int32)})
+        got.append(logits[:, 0].cpu())
+    ops.decode_attention = orig
+    out["card_kv/decode"] = torch.stack(got, 1).numpy()
+    meta["card_kv"] = gathered({
+        "launches": dec.decode_attention_bhd.launches - before,
+        "calls": sorted({tuple(c) for c in seen}),
+        "kv_spec": list(S.spec_of(states["layers"][0])),
+        "n_heads": cfg.n_heads, "layers": cfg.n_layers})
+    if rank == 0:       # the plain version: the one-device port on the CPU
+        from repro_torch.models import transformer as T
+        cpu = torch.device("cpu")
+        st1 = T.init_decode_state(cfg, b, CARD_KV_BUF, dtype=f32, device=cpu)
+        step1 = D.make_serve_step(cfg, CARD_KV_BUF, compute_dtype=f32,
+                                  device=cpu)
+        plain = []
+        for i in range(CARD_KV_TICKS):
+            logits, st1, _ = step1(params, st1, {
+                "tokens": toks[:, i:i + 1],
+                "cache_len": torch.full((b,), i, dtype=torch.int32)})
+            plain.append(logits[:, 0])
+        out["card_kv/decode_plain"] = torch.stack(plain, 1).numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -616,8 +721,100 @@ def group_fam2(rank, world, dev, ref, outdir, out, meta):
         family_serving(key, cfg, params, mesh, dev, out, meta)
 
 
+# ---------------------------------------------------------------------------
+# decode states whose KV sequence shards (tests/test_torch_mesh_kvseq.py)
+# ---------------------------------------------------------------------------
+
+def kvseq_case(case, mesh, dev, ref, out, meta):
+    """The sharded serve step of a ``KVSEQ_CASES`` case from the
+    reference's params and seeded states: each tick's logits, the states
+    after the ticks (``full_tensor``), each rank's local cache shapes, the
+    largest collective of a tick against one layer's cache shard (bytes,
+    ``spmd.watch_collectives``), what the watch saw of a cache gathered by
+    ``spmd.full_tensor`` and by DTensor's own ``full_tensor``, and the
+    decode launches' cache lengths."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cfg = JR.kvseq_config(case, get_arch)
+    _, _, b, layout, _ = JR.KVSEQ_CASES[case]
+    params = convert.from_numpy(ref_tree(ref, f"kv/{case}/params"))
+    if layout == "resident":               # bf16 values: exact in bf16
+        params = M.cast_params(params, torch.bfloat16)
+    inp = JR.kvseq_inputs(cfg, case)
+    vision = inp.get("vision")
+    vision = None if vision is None else torch.from_numpy(vision)
+    dparams = S.distribute(params, TS.sharded_specs(
+        cfg, mesh, fsdp=layout == "fsdp")[1], mesh)
+    f32 = torch.float32
+    states = D.init_sharded_decode_state(cfg, mesh, b, JR.KV_BUF, dtype=f32,
+                                         device=dev, vision=vision,
+                                         params=dparams, layout=layout)
+    specs = SR.decode_state_specs(cfg, b, SR.AxisRules.for_mesh(mesh),
+                                  layout=layout)
+    seeded = ref_tree(ref, f"kv/{case}/state0")
+    for key, part in seeded.items():
+        for i, full in part.items():
+            local = states[key][int(i)].to_local()
+            local.copy_(S.shard_of(torch.from_numpy(full),
+                                   specs[key][int(i)], mesh))
+    step = D.make_sharded_serve_step(cfg, mesh, JR.KV_BUF, compute_dtype=f32,
+                                     device=dev, layout=layout)
+    lens = []
+    orig = ops.decode_attention
+
+    def seen(q, kc, *a, **kw):
+        lens.append(int(kc.shape[1]))                  # (B, S, KV, D)
+        return orig(q, kc, *a, **kw)
+    ops.decode_attention = seen
+    got, moved = [], []
+    try:
+        for t in range(JR.KV_TICKS):
+            batch = {"tokens": torch.from_numpy(inp["tokens"][:, t:t + 1]),
+                     "cache_len": torch.from_numpy(inp["cache_len"] + t)}
+            if vision is not None:
+                batch["vision"] = vision
+            with S.watch_collectives() as sizes:
+                logits, states, _ = step(dparams, states, batch)
+            moved.append(max(sizes, default=0))
+            got.append(logits[:, 0])
+    finally:
+        ops.decode_attention = orig
+    out[f"kv/{case}/logits"] = torch.stack(got).numpy()
+    keys = T.kv_cache_keys(cfg)
+    for key in keys:
+        for i, t in enumerate(states[key]):
+            out[f"kv/{case}/state/{key}/{i}"] = full_np(t)
+    first = states[keys[0]][0]
+    shard = first.to_local().shape[-4:]                  # (B, S, KV, D)
+    with S.watch_collectives() as by_spmd:
+        S.full_tensor(first)
+    with S.watch_collectives() as by_dtensor:
+        first.full_tensor()
+    meta.setdefault("kvseq", {})[case] = gathered({
+        "coord": mesh.get_coordinate(),
+        "local": {f"{key}/{i}": list(t.to_local().shape) for key in keys
+                  for i, t in enumerate(states[key])},
+        "layer_shard": int(np.prod(shard)) * first.element_size(),
+        "most_moved": max(moved), "cache_lens": sorted(set(lens)),
+        "gathers_seen": [max(by_spmd, default=0),
+                         max(by_dtensor, default=0)]})
+
+
+def group_kv(rank, world, dev, ref, outdir, out, meta):
+    meshes = {}
+    for case, (_, shape, _, _, _) in JR.KVSEQ_CASES.items():
+        if shape[0] * shape[1] != world:
+            continue
+        if shape not in meshes:
+            meshes[shape] = LM.make_mesh(shape, ("data", "model"),
+                                         device_type="cpu")
+        kvseq_case(case, meshes[shape], dev, ref, out, meta)
+
+
 GROUPS = {"four": group_four, "two": group_two, "card": group_card,
-          "fam4": group_fam4, "fam2": group_fam2}
+          "card_kv": group_card_kv,
+          "fam4": group_fam4, "fam2": group_fam2, "kv4": group_kv,
+          "kv2": group_kv}
 
 
 def main(argv):
@@ -626,7 +823,8 @@ def main(argv):
     ref = np.load(argv[5]) if len(argv) > 5 else None
     torch.set_num_threads(1)
     dev = LM.init_rank(rank, world, backend="gloo",
-                       device="cuda" if group == "card" else "cpu",
+                       device="cuda" if group.startswith("card")
+                       else "cpu",
                        init_method=f"file://{store}", timeout_s=240)
     out, meta = {}, {"world": world}
     try:
