@@ -74,11 +74,12 @@ their shapes here, in phase 3):
    the logits' range (olmoe at the no-drop capacity, see no_drop);
 5. slices, one per model at full width from seeded random weights (bf16
    compute), freed before the next: olmo-1b (flash and decode attention),
-   rwkv6-7b (WKV6), zamba2-7b at 39 of its 81 layers (6 periods of 5
-   Mamba-2 layers and the shared block, and 3 trailing; Mamba-2 SSD, and
-   flash and decode attention at head dim 112 in the shared block),
-   olmoe-1b-7b (64 experts, top-8,
-   8 of its 16 layers; flash and decode attention) and llama4-scout at 2 of its
+   rwkv6-7b at 16 of its 32 layers (WKV6), zamba2-7b at 21 of its 81
+   layers (3 periods of 5 Mamba-2 layers and the shared block, and 3
+   trailing; Mamba-2 SSD, and flash and decode attention at head dim 112
+   in the shared block), olmoe-1b-7b (64 experts, top-8, 4 of its 16
+   layers; flash and decode attention; the three cut for the time
+   limit) and llama4-scout at 2 of its
    48 layers (16 experts, top-1 and a shared expert; flash and decode
    attention at GQA 40:8). Each runs the prefill step on 4
    prompts of 2048 tokens (three calls, the first a warm-up), then the
@@ -214,8 +215,10 @@ their shapes here, in phase 3):
    ranks that share the card talk over gloo, which measures no
    interconnect): (1) a world of one rank on nccl: olmo-1b's sharded train
    step on a (1, 1) mesh at full width and 4 of 16 layers (fp32, remat
-   full, 3 steps of 4x2048) against the one-device step; gate: each loss
-   within 1e-4 relative. (2) Two spawned ranks on gloo, mesh (1, 2):
+   full, MESH_TRAIN_STEPS (2, for the time limit) steps of
+   4x2048) against the one-device step; gate: each loss within 1e-4
+   relative; the one-device step of the first batch at 2 microbatches.
+   (2) Two spawned ranks on gloo, mesh (1, 2):
    olmo-1b at full width and depth in bf16, three 4x2048 prefills (16
    flash launches a rank a call, each at 8 of the 16 heads) and
    MESH_REQUESTS (2) of phase 5's requests served (the shortest; 16 decode launches a rank a tick, at 8 heads); gates: the launch counts and head counts, the prefill logits
@@ -229,15 +232,32 @@ their shapes here, in phase 3):
    round-trips, bit for bit; a 2-stage GPipe within 1e-5 of
    sequential_apply; the 2-layer fp32 params saved from (1, 2) and
    restored on one rank, bit for bit. (3) Two ranks, mesh (2, 1), FSDP
-   and ZeRO-1: the train step of (1) for 3 steps; gate: each loss within
-   1e-4 relative of the one-device step's; each rank's peak memory beside
-   the one-device step's. (Phase 3 times the flash and decode kernels at a
+   and ZeRO-1: (a) the train steps of (1), each FSDP-sharded layer
+   gathered over data where it runs (inside the checkpointed layer: the
+   recompute gathers it again) and its gradient reduce-scattered back;
+   gate: each loss within 1e-4 relative of the one-device step's; each
+   rank's peak memory beside MESH_FSDP_WHOLE_PEAK_GB (7.93 GB: a rank's
+   peak when the step gathered whole params and gradients) and the
+   one-device step's; (b) the first batch's step at
+   2 microbatches (the global batch's row blocks, each rank its share of
+   each), its loss within 1e-4 relative of the one-device microbatched
+   step's; (c) in the same world a (2, 1, 1) ("pod", "data", "model")
+   mesh, the batch over "pod" and the gradients all-reduced over it: the
+   first step, its loss within 1e-4 relative of one device's; olmo-1b at
+   full width and 2 of 16 layers, batch 4 in the "fsdp" layout (2 rows a
+   rank), a fp32 4x512 prefill and 8 fp32 teacher-forced ticks within
+   1e-3 of the one-device range, then a bf16 4x2048 prefill (within 5e-2
+   of the one-device bf16 prefill's range) and 8 bf16 ticks, whose
+   launches must be flash 2 a prefill call and decode 2 a tick, each at
+   the rank's 2 rows, and no other kernel. (Phase 3 times the flash and
+   decode kernels at a
    rank's 8 of olmo-1b's 16 heads, where the kernel table's timings are:
    in phase 10, after an nccl group in this process, the profiler's
    windows lost kernel records.) It prints a ``mesh:`` JSON line (backends,
    ranks, each rank's launches, ms per prefill and per tick, peak memory,
    which gloo collectives took CUDA tensors, every gate's reading and
-   limit); the prefill and serving launches of (2) count in the kernel
+   limit, each (2, 1) rank's peak beside 7.93 GB); the prefill and
+   serving launches of (2) and (c)'s bf16 launches count in the kernel
    table's main-path launches.
 11. mesh families (the recurrent, hybrid, VLM and audio layouts on a
    ``DeviceMesh``; budget 120 s): two spawned gloo ranks sharing the card,
@@ -434,22 +454,29 @@ DURABLE_REQUESTS = 4
 # per model: slots, cache buffer, requests, new tokens each, prompt lengths;
 # SLICE_LAYERS cuts a model's depth (llama4-scout's 48 layers take 215 GB
 # in bf16; 2 layers, 6.47 B params, take 12.9 GB; zamba2-7b's 81 layers
-# took 99-105 s of the script's 1200 s limit, 39 keep its layout;
-# olmoe-1b-7b's 16 layers took 81-115 s, so 8 run)
+# took 99-105 s of the script's 1200 s limit, 21 (3 periods and the 3
+# trailing layers) keep its layout; olmoe-1b-7b's 16 layers took 81-115 s,
+# so 4 run; rwkv6-7b's 32 layers took 63 s, so 16 run: the mesh phase's
+# per-layer FSDP steps, microbatch step and pod mesh took 50 s more)
 SLICES = {"olmo-1b": (4, 1024, 8, 32, (128, 512)),
           "rwkv6-7b": (4, 512, 8, 16, (64, 256)),
           "zamba2-7b": (4, 512, 8, 16, (64, 256)),
           "olmoe-1b-7b": (4, 1024, 8, 32, (128, 512)),
           "llama4-scout-17b-a16e": (4, 256, 4, 16, (64, 128))}
-SLICE_LAYERS = {"llama4-scout-17b-a16e": 2, "zamba2-7b": 39,
-                "olmoe-1b-7b": 8}
+SLICE_LAYERS = {"llama4-scout-17b-a16e": 2, "zamba2-7b": 21,
+                "olmoe-1b-7b": 4, "rwkv6-7b": 16}
 # the mesh phase: olmo-1b's layers and steps in its train steps, its layers
 # in the fp32 serving check, olmoe-1b-7b's layers and prefill batch, and
 # how many of phase 5's olmo-1b requests the two ranks serve
-MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 3
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 2
 MESH_FP32_LAYERS = 2
 MESH_MOE_LAYERS, MESH_MOE_BATCH = 2, (4, 512)
 MESH_REQUESTS = 2
+# phase 10's pod mesh (2, 1, 1): olmo-1b's layers in its serving checks,
+# the fp32 prefill's batch and the ticks of each dtype; and a (2, 1) rank's
+# peak on an H100 when the step gathered whole params and gradients
+MESH_POD_LAYERS, MESH_POD_FP32, MESH_POD_TICKS = 2, (4, 512), 8
+MESH_FSDP_WHOLE_PEAK_GB = 7.93
 # phase 11: each family at full width and cut depth on a (1, 2) mesh (its
 # layers), the fp32 prefill batch and ticks, and the phase's time budget
 MESH_FAMILIES = {"rwkv6-7b": 2, "zamba2-7b": 6, "llama-3.2-vision-11b": 5,
@@ -949,7 +976,7 @@ def main() -> int:
     # -- 10. the sharded steps on a mesh ---------------------------------------
     phase("10. mesh")
     mesh = run_mesh(card, dev, at_rank)
-    for rank in mesh["ranks"]:
+    for rank in mesh["ranks"] + mesh["fsdp"]:
         for name, n in rank["launches"].items():
             totals[name] += n
     log("mesh: " + json.dumps(mesh))
@@ -2876,6 +2903,14 @@ def _mesh_one_rank(out, gate, dev) -> None:
                       params, TS.make_opt_state(params, tcfg), batches, dev)
     del params
     free()
+    # the first batch's step at 2 microbatches, from the same init
+    mb2 = dataclasses.replace(tcfg, microbatches=2)
+    params = M.init_params(cfg, 0, device=dev)
+    one["mb2_loss"] = _mesh_steps(TS.make_train_step(
+        cfg, mb2, ocfg, device=dev), params, TS.make_opt_state(params, mb2),
+        batches[:1], dev)["losses"][0]
+    del params
+    free()
     out["one_device"] = one
 
     # (1) a world of one rank on nccl (gloo in a CPU rehearsal)
@@ -2945,11 +2980,26 @@ def run_mesh(card, dev, kernels_at_rank=None) -> dict:
                                        out["one_device"]["losses"])):
             gate(f"fsdp (2, 1) rank {r} step {i} loss, relative",
                  abs(a - b) / abs(b), 1e-4)
+        gate(f"fsdp (2, 1) rank {r} microbatches 2 loss, relative",
+             abs(rank["mb2"]["losses"][0] - out["one_device"]["mb2_loss"])
+             / abs(out["one_device"]["mb2_loss"]), 1e-4)
+        gate(f"pod (2, 1, 1) rank {r} step loss, relative",
+             abs(rank["pod"]["losses"][0] - out["one_device"]["losses"][0])
+             / abs(out["one_device"]["losses"][0]), 1e-4)
+        for name, (value, limit) in rank["gates"].items():
+            gate(f"pod (2, 1, 1) rank {r} {name}", value, limit)
+    out["fsdp_peak_gb"] = {
+        "ranks (per-layer gather)": [rank["peak_gb"]
+                                     for rank in ranks["fsdp"]],
+        "rank gathering whole params and gradients": (
+            MESH_FSDP_WHOLE_PEAK_GB),
+        "one device": out["one_device"]["peak_gb"]}
     out["ranks"] = ranks["tp"]
     out["fsdp"] = ranks["fsdp"]
     out["backends"] = {"(1, 1) train": "nccl" if dev.type == "cuda"
                        else "gloo", "(1, 2) serve": "gloo",
-                       "(2, 1) train": "gloo"}
+                       "(2, 1) train": "gloo", "(2, 1, 1) train and serve":
+                       "gloo"}
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3367,7 +3417,8 @@ def _mesh_rank(rank: int, world: int, part: str, outdir: str,
     try:
         _reset_peak(dev)
         res = (_mesh_tp if part == "tp" else _mesh_fsdp)(rank, dev)
-        res.update(rank=rank, peak_gb=_peak_gb(dev))
+        res["rank"] = rank        # "fsdp": (a)'s peak, its steps' own
+        res.setdefault("peak_gb", _peak_gb(dev))
         Path(outdir, f"{part}.{rank}.json").write_text(json.dumps(res))
         dist.barrier()
     finally:
@@ -3538,6 +3589,10 @@ def _mesh_tp(rank: int, dev) -> dict:
 
 
 def _mesh_fsdp(rank: int, dev) -> dict:
+    """Phase 10's (3): (a) the FSDP and ZeRO-1 train steps on (2, 1), each
+    layer gathered over data where it runs; (b) the first batch's step at
+    2 microbatches; (c) a (2, 1, 1) ("pod", "data", "model") mesh: the
+    first step, then serving (``_mesh_pod_serve``)."""
     from repro_torch.launch import mesh as LM
     from repro_torch.launch.train import build_sharded_train
     from repro_torch.models import model as M
@@ -3545,16 +3600,142 @@ def _mesh_fsdp(rank: int, dev) -> dict:
     from repro_torch.train import train_step as TS
     mesh = LM.make_mesh((2, 1), ("data", "model"), device_type=dev.type)
     cfg, tcfg, ocfg, batches = mesh_train_setup(dev)
-    step, pspecs, ospecs = build_sharded_train(cfg, tcfg, ocfg, mesh,
-                                               device=dev)
-    params, opt = TS.shard_train_state(M.init_params(cfg, 0, device=dev),
-                                       tcfg, pspecs, ospecs, mesh)
-    free()
+
+    def fresh(tc, on):
+        step, pspecs, ospecs = build_sharded_train(cfg, tc, ocfg, on,
+                                                   device=dev)
+        params, opt = TS.shard_train_state(M.init_params(cfg, 0, device=dev),
+                                           tc, pspecs, ospecs, on)
+        free()
+        return step, params, opt
+
+    step, params, opt = fresh(tcfg, mesh)
     shard_gb = {k: sum(t.numel() * t.element_size()
                        for t in _leaves(S.to_local(tree))) / 1e9
                 for k, tree in (("params", params), ("mu", opt["mu"]))}
     res = _mesh_steps(step, params, opt, batches, dev)
     res["local_gb"] = shard_gb
+    del step, params, opt
+    free()
+    _reset_peak(dev)
+    res["mb2"] = _mesh_steps(*fresh(dataclasses.replace(
+        tcfg, microbatches=2), mesh), batches[:1], dev)
+    free()
+    pod = LM.make_mesh((2, 1, 1), ("pod", "data", "model"),
+                       device_type=dev.type)
+    _reset_peak(dev)
+    res["pod"] = _mesh_steps(*fresh(tcfg, pod), batches[:1], dev)
+    free()
+    res.update(_mesh_pod_serve(rank, pod, dev))
+    return res
+
+
+def _mesh_pod_serve(rank: int, pod, dev) -> dict:
+    """Phase 10's (c), serving on the (2, 1, 1) mesh: olmo-1b at full width
+    and MESH_POD_LAYERS layers, the "fsdp" layout at batch 4 (2 rows a
+    rank, over "pod"): a fp32 prefill and MESH_POD_TICKS fp32
+    teacher-forced ticks against one rank's (rank 0, the one-device
+    port); then a bf16 4x2048 prefill and MESH_POD_TICKS bf16 ticks,
+    whose launches (flash once a layer a call, decode once a layer a
+    tick, each at the rank's 2 rows) count in the kernel table's
+    main-path launches; the bf16 prefill against one rank's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve import decode as D
+    from repro_torch.sharding import spmd as S
+    from repro_torch.train import train_step as TS
+    cfg = dataclasses.replace(get_arch("olmo-1b"), n_layers=MESH_POD_LAYERS)
+    b, ticks, f32 = PREFILL_BATCH, MESH_POD_TICKS, torch.float32
+    full = weights(cfg, dev)
+    pspecs = TS.sharded_specs(cfg, pod)[1]
+    rng = np.random.default_rng(22)
+    small = torch.from_numpy(rng.integers(0, cfg.vocab_size, MESH_POD_FP32))
+    large = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (b, PREFILL_LEN)))
+    gates, res = {}, {}
+
+    def run(params, dtype, tokens, one: bool):
+        """(prefill logits, ticks' logits (B, ticks, V)) on the pod mesh,
+        or of one rank (the one-device port) with ``one``."""
+        if one:
+            pre = D.make_prefill_step(cfg, compute_dtype=dtype, device=dev)
+            step = D.make_serve_step(cfg, ticks, compute_dtype=dtype,
+                                     device=dev)
+            from repro_torch.models import transformer as T
+            states = T.init_decode_state(cfg, b, ticks, dtype=dtype,
+                                         device=dev)
+        else:
+            pre = D.make_sharded_prefill_step(cfg, pod, compute_dtype=dtype,
+                                              device=dev)
+            step = D.make_sharded_serve_step(cfg, pod, ticks,
+                                             compute_dtype=dtype, device=dev)
+            states = D.init_sharded_decode_state(cfg, pod, b, ticks,
+                                                 dtype=dtype, device=dev)
+        logits = pre(params, {"tokens": tokens})
+        got = []
+        for i in range(ticks):
+            out, states, _ = step(params, states, {
+                "tokens": tokens[:, i:i + 1],
+                "cache_len": torch.full((b,), i, dtype=torch.int32)})
+            got.append(out[:, 0])
+        _sync(dev)
+        return logits, torch.stack(got, 1)
+
+    params = S.distribute(full, pspecs, pod)
+    pre32, ticks32 = run(params, f32, small, one=False)
+    if rank == 0:
+        want_pre, want_ticks = run(full, f32, small, one=True)
+        gates["fp32 prefill against one rank"] = [
+            _range_err(pre32, want_pre), 1e-3]
+        gates["fp32 ticks against one rank"] = [
+            max(_range_err(ticks32[:, t], want_ticks[:, t])
+                for t in range(ticks)), 1e-3]
+    del params
+    free()
+
+    full = M.cast_params(full, torch.bfloat16)
+    params = S.distribute(full, pspecs, pod)
+    rows = {"flash_attention": set(), "decode_attention": set()}
+    origs = {name: getattr(ops, name) for name in rows}
+    for name, orig in origs.items():       # the rows each launch sees
+
+        def seen(q, *a, orig=orig, name=name, **kw):
+            rows[name].add(int(q.shape[0]))       # q: (B, S, H, D)
+            return orig(q, *a, **kw)
+        setattr(ops, name, seen)
+    counters = launch_counters()
+    try:
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        pre16, _ = run(params, torch.bfloat16, large, one=False)
+        res["bf16_prefill_and_ticks_ms"] = 1e3 * (time.perf_counter() - t0)
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        for name, orig in origs.items():
+            setattr(ops, name, orig)
+    res.update(launches=launches, rows={k: sorted(v)
+                                        for k, v in rows.items()})
+    gates["flash launches a prefill call"] = [
+        abs(launches["flash_attention"] - MESH_POD_LAYERS), 0]
+    gates["decode launches a tick"] = [
+        abs(launches["decode_attention"] / ticks - MESH_POD_LAYERS), 0]
+    gates["rows a launch"] = [abs(len(set().union(*rows.values())) - 1)
+                              + abs(max(rows["decode_attention"]) - b // 2),
+                              0]
+    gates["other kernels launched"] = [
+        sum(n for k, n in launches.items() if k not in rows), 0]
+    if rank == 0:
+        want = D.make_prefill_step(cfg, device=dev)(full, {"tokens": large})
+        gates["bf16 prefill against one rank"] = [_range_err(pre16, want),
+                                                  5e-2]
+    del full, params
+    free()
+    res["gates"] = gates
     return res
 
 

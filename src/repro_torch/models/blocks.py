@@ -652,11 +652,12 @@ def moe_block(p, x, cfg: ArchConfig, *, capacity=None, mesh=None):
     On a mesh, the reference's condition: a model axis wider than 1 that
     divides the experts, and batch axes that divide the global batch, take
     the expert-parallel branch (``_moe_local`` at E/tp experts a rank, on
-    this rank's data shard: capacity per data shard, and the aux loss the
-    mean of the shards' losses, as the reference's ``pmean``; ROADMAP C).
-    The shared expert rides the EP sum under ``fuse_shared``, else it is a
-    tensor-parallel ``mlp_block``. Otherwise the no-mesh branch runs on
-    the whole batch: the rows gathered over data, the experts over model.
+    this rank's batch shard, "pod" x "data": capacity per batch shard, and
+    the aux loss the mean of the shards' losses, as the reference's
+    ``pmean``; ROADMAP C). The shared expert rides the EP sum under
+    ``fuse_shared``, else it is a tensor-parallel ``mlp_block``. Otherwise
+    the no-mesh branch runs on the whole batch: the rows gathered over the
+    batch shards, the experts over model.
     Runs under the ``moe_block`` record_function, so a profile can tell the
     block's kernels apart."""
     m = cfg.moe
@@ -664,15 +665,15 @@ def moe_block(p, x, cfg: ArchConfig, *, capacity=None, mesh=None):
         if mesh is None:
             y, aux = _moe_local(p, x, cfg)
         elif mesh.tp > 1 and m.n_experts % mesh.tp == 0 and (
-                x.shape[0] * (mesh.dp if mesh.shards_batch else 1)) \
-                % mesh.dp == 0:
+                x.shape[0] * (mesh.batches if mesh.shards_batch else 1)) \
+                % mesh.batches == 0:
             n_local = m.n_experts // mesh.tp
             fuse = bool(m.n_shared_experts and m.fuse_shared)
             y, aux = _moe_local(p, x, cfg, e0=mesh.tp_rank * n_local,
                                 n_local=n_local, ep=mesh,
                                 shared=p["shared"] if fuse else None)
-            if mesh.shards_batch:     # the pmean over the data shards
-                mean = S.all_reduce(aux, mesh.data_group) / mesh.dp
+            if mesh.shards_batch:     # the pmean over the batch shards
+                mean = S.all_reduce(aux, mesh.batch_group) / mesh.batches
                 aux = aux + (mean - aux).detach()
             if m.n_shared_experts and not fuse:
                 y = y + mlp_block(p["shared"], x, mesh)

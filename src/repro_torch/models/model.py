@@ -120,7 +120,8 @@ def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype, mesh=None):
     tied table holds this rank's vocab rows (a token of another rank's
     rows reads zeros, and the sum over the model axis has each row once)
     and an untied one, the codebooks' (K, V, d) table included, its
-    d_model columns (gathered)."""
+    d_model columns (gathered). FSDP never shards the table
+    (``param_specs`` skips it)."""
     if cfg.n_codebooks:
         books = torch.arange(cfg.n_codebooks, device=tokens.device)
         rows = params["embed"][books, tokens].to(compute_dtype)  # (B, S, K, d)
@@ -141,9 +142,11 @@ def lm_logits(params, x, cfg: ArchConfig, mesh=None):
     codebook-major, as in the reference). On a mesh the head is
     vocab-sharded (``lm_head`` is in ``_COL_TP``, a tied table in its vocab
     rows) and this rank's columns are gathered whole, for the loss and for
-    greedy decoding."""
+    greedy decoding. An untied head that FSDP shards is gathered over data
+    here, once a call."""
     xf = S.tp_copy(B.apply_norm(params["final_norm"], x, cfg), mesh)
-    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    w = params["embed"].t() if cfg.tie_embeddings else \
+        S.gather_params(params["lm_head"], mesh, "lm_head")
     logits = S.tp_gather(xf @ w.to(xf.dtype), mesh, -1)
     if cfg.n_codebooks:
         logits = logits.unflatten(-1, (cfg.n_codebooks, cfg.vocab_size))
@@ -173,11 +176,11 @@ def loss_fn(params, batch, cfg: ArchConfig, ctx: dict):
 
     On a mesh (``ctx["mesh"]``; batch: this rank's rows) the first value
     is this rank's share of the objective, whose gradients summed over
-    the data axis are those of loss + aux: its NLL sum over the global
-    count of valid labels, plus aux over the data axis's size (aux is
-    already the mean over the data shards); over a batch the data axis
-    does not shard, (loss + aux) over its size. The metrics are the
-    global batch's."""
+    the batch shards ("pod" x "data") are those of loss + aux: its NLL
+    sum over the global count of valid labels, plus aux over the number of
+    batch shards (aux is already the mean over them); over a batch the
+    batch shards do not split, (loss + aux) over their number. The
+    metrics are the global batch's."""
     logits, aux, _ = forward(params, batch["tokens"], cfg, ctx)
     labels = batch["labels"]
     logits = logits.float()
@@ -190,14 +193,14 @@ def loss_fn(params, batch, cfg: ArchConfig, ctx: dict):
     if mesh is not None and mesh.shards_batch:
         tot = S.all_reduce(torch.stack([nll.sum().detach().double(),
                                         valid.sum().double()]),
-                           mesh.data_group)
+                           mesh.batch_group)
         ntok = tot[1].long().clamp_min(1)
-        share = nll.sum() / ntok + aux / mesh.dp
+        share = nll.sum() / ntok + aux / mesh.batches
         return share, {"loss": (tot[0] / ntok).float(), "aux_loss": aux,
                        "ntokens": ntok}
     ntok = valid.sum().clamp_min(1)
     loss = nll.sum() / ntok
-    share = loss + aux if mesh is None else (loss + aux) / mesh.dp
+    share = loss + aux if mesh is None else (loss + aux) / mesh.batches
     return share, {"loss": loss, "aux_loss": aux, "ntokens": ntok}
 
 

@@ -35,6 +35,15 @@ every site. The RWKV and Mamba layers take their differentiable
 returns its auxiliary loss beside x (MoE's load-balancing loss; None for a
 block without one), and the stack sums them, as the reference's scans carry
 aux; under remat the checkpointed layer returns both.
+
+On a mesh with FSDP (``ctx["mesh"].fsdp``) params are this rank's shards
+and each stacked layer's leaves are gathered whole over data where the
+layer runs, inside the function that remat checkpoints: the forward holds
+one whole layer at a time, the recompute gathers it again, and the
+gather's backward reduce-scatters the layer's gradient
+(``spmd.gather_params``). The special layers outside the inner stacks (the
+hybrid's shared block, gathered once a step; the VLM's cross-attention
+layer of each period) are gathered where they run.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
+from repro_torch.sharding import spmd as S
 from repro_torch.sharding.rules import constrain
 
 BATCH = ("batch", None, None)
@@ -225,18 +235,28 @@ def _add(total, aux):
     return aux if total is None else total if aux is None else total + aux
 
 
-def _run(block, stacked, n, x, cfg, ctx, states, aux=None):
-    """n stacked layers; returns (x, aux), aux summed onto ``aux``."""
+def _run(block, stacked, n, x, cfg, ctx, states, path, aux=None):
+    """n stacked layers (``stacked``: the param subtree at ``path``, or a
+    period's slice of it); returns (x, aux), aux summed onto ``aux``. Each
+    layer's leaves are gathered over data (FSDP) inside the layer's own
+    function, under remat inside the checkpoint (a leaf that FSDP shards
+    along the layer dim itself, the stack at once, before the loop)."""
+    mesh = ctx.get("mesh")
+    stacked = S.gather_params(stacked, mesh, *path, lead=1)
+
+    def layer(p, x, st=None):
+        return layer_fwd(block, S.gather_params(p, mesh, *path), x, cfg,
+                         ctx, st)
+
     if ctx["mode"] == "train":
-        fwd = _maybe_remat(
-            lambda p, x: layer_fwd(block, p, x, cfg, ctx)[::2], ctx)
+        fwd = _maybe_remat(lambda p, x: layer(p, x)[::2], ctx)
         for i in range(n):
             x, a = fwd(_layer(stacked, i), x)
             aux = _add(aux, a)
         return x, aux
     for i in range(n):
         st = None if states is None else _layer(states, i)
-        x, _, a = layer_fwd(block, _layer(stacked, i), x, cfg, ctx, st)
+        x, _, a = layer(_layer(stacked, i), x, st)
         aux = _add(aux, a)
     return x, aux
 
@@ -247,27 +267,33 @@ def apply_stack(params, x, cfg: ArchConfig, ctx: dict, states=None):
     losses, a 0-d fp32 tensor, or None where no layer has one."""
     layout = build_layout(cfg)
     decode = ctx["mode"] == "decode"
+    mesh = ctx.get("mesh")
 
     def part(key):
         return states[key] if decode else None
 
     if layout["kind"] == "uniform":
         x, aux = _run(layout["block"], params["layers"], layout["n"], x, cfg,
-                      ctx, part("layers"))
+                      ctx, part("layers"), ("layers",))
         return x, aux, states
     inner, aux = layout["inner_block"], None
     cross = layout["single_block"] == "cross_attn"
+    if not cross:        # the hybrid's shared block: gathered once a step
+        shared = S.gather_params(params["shared_block"], mesh,
+                                 "shared_block")
     for i in range(layout["periods"]):
         x, aux = _run(inner, _layer(params["layers"]["inner"], i),
                       layout["inner_n"], x, cfg, ctx,
-                      _layer(states["inner"], i) if decode else None, aux)
-        single = _layer(params["layers"]["single"], i) if cross \
-            else params["shared_block"]
+                      _layer(states["inner"], i) if decode else None,
+                      ("layers", "inner"), aux)
+        single = S.gather_params(_layer(params["layers"]["single"], i),
+                                 mesh, "layers", "single") if cross \
+            else shared
         x, _, a = layer_fwd(layout["single_block"], single, x, cfg, ctx,
                             _layer(states["single"], i) if decode else None)
         aux = _add(aux, a)
     x, aux = _run(inner, params["layers"]["trailing"], layout["trailing"], x,
-                  cfg, ctx, part("trailing"), aux)
+                  cfg, ctx, part("trailing"), ("layers", "trailing"), aux)
     return x, aux, states
 
 
@@ -335,11 +361,13 @@ def kv_cache_keys(cfg: ArchConfig) -> tuple:
 def cross_state(cfg: ArchConfig, params, vision, dtype, mesh=None):
     """The VLM's decode-state vision K/V, (k, v) each (P, B, Nv, KV, D):
     each period's ``blocks.cross_kv`` of vision (B, Nv, d_src) in its own
-    dtype, cast to ``dtype``. On a mesh params are this rank's shards and
-    the K/V come out whole (every kv head), gathered from every rank's wk
-    and wv columns, as ``decode_state_specs`` keeps them."""
+    dtype, cast to ``dtype``. On a mesh params are this rank's shards
+    (each period's gathered over data, FSDP) and the K/V come out whole
+    (every kv head), gathered from every rank's wk and wv columns, as
+    ``decode_state_specs`` keeps them."""
     single = params["layers"]["single"]["attn"]
-    kvs = [B.cross_kv(_layer(single, i), vision, cfg, mesh)
+    kvs = [B.cross_kv(S.gather_params(_layer(single, i), mesh, "layers",
+                                      "single", "attn"), vision, cfg, mesh)
            for i in range(build_layout(cfg)["periods"])]
     return tuple(torch.stack([kv[j] for kv in kvs]).to(dtype)
                  for j in range(2))

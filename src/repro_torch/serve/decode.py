@@ -6,20 +6,22 @@ WKV6 and SSD kernels and decode attention the decode kernel (the RWKV and
 Mamba decode steps and cross-attention are plain torch, as in the
 reference); their plain versions serve CPU tensors only.
 
-The sharded prefill and serve steps run them on a ``DeviceMesh``, one
-process per rank, as the reference's ``dryrun.build_cell`` assembles them:
-params under ``param_specs`` (FSDP's layout, gathered over data at each
-call; or, for the serve step's ``layout="resident"``, model-axis TP only,
-no FSDP, and the batch replicated), the decode state under
-``decode_state_specs`` and the batch under ``batch_specs``; each rank runs
+The sharded prefill and serve steps run them on a ``DeviceMesh`` over
+"pod", "data" and "model" axes (any of them), one process per rank, as the
+reference's ``dryrun.build_cell`` assembles them: params under
+``param_specs`` (FSDP's layout, each layer gathered over data where it
+runs, ``spmd.gather_params``; or, for the serve step's
+``layout="resident"``, model-axis TP only, no FSDP, and the batch
+replicated), the decode state under ``decode_state_specs`` and the batch
+under ``batch_specs`` (over the batch shards, "pod" x "data"); each rank runs
 the flash and decode kernels at its H/tp query heads and KV/tp KV heads,
 and every rank returns the global batch's logits. Every layout runs so:
 the recurrent families hold the rank's heads of their wkv and SSM states,
 the VLM its vision K/V whole. Where the spec shards a KV cache's sequence
-(KV heads that the model axis does not divide, or a batch that the data
-axis does not), each rank holds its positions of it, attends over them
-and merges the ranks' partial softmaxes (``blocks.attention_block``): no
-rank gathers a cache.
+(KV heads that the model axis does not divide, or a batch that the batch
+shards do not), each rank holds its positions of it, attends over them
+and merges the ranks' partial softmaxes over the sequence's group
+(``blocks.attention_block``): no rank gathers a cache.
 """
 from __future__ import annotations
 
@@ -125,18 +127,21 @@ def _batch_entry(states):
 
 
 def _step_ctx(mesh, rules, pspecs, params, rows: int, layout: str = "fsdp"):
-    """(MeshCtx, this rank's params whole over data) for a call of
-    ``rows`` global rows."""
+    """(MeshCtx, this rank's param shards) for a call of ``rows`` global
+    rows; the model gathers each FSDP-sharded layer where it runs."""
     from repro_torch.sharding import spmd as S
     from repro_torch.sharding.rules import batch_axis, set_rules
     set_rules(rules)
-    mc = S.MeshCtx(mesh, batch_axis(rules, rows, layout) is not None)
-    return mc, S.whole_over_data(params, pspecs, mc)
+    mc = S.MeshCtx(mesh, batch_axis(rules, rows, layout) is not None,
+                   fsdp=pspecs)
+    return mc, S.to_local(params)
 
 
 def _global_rows(x, mc):
+    """This rank's rows -> the global batch's, gathered over the batch
+    shards."""
     from repro_torch.sharding import spmd as S
-    return S.all_gather(x, mc.data_group, 0) if mc.shards_batch else x
+    return S.all_gather(x, mc.batch_group, 0) if mc.shards_batch else x
 
 
 def _vision_rows(batch, mc, dev):
@@ -177,10 +182,11 @@ def init_sharded_decode_state(cfg: ArchConfig, mesh, batch: int,
                               device="cuda", vision=None, params=None,
                               layout: str = "fsdp"):
     """This rank's decode state, as DTensors under
-    ``decode_state_specs(layout=layout)``: batch over data where it divides
-    (replicated for "resident"); KV heads over model where it divides them,
-    else the KV sequence over model (and over data too where the batch is
-    not sharded); the RWKV wkv state's and the Mamba SSM state's heads and
+    ``decode_state_specs(layout=layout)``: batch over the batch shards
+    ("pod" x "data") where they divide it (replicated for "resident"); KV
+    heads over model where it divides them, else the KV sequence over
+    model (and over the batch axes too where the batch is not sharded);
+    the RWKV wkv state's and the Mamba SSM state's heads and
     the conv state's channels over model, the last-token rows whole. Zeros,
     but for the VLM's vision K/V, built as on one device from ``vision``
     (B, Nv, d_src), this rank's rows of it, and ``params`` (DTensors under
@@ -230,9 +236,9 @@ def init_sharded_decode_state(cfg: ArchConfig, mesh, batch: int,
 def reset_sharded_slot(states, s: int, mesh, batch: int) -> None:
     """``transformer.reset_slot`` of global slot ``s`` on this rank's local
     states (``init_sharded_decode_state``'s, of ``batch`` slots), where
-    this rank holds it: every rank of the slot's data shard, at the slot's
-    local row; every rank where the state replicates the batch ("resident",
-    or a batch that the data axis does not divide)."""
+    this rank holds it: every rank of the slot's batch shard, at the
+    slot's local row; every rank where the state replicates the batch
+    ("resident", or a batch that the batch shards do not divide)."""
     from repro_torch.sharding import spmd as S
     mc = S.MeshCtx(mesh, _batch_entry(states) is not None)
     row = S.dp_row(s, batch, mc)
@@ -249,8 +255,9 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh, buffer_len: int, *,
     which decode does not read: its K/V are the state's); returns the
     global batch's logits (B, 1[, K], V), the state, and next_tok (B[, K]),
     the same on every rank. ``layout``: "fsdp" (params under the FSDP
-    specs, gathered over data each call, the batch over data where it
-    divides) or "resident" (the reference's serving layout,
+    specs, each layer gathered over data where it runs, the batch over
+    the batch shards where they divide it) or "resident" (the reference's
+    serving layout,
     ``dryrun.build_cell``'s ``serve_layout``: params under
     ``sharded_specs(fsdp=False)``, model-axis TP only, which the caller
     casts to bf16; the batch replicated). The step reads the state's
@@ -276,7 +283,7 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh, buffer_len: int, *,
                     f"a {layout!r} serve step of {rows} rows: build it with "
                     f"init_sharded_decode_state(..., layout={layout!r})")
             ctxs[rows, b_ax, kv_seq] = S.MeshCtx(mesh, b_ax is not None,
-                                                 kv_seq=kv_seq)
+                                                 kv_seq=kv_seq, fsdp=pspecs)
         return ctxs[rows, b_ax, kv_seq]
 
     @torch.no_grad()
@@ -284,7 +291,7 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh, buffer_len: int, *,
         tokens = batch["tokens"].to(dev)
         mc = step_ctx(tokens.shape[0], states)
         set_rules(rules)
-        local = S.whole_over_data(params, pspecs, mc)
+        local = S.to_local(params)
         cache_len = S.dp_rows(batch["cache_len"].to(dev), mc)
         ctx = M.make_ctx(cfg, buffer_len, "decode",
                          vision=_vision_rows(batch, mc, dev),

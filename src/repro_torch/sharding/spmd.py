@@ -141,9 +141,9 @@ def watch_collectives():
     wraps the lowest calls that every path takes: ``torch.distributed``'s
     (this module's collectives, gloo's host copies included) and the
     functional collectives of DTensor's own redistribution
-    (``DTensor.full_tensor``). Calls inside ``whole_over_data`` (FSDP's
-    gather of the params, which moves the params whatever a cache holds)
-    are left out."""
+    (``DTensor.full_tensor``). Calls inside ``fsdp_gather`` (FSDP's
+    gather of a param leaf or a layer's slice of one, which moves the
+    params whatever a cache holds) are left out."""
     import torch.distributed._functional_collectives as funcol
     seen, paused, saved = [], [0], []
     me = sys.modules[__name__]
@@ -175,7 +175,7 @@ def watch_collectives():
             for name in names:
                 if callable(getattr(mod, name, None)):
                     wrap(mod, name, watched(getattr(mod, name)))
-        wrap(me, "whole_over_data", unwatched(me.whole_over_data))
+        wrap(me, "fsdp_gather", unwatched(me.fsdp_gather))
         yield seen
     finally:
         for mod, name, orig in reversed(saved):
@@ -252,64 +252,145 @@ class _Gather(torch.autograd.Function):
 # the mesh as one step's model code reads it
 # ---------------------------------------------------------------------------
 
+def _groups(mesh) -> dict:
+    """{axes: this rank's process group over them} for every set of two or
+    more of ``mesh``'s axes of size above 1, made at the mesh's first need
+    and kept on it: every rank makes the same groups in the same order
+    (``dist.new_group`` is collective over the world), once per mesh, so
+    that a step that builds a ``MeshCtx`` a call makes none. Axes that
+    cover a mesh laid over the whole world in rank order take the world's
+    group. A group's ranks are the ranks that share the other axes'
+    coordinates; in group rank order they run over ``axes`` major to minor,
+    as ``shard_of`` orders a multi-axis entry's chunks."""
+    got = getattr(mesh, "_spmd_groups", None)
+    if got is not None:
+        return got
+    import itertools
+    import math
+    names, sizes = axis_names(mesh), axis_sizes(mesh)
+    wide = [a for a in names if sizes[a] > 1]
+    ranks = mesh.mesh
+    in_order = ranks.numel() == dist.get_world_size() and \
+        ranks.flatten().tolist() == list(range(ranks.numel()))
+    me, got = dist.get_rank(), {}
+    for n in range(2, len(wide) + 1):
+        for axes in itertools.combinations(wide, n):
+            if n == len(wide) and in_order:
+                got[axes] = dist.group.WORLD
+                continue
+            dims = [names.index(a) for a in axes]
+            rest = [i for i in range(len(names)) if i not in dims]
+            rows = ranks.permute(*rest, *dims).reshape(
+                -1, math.prod(sizes[a] for a in axes))
+            for row in rows.tolist():
+                if row != sorted(row):
+                    raise ValueError(f"mesh {names} is not laid out in "
+                                     "rank order")
+                group = dist.new_group(ranks=row)
+                if me in row:
+                    got[axes] = group
+    mesh._spmd_groups = got
+    return got
+
+
 def _group_over(mesh, axes: tuple[str, ...]):
-    """The process group over ``axes`` of ``mesh``: the axis's own group
-    for one axis; for both axes of a 2-D mesh, the world's, which every
-    rank created together at its start (``launch.mesh.make_mesh`` lays a
-    mesh over the whole world)."""
+    """The process group over ``axes`` of ``mesh`` (each of size above 1):
+    the axis's own group for one axis, else ``_groups``'."""
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    if mesh.size() != dist.get_world_size():
-        raise NotImplementedError(
-            f"a KV sequence over {axes} of a mesh of {mesh.size()} ranks in "
-            f"a world of {dist.get_world_size()}")
-    return dist.group.WORLD
+    return _groups(mesh)[tuple(axes)]
+
+
+def _coord(mesh, axes) -> int:
+    """This rank's index over ``axes`` of ``mesh``, major to minor."""
+    sizes, out = axis_sizes(mesh), 0
+    for a in axes:
+        out = out * sizes[a] + mesh.get_local_rank(a)
+    return out
+
+
+def _data_dims(specs, dp: int):
+    """A param spec tree -> the same tree of the dim (negative, so that it
+    holds for a layer's slice of a stacked leaf) that the data axis shards,
+    or None; None for the whole tree where data shards no leaf."""
+    if dp == 1:
+        return None
+    seen = []
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        dim = next((i - len(tree) for i, entry in enumerate(tree)
+                    if "data" in _axes(entry)), None)
+        seen.append(dim is not None)
+        return dim
+    dims = walk(specs)
+    return dims if any(seen) else None
 
 
 class MeshCtx:
-    """A 1- or 2-D ``DeviceMesh`` over ("data", "model") axes, as the model
-    code reads it during one step: the groups, sizes and coordinates of
-    this rank, and whether the step's batch is sharded over data
-    (``batch_specs``: when the data axis divides the global batch).
+    """A ``DeviceMesh`` over "pod", "data" and "model" axes (any of them,
+    in that order: ("data", "model"), its 1-D forms, ("pod", "data",
+    "model")), as the model code reads it during one step: the groups,
+    sizes and coordinates of this rank.
+
+    Two ideas are kept apart, as the reference's rules keep them:
+
+    - **The batch shards**: "pod" x "data", pod major (the logical "batch"
+      axis, ``AxisRules.for_mesh``): ``batches`` of them, this rank's
+      ``batch_rank`` and their ``batch_group``. ``batch_sharded``: whether
+      the step's batch is sharded over them (``batch_specs``: when they
+      divide the global batch); ``dp_rows``, ``dp_row`` and ``dp_gather``
+      split and gather rows over them.
+    - **The FSDP/ZeRO axis**: "data" alone (``dp``, ``dp_rank``,
+      ``data_group``). ``fsdp``: the step's param specs; a leaf that data
+      shards is gathered whole over data where the model reads it (a
+      stacked leaf one layer at a time, ``gather_params``), its gradient
+      reduce-scattered back. "pod" replicates the params.
 
     ``kv_seq``: the sequence entry of the decode state's KV cache spec
-    (``decode_state_specs``: "model", "data", ("data", "model") or None).
-    Of its axes, those of size above 1 shard the KV sequence
-    (``kv_seq_axes``); the step's attention then runs over this rank's
-    shard, ``kv_shard`` (major to minor, as ``shard_of`` orders the
-    shards), and merges the ranks' partial softmaxes over
-    ``kv_seq_group`` (``merge_partials``)."""
+    (``decode_state_specs``: "model", "data", ("data", "model"),
+    ("pod", "data") or ("pod", "data", "model"), or None). Of its axes,
+    those of size above 1 shard the KV sequence (``kv_seq_axes``); the
+    step's attention then runs over this rank's shard, ``kv_shard`` (major
+    to minor, as ``shard_of`` orders the shards), and merges the ranks'
+    partial softmaxes over ``kv_seq_group`` (``merge_partials``)."""
 
-    def __init__(self, mesh, batch_sharded: bool = True, kv_seq=None):
+    def __init__(self, mesh, batch_sharded: bool = True, kv_seq=None,
+                 fsdp=None):
         names = axis_names(mesh)
-        if set(names) - {"data", "model"}:
-            raise NotImplementedError(
-                f"mesh axes {names}: the port's sharded steps run on "
-                "('data', 'model') meshes; a 'pod' axis waits for ROADMAP "
-                "A11b.3")
+        if set(names) - {"pod", "data", "model"}:
+            raise ValueError(f"mesh axes {names}: the sharded steps read "
+                             "'pod', 'data' and 'model' axes")
         sizes = axis_sizes(mesh)
         self.mesh = mesh
         self.batch_sharded = batch_sharded
         self.tp = sizes.get("model", 1)
         self.dp = sizes.get("data", 1)
+        self.pods = sizes.get("pod", 1)
         self.model_group = mesh.get_group("model") if "model" in names \
             else None
         self.data_group = mesh.get_group("data") if "data" in names else None
+        self.pod_group = mesh.get_group("pod") if "pod" in names else None
         self.tp_rank = mesh.get_local_rank("model") if "model" in names \
             else 0
         self.dp_rank = mesh.get_local_rank("data") if "data" in names else 0
+        batch_axes = tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1)
+        self.batches = self.pods * self.dp
+        self.batch_rank = _coord(mesh, batch_axes)
+        self.batch_group = _group_over(mesh, batch_axes) if batch_axes \
+            else None
         self.kv_seq_axes = tuple(a for a in _axes(kv_seq)
                                  if sizes.get(a, 1) > 1)
-        self.kv_shard = 0
-        for a in self.kv_seq_axes:
-            self.kv_shard = self.kv_shard * sizes[a] + mesh.get_local_rank(a)
+        self.kv_shard = _coord(mesh, self.kv_seq_axes)
         self.kv_seq_group = _group_over(mesh, self.kv_seq_axes) \
             if self.kv_seq_axes else None
+        self.fsdp = None if fsdp is None else _data_dims(fsdp, self.dp)
 
     @property
     def shards_batch(self) -> bool:
-        """The step's rows are this rank's data shard of the batch."""
-        return self.batch_sharded and self.dp > 1
+        """The step's rows are this rank's batch shard of the batch."""
+        return self.batch_sharded and self.batches > 1
 
 
 def tp_copy(x, mc: MeshCtx | None):
@@ -360,14 +441,53 @@ def dp_gather(x, mc: MeshCtx | None, dim: int = 0):
     """This rank's rows -> the global batch's (summing backward)."""
     if mc is None or not mc.shards_batch:
         return x
-    return _Gather.apply(x, mc.data_group, dim % x.dim(), True)
+    return _Gather.apply(x, mc.batch_group, dim % x.dim(), True)
 
 
 def dp_rows(x, mc: MeshCtx | None, dim: int = 0):
-    """The global batch's rows -> this rank's data shard."""
+    """The global batch's rows -> this rank's batch shard."""
     if mc is None or not mc.shards_batch:
         return x
-    return x.chunk(mc.dp, dim)[mc.dp_rank]
+    return x.chunk(mc.batches, dim)[mc.batch_rank]
+
+
+def fsdp_gather(x, dim: int, mc: MeshCtx):
+    """One FSDP-sharded leaf, or a layer's slice of one, gathered whole
+    over data along ``dim``; its gradient reduce-scattered back over data
+    (``_Gather`` summing: each data rank reads the whole leaf with its own
+    rows)."""
+    return _Gather.apply(x, mc.data_group, dim % x.dim(), True)
+
+
+def gather_params(tree, mc: MeshCtx | None, *path: str, lead: int = 0):
+    """``tree`` (a param subtree at ``path`` of the param tree, or a
+    layer's slice of one: stacked dims indexed away in front) with each
+    leaf that data shards gathered whole over data (``fsdp_gather``), where
+    the model reads it: a stacked layer's leaves inside its checkpointed
+    function, so that under remat the recompute gathers again and no
+    whole layer is kept between the forward and the backward. With
+    ``lead`` k, only the leaves that data shards along one of their first
+    k dims, the stack dims that the caller indexes next: FSDP may shard
+    the periodic layouts' inner layer dim ((P, I, ...): a per-layer vector
+    whose own dim the model axis takes), so such a leaf is gathered a
+    stack at a time, before its layers are indexed; a layer's slice then
+    passes it as it is. The others pass as they are; everything passes off
+    a mesh or without FSDP."""
+    if mc is None or mc.fsdp is None:
+        return tree
+    dims = mc.fsdp
+    for key in path:
+        dims = dims[key]
+
+    def walk(t, d):
+        if isinstance(t, dict):
+            return {k: walk(v, d[k]) for k, v in t.items()}
+        if d is None or d < -t.dim():         # not sharded, or gathered
+            return t                          # with its stack already
+        if lead and d >= lead - t.dim():      # a dim that stays
+            return t
+        return fsdp_gather(t, d, mc)
+    return walk(tree, dims)
 
 
 def merge_pieces(pieces):
@@ -401,11 +521,12 @@ def merge_partials(o, lse, group, dtype=None):
 
 def dp_row(s: int, rows: int, mc: MeshCtx | None) -> int | None:
     """Row ``s`` of a global batch of ``rows`` -> its row in this rank's
-    data shard (``dp_rows``' split), or None where another shard holds it."""
+    batch shard (``dp_rows``' split), or None where another shard holds
+    it."""
     if mc is None or not mc.shards_batch:
         return s
-    owner, row = divmod(s, rows // mc.dp)
-    return row if owner == mc.dp_rank else None
+    owner, row = divmod(s, rows // mc.batches)
+    return row if owner == mc.batch_rank else None
 
 
 # ---------------------------------------------------------------------------
@@ -516,33 +637,18 @@ def to_local(tree):
                     tree)
 
 
-def gather_data(local: torch.Tensor, spec: tuple,
-                mc: MeshCtx) -> torch.Tensor:
-    """``local`` with the dim that the data axis shards gathered whole
-    (FSDP's gather before a step); no grad."""
-    for i, entry in enumerate(spec):
-        if mc.dp > 1 and "data" in _axes(entry):
-            local = all_gather(local, mc.data_group, i)
-    return local
-
-
-def reduce_data(grad: torch.Tensor, spec: tuple,
-                mc: MeshCtx) -> torch.Tensor:
-    """A gradient of the whole-over-data param summed over the data axis
-    into the param's layout: reduce-scattered along the dim the data axis
-    shards, all-reduced where it shards none."""
-    if mc.dp == 1:
-        return grad
-    for i, entry in enumerate(spec):
-        if "data" in _axes(entry):
-            return reduce_scatter(grad, mc.data_group, i)
-    return all_reduce(grad, mc.data_group)
-
-
-def whole_over_data(params, specs, mc: MeshCtx):
-    """DTensor params -> this rank's local tensors, whole over data."""
-    return map_tree(lambda t, s: gather_data(t.to_local(), s, mc), params,
-                    specs)
+def reduce_grads(grad: torch.Tensor, spec: tuple,
+                 mc: MeshCtx) -> torch.Tensor:
+    """This rank's gradient of a param shard under ``spec`` summed over the
+    batch shards, in the param's layout. A leaf that data shards arrives
+    summed over data already (its gather's backward reduce-scattered it),
+    so it is all-reduced over "pod" alone; any other leaf (the embedding,
+    the norms) over "pod" x "data". "pod" replicates every param, as the
+    reference's specs do."""
+    sharded = mc.fsdp is not None and any("data" in _axes(e) for e in spec)
+    group = (mc.pod_group if mc.pods > 1 else None) if sharded \
+        else mc.batch_group
+    return grad if group is None else all_reduce(grad, group)
 
 
 def replication(spec: tuple, mesh) -> int:

@@ -70,14 +70,42 @@ def make_loss_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda",
     return loss_fn
 
 
-def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda",
-                 mesh=None):
-    """grad_fn(params, batch) -> (loss, metrics, grads), grads shaped like
-    params. With ``microbatches`` k > 1 the batch (every entry, vision
-    included) is split into k equal row blocks: loss and grads are the
-    mean of the per-microbatch means (not a token-weighted mean), summed in
-    fp32, and the metrics are the last microbatch's, as in the
-    reference."""
+def _mean_over(value_and_grad, params, blocks):
+    """(loss, metrics, grads) over the microbatches ``blocks``: the mean of
+    their losses and of their gradients (each a microbatch's mean, not a
+    token-weighted mean), summed in fp32, and the last block's metrics, as
+    the reference's scan over microbatches gives them; one block's as they
+    come."""
+    if len(blocks) == 1:
+        return value_and_grad(params, blocks[0])
+    loss, grads = 0.0, None
+    for mb in blocks:
+        mb_loss, metrics, mb_grads = value_and_grad(params, mb)
+        loss = loss + mb_loss
+        if grads is None:
+            grads = [g.float() for g in mb_grads]
+        else:
+            for j, g in enumerate(mb_grads):
+                grads[j] = grads[j] + g.float()
+        del mb_grads
+    k = len(blocks)
+    return loss / k, metrics, [g / k for g in grads]
+
+
+def _row_blocks(batch, k: int):
+    """Every entry of ``batch`` (vision included) split into k equal row
+    blocks, in order: block j is rows [j B / k, (j + 1) B / k)."""
+    rows = batch["tokens"].shape[0]
+    if rows % k:
+        raise ValueError(f"batch of {rows} rows does not split into {k} "
+                         "microbatches")
+    return [{n: a[j * rows // k:(j + 1) * rows // k]
+             for n, a in batch.items()} for j in range(k)]
+
+
+def _value_and_grad(cfg: ArchConfig, tcfg: TrainConfig, *, device, mesh):
+    """value_and_grad(params, batch) -> (loss, metrics, grads), grads a
+    list in ``leaves(params)`` order, of one batch (no microbatches)."""
     loss_fn = make_loss_fn(cfg, tcfg, device=device, mesh=mesh)
     unused = tuple(f"{path}/" for path in TF.unused_subtrees(cfg))
 
@@ -99,29 +127,22 @@ def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda",
                                "was cut between them and the loss")
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, out
 
+    return value_and_grad
+
+
+def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig, *, device="cuda"):
+    """grad_fn(params, batch) -> (loss, metrics, grads), grads shaped like
+    params. With ``microbatches`` k > 1 the batch (every entry, vision
+    included) is split into k equal row blocks: loss and grads are the
+    mean of the per-microbatch means (not a token-weighted mean), summed in
+    fp32, and the metrics are the last microbatch's, as in the
+    reference."""
+    value_and_grad = _value_and_grad(cfg, tcfg, device=device, mesh=None)
+
     def grad_fn(params, batch):
-        k = tcfg.microbatches
-        if k <= 1:
-            loss, metrics, grads = value_and_grad(params, batch)
-        else:
-            rows = batch["tokens"].shape[0]
-            if rows % k:
-                raise ValueError(f"batch of {rows} rows does not split into "
-                                 f"{k} microbatches")
-            loss, grads = 0.0, None
-            for i in range(k):
-                mb = {n: a[i * rows // k:(i + 1) * rows // k]
-                      for n, a in batch.items()}
-                mb_loss, metrics, mb_grads = value_and_grad(params, mb)
-                loss = loss + mb_loss
-                if grads is None:
-                    grads = [g.float() for g in mb_grads]
-                else:
-                    for j, g in enumerate(mb_grads):
-                        grads[j] = grads[j] + g.float()
-                del mb_grads
-            loss = loss / k
-            grads = [g / k for g in grads]
+        loss, metrics, grads = _mean_over(
+            value_and_grad, params,
+            _row_blocks(batch, max(tcfg.microbatches, 1)))
         it = iter(grads)
         return loss, metrics, tree_map(lambda _: next(it), params)
 
@@ -202,35 +223,43 @@ def shard_train_state(params, tcfg: TrainConfig, pspecs, ospecs, mesh):
 def make_sharded_grad_fn(cfg: ArchConfig, tcfg: TrainConfig, mesh, *,
                          device="cuda", specs=None):
     """grad_fn(params, batch) -> (metrics, grads, mc) on every rank of
-    ``mesh``: FSDP's gather of each param over data (this rank's model
-    shard, whole over data), the loss and gradients of this rank's batch
-    rows through the tensor-parallel blocks, and each gradient summed over
-    data into its param's layout (reduce-scattered where the param is
-    data-sharded). params: DTensors under ``param_specs(fsdp=True)``;
-    grads: this rank's shards, shaped like the params' local tensors;
-    batch: the global batch (every rank the same); the metrics are the
-    global batch's. ``specs``: ``sharded_specs(cfg, mesh)``, derived here
-    when not given."""
+    ``mesh`` (axes "pod", "data", "model", any of them): the loss and
+    gradients of this rank's batch rows through the tensor-parallel
+    blocks, from this rank's shards, each FSDP-sharded leaf gathered over
+    data one layer at a time where the model reads it and its gradient
+    reduce-scattered back (``spmd.gather_params``); then each gradient
+    summed over the batch shards into its param's layout
+    (``spmd.reduce_grads``: over "pod", and over "data" where data does
+    not shard the leaf). With ``microbatches`` k the global batch is split
+    as the reference splits it: block j is its rows [j B / k, (j + 1) B /
+    k), of which this rank takes its share as of a global batch of B / k
+    rows (``batch_axis(rules, B // k)``); loss and gradients are the mean
+    over the k blocks, accumulated in fp32 on this rank's shards, and the
+    metrics the last block's, over its global rows. params: DTensors under
+    ``param_specs(fsdp=True)``; grads: this rank's shards, shaped like the
+    params' local tensors; batch: the global batch (every rank the same).
+    ``specs``: ``sharded_specs(cfg, mesh)``, derived here when not
+    given."""
     from repro_torch.sharding import spmd as S
     from repro_torch.sharding.rules import batch_axis, set_rules
 
-    if tcfg.microbatches > 1:
-        raise NotImplementedError("microbatches on a mesh: the reference "
-                                  "splits the global batch's rows, which "
-                                  "this step does not do yet (ROADMAP "
-                                  "A11b.3)")
     dev = resolve_device(device)
     rules, pspecs, _ = specs or sharded_specs(cfg, mesh)
+    k = max(tcfg.microbatches, 1)
 
     def grad_fn(params, batch):
         set_rules(rules)
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        mc = S.MeshCtx(mesh, batch_axis(rules, batch["tokens"].shape[0])
-                       is not None)
-        _, metrics, grads = make_grad_fn(cfg, tcfg, device=dev, mesh=mc)(
-            S.whole_over_data(params, pspecs, mc),
-            {k: S.dp_rows(v, mc) for k, v in batch.items()})
-        return metrics, S.map_tree(lambda g, s: S.reduce_data(g, s, mc),
+        batch = {n: torch.as_tensor(v, device=dev) for n, v in batch.items()}
+        blocks = _row_blocks(batch, k)
+        mc = S.MeshCtx(mesh, batch_axis(rules, blocks[0]["tokens"].shape[0])
+                       is not None, fsdp=pspecs)
+        local = S.to_local(params)
+        _, metrics, grads = _mean_over(
+            _value_and_grad(cfg, tcfg, device=dev, mesh=mc), local,
+            [{n: S.dp_rows(a, mc) for n, a in mb.items()} for mb in blocks])
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), local)
+        return metrics, S.map_tree(lambda g, s: S.reduce_grads(g, s, mc),
                                    grads, pspecs), mc
 
     return grad_fn
@@ -240,14 +269,17 @@ def make_sharded_train_step(cfg: ArchConfig, tcfg: TrainConfig,
                             ocfg: OptimizerConfig, mesh, *, device="cuda",
                             specs=None):
     """train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics) on every rank of ``mesh`` (a ``DeviceMesh`` over "data" and
-    "model"), with the state of ``shard_train_state``, updated in place:
+    metrics) on every rank of ``mesh`` (a ``DeviceMesh`` over "pod",
+    "data" and "model", any of them), with the state of
+    ``shard_train_state``, updated in place:
     ``make_sharded_grad_fn``'s gradients (then, with
     ``grad_compression``, compressed with feedback on this rank's shards),
     the global grad norm over every rank's shards, and AdamW on this rank's
-    shard of each moment (ZeRO-1: a param that is whole over data where its
-    moment is data-sharded is updated in this rank's slice and gathered
-    back). The metrics are the global batch's, the same on every rank.
+    shard of each moment (ZeRO-1 over "data" alone, as the reference's
+    ``opt_state_specs``: a param that is whole over data where its moment
+    is data-sharded is updated in this rank's slice and gathered back over
+    data; "pod" replicates both, and every pod updates alike). The metrics
+    are the global batch's, the same on every rank.
     ``specs``: ``sharded_specs(cfg, mesh)``, derived here when not
     given."""
     import torch.distributed as dist

@@ -3,7 +3,10 @@ process on 4 forced host devices (run as a script; it writes an npz):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/jax_mesh_reference.py out.npz \
-            [train|moe|families|kvseq ...]
+            [train|moe|families|kvseq|pod ...]
+
+(the ``pod`` part's 8-rank case, ``pod=qwen3-8b@2x2x2``, with 8 forced
+devices).
 
 Meshes are built with ``AxisType.Auto`` axes: on JAX 0.9 the default
 Explicit axes make ``with_sharding_constraint`` refuse the reference's
@@ -30,6 +33,14 @@ init, inputs from numpy seeds; the ranks of the port read both.
   specs) as ``in_shardings``, fp32, from seeded states of a KV_BUF-long
   buffer, KV_TICKS teacher-forced ticks whose writes cross a shard's
   edge; each tick's logits and the states after the ticks.
+- ``pod``: meshes with a "pod" axis, ("pod", "data", "model"), and
+  microbatches on a mesh (``POD_CASES``), on a POD_BATCH-row batch: the
+  loss and every gradient and 3 steps' losses of ``build_sharded_train``
+  as ``train`` for reduced olmo-1b and olmoe-1b-7b on (2, 2, 1) and (2, 1,
+  2) and qwen3-8b on (2, 2, 2) (8 devices); 3 steps' losses at
+  ``microbatches`` 2 on (2, 2) and (2, 1, 2); and the ``kvseq`` serve step
+  of ``POD_SERVE_CASES`` (the KV sequence over ("pod", "data", "model"),
+  the batch over ("pod", "data")).
 """
 import dataclasses
 import sys
@@ -82,12 +93,42 @@ KV_BUF, KV_TICKS = 64, 3
 KV_STARTS = {4: (15, 31, 47, 61), 1: (31,)}
 
 
-def train_batches(cfg, steps=TRAIN_STEPS):
-    """Seeded token batches (tokens, labels) of BATCH x SEQ."""
+# pod: case -> (arch, mesh, microbatches). The batch shards over "pod" x
+# "data": (2, 2, 1) holds the MoE's no-mesh branch (model 1), (2, 1, 2)
+# its expert-parallel branch with capacity per pod shard, (2, 2, 2) a
+# batch group that is neither one axis nor the world; the microbatch cases
+# split the global batch's rows
+POD_BATCH = 8
+POD_CASES = {
+    "olmo-1b@2x2x1": ("olmo-1b", (2, 2, 1), 1),
+    "olmo-1b@2x1x2": ("olmo-1b", (2, 1, 2), 1),
+    "olmoe-1b-7b@2x2x1": ("olmoe-1b-7b", (2, 2, 1), 1),
+    "olmoe-1b-7b@2x1x2": ("olmoe-1b-7b", (2, 1, 2), 1),
+    "qwen3-8b@2x2x2": ("qwen3-8b", (2, 2, 2), 1),
+    "olmo-1b@2x2/mb2": ("olmo-1b", (2, 2), 2),
+    "olmo-1b@2x1x2/mb2": ("olmo-1b", (2, 1, 2), 2),
+    "olmoe-1b-7b@2x2/mb2": ("olmoe-1b-7b", (2, 2), 2),
+    "olmoe-1b-7b@2x1x2/mb2": ("olmoe-1b-7b", (2, 1, 2), 2),
+}
+# the serve step on pod meshes, as KVSEQ_CASES: the KV sequence over
+# ("pod", "data", "model") at batch 1 and under "resident", the batch over
+# ("pod", "data")
+POD_SERVE_CASES = {
+    "qwen3-8b@2x1x2/1": ("qwen3-8b", (2, 1, 2), 1, "fsdp", {}),
+    "olmo-1b@2x2x1/4": ("olmo-1b", (2, 2, 1), 4, "fsdp", {}),
+    "qwen3-8b-resident@2x1x2/4": ("qwen3-8b", (2, 1, 2), 4, "resident",
+                                  {}),
+    "zamba2-7b@2x2x1/1": ("zamba2-7b", (2, 2, 1), 1, "fsdp", {}),
+}
+SERVE_CASES = {**KVSEQ_CASES, **POD_SERVE_CASES}
+
+
+def train_batches(cfg, steps=TRAIN_STEPS, batch=BATCH):
+    """Seeded token batches (tokens, labels) of ``batch`` x SEQ."""
     out = []
     for i in range(steps):
         toks = np.random.default_rng(100 + i).integers(
-            0, cfg.vocab_size, (BATCH, SEQ + 1)).astype(np.int32)
+            0, cfg.vocab_size, (batch, SEQ + 1)).astype(np.int32)
         out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
     return out
 
@@ -134,15 +175,15 @@ def seeded(tree, rng):
 
 
 def kvseq_config(case, get_arch):
-    """The reduced config of a ``KVSEQ_CASES`` case from ``get_arch``."""
-    arch, _, _, _, fields = KVSEQ_CASES[case]
+    """The reduced config of a ``SERVE_CASES`` case from ``get_arch``."""
+    arch, _, _, _, fields = SERVE_CASES[case]
     return dataclasses.replace(get_arch(arch).reduced(), **fields)
 
 
 def kvseq_inputs(cfg, case):
     """Seeded tokens (B, KV_TICKS), the first tick's cache_len (B,) and,
     for the VLM, vision states (B, Nv, d_src)."""
-    b = KVSEQ_CASES[case][2]
+    b = SERVE_CASES[case][2]
     rng = np.random.default_rng(300)
     out = {"tokens": rng.integers(0, cfg.vocab_size,
                                   (b, KV_TICKS)).astype(np.int32),
@@ -180,11 +221,18 @@ def _flat(tree, prefix):
     return {f"{prefix}/{k}": np.asarray(v) for k, v in _flatten(tree).items()}
 
 
+def mesh_axes(shape) -> tuple:
+    """("data",), ("data", "model"), or ("pod", "data", "model") for a
+    3-tuple."""
+    return ("pod", "data", "model") if len(shape) == 3 \
+        else ("data", "model")[:len(shape)]
+
+
 def _mesh(shape):
     import jax
     from jax.sharding import AxisType
     n = int(np.prod(shape))
-    return jax.make_mesh(shape, ("data", "model")[:len(shape)],
+    return jax.make_mesh(shape, mesh_axes(shape),
                          axis_types=(AxisType.Auto,) * len(shape),
                          devices=jax.devices()[:n])
 
@@ -346,7 +394,7 @@ def run_kvseq(out, cases=None):
     from repro.sharding import rules as SR
 
     for case in cases or KVSEQ_CASES:
-        _, shape, b, layout, _ = KVSEQ_CASES[case]
+        _, shape, b, layout, _ = SERVE_CASES[case]
         mesh = _mesh(shape)
         named = lambda t, mesh=mesh: jax.tree.map(
             lambda sp: NamedSharding(mesh, sp), t,
@@ -402,15 +450,73 @@ def run_kvseq(out, cases=None):
         SR.set_rules(None)
 
 
+def run_pod(out, cases=None):
+    """The ``pod`` part for ``cases`` (keys of POD_CASES and
+    POD_SERVE_CASES; by default all that fit the forced devices): under
+    ``pod/CASE/`` the loss and every gradient (microbatches 1) and 3
+    steps' losses; the serve cases as ``run_kvseq``'s, under ``kv/``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs.base import get_arch
+    from repro.launch.train import build_sharded_train
+    from repro.models import model as M
+    from repro.sharding import rules as SR
+    from repro.train.optimizer import OptimizerConfig
+    from repro.train.train_step import (TrainConfig, make_loss_fn,
+                                        make_opt_state)
+
+    if cases is None:
+        n = len(jax.devices())
+        cases = [c for c, v in {**POD_CASES, **POD_SERVE_CASES}.items()
+                 if int(np.prod(v[1])) <= n]
+    run_kvseq(out, [c for c in cases if c in POD_SERVE_CASES])
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=2)
+    for case in (c for c in cases if c in POD_CASES):
+        arch, shape, k = POD_CASES[case]
+        mesh = _mesh(shape)
+        named = lambda t, mesh=mesh: jax.tree.map(
+            lambda sp: NamedSharding(mesh, sp), t,
+            is_leaf=lambda x: isinstance(x, P))
+        tcfg = TrainConfig(remat="none", compute_dtype="float32",
+                           microbatches=k)
+        cfg = get_arch(arch).reduced()
+        params = M.init_params(cfg, jax.random.PRNGKey(0))
+        out.update(_flat(params, f"pod/{case}/params"))
+        batches = train_batches(cfg, batch=POD_BATCH)
+        step, pspecs = build_sharded_train(cfg, tcfg, ocfg, mesh)
+        if k == 1:
+            rules = SR.current_rules()
+            bspecs = SR.batch_specs(cfg, "train", POD_BATCH, rules)
+            grad = jax.jit(jax.value_and_grad(make_loss_fn(cfg, tcfg),
+                                              has_aux=True),
+                           in_shardings=(named(pspecs), named(bspecs)))
+            (_, metrics), grads = grad(
+                jax.device_put(params, named(pspecs)),
+                jax.device_put(jax.tree.map(jnp.asarray, batches[0]),
+                               named(bspecs)))
+            out[f"pod/{case}/loss"] = np.asarray(metrics["loss"])
+            out.update(_flat(grads, f"pod/{case}/grad"))
+        p = jax.device_put(params, named(pspecs))
+        opt = make_opt_state(params, tcfg)
+        losses = []
+        for b in batches:
+            p, opt, m = step(p, opt, jax.tree.map(jnp.asarray, b))
+            losses.append(float(m["loss"]))
+        out[f"pod/{case}/steps"] = np.asarray(losses, np.float64)
+        SR.set_rules(None)
+
+
 def main(path, parts):
-    """Each part by name; ``families=CASE,CASE`` (and ``kvseq=...``) runs
-    those cases only."""
+    """Each part by name; ``families=CASE,CASE`` (and ``kvseq=...``,
+    ``pod=...``) runs those cases only."""
     out = {}
     for part in parts:
         name, _, cases = part.partition("=")
-        if name in ("families", "kvseq"):
-            {"families": run_families, "kvseq": run_kvseq}[name](
-                out, cases.split(",") if cases else None)
+        if name in ("families", "kvseq", "pod"):
+            {"families": run_families, "kvseq": run_kvseq, "pod": run_pod}[
+                name](out, cases.split(",") if cases else None)
         else:
             {"train": run_train, "moe": run_moe}[name](out)
     np.savez(path, **out)

@@ -1160,3 +1160,36 @@ def test_two_ranks_on_the_card_decode_a_kv_sequence_sharded_over_model(
     for t in range(TR.CARD_KV_TICKS):
         span = want[:, t].max() - want[:, t].min()
         assert np.abs(got[:, t] - want[:, t]).max() <= 1e-5 * span, t
+
+
+def test_two_ranks_on_the_card_gather_fsdp_per_layer_and_serve_on_a_pod(
+        card, tmp_path):
+    """Two ranks on gloo share the card, reduced olmo-1b, fp32: on (2, 1)
+    the sharded gradient (FSDP gathers each layer over data where it runs,
+    remat full) equals the one-device step's loss and gradients on the
+    card at rtol 1e-4, atol 1e-5; on (2, 1, 1) ("pod", "data", "model") the
+    batch goes over "pod" (2 of 4 rows a rank), each rank launches the
+    decode kernel once a layer a tick, and 8 teacher-forced ticks' logits
+    equal the one-device port's on the card within 1e-5 of their range."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_ranks as TR
+    npz, meta = TR.spawn("card_pod", 2, tmp_path, timeout=600)
+    for rank in meta["card_pod"]:
+        assert rank["launches"] == rank["layers"] * TR.CARD_POD_TICKS
+        assert rank["local_batch"][1] == 2, rank          # (L, B, S, KV, D)
+    tol = dict(rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(npz["card_pod/loss"],
+                               npz["card_pod/one_loss"], **tol)
+    keys = [k[len("card_pod/grad/"):] for k in npz.files
+            if k.startswith("card_pod/grad/")]
+    assert keys
+    for k in keys:
+        np.testing.assert_allclose(npz[f"card_pod/grad/{k}"],
+                                   npz[f"card_pod/one_grad/{k}"], err_msg=k,
+                                   **tol)
+    got, want = npz["card_pod/decode"], npz["card_pod/decode_one"]
+    assert got.shape == want.shape
+    for t in range(TR.CARD_POD_TICKS):
+        span = want[:, t].max() - want[:, t].min()
+        assert np.abs(got[:, t] - want[:, t]).max() <= 1e-5 * span, t

@@ -15,7 +15,12 @@ on (1, 4), their prefill and decode there), ``fam2`` (2 ranks: the four
 families' sharded prefill, the VLM's and musicgen-large's decode, on
 (1, 2)), or ``kv4`` and ``kv2`` (4 and 2 ranks: the ``kvseq`` cases of
 ``jax_mesh_reference.KVSEQ_CASES`` on their meshes, decode states whose KV
-sequence shards). ``two`` and ``four`` also run the serving driver at
+sequence shards), ``pod4`` and ``pod8`` (4 and 8 ranks: the ``pod`` cases
+of ``jax_mesh_reference.POD_CASES`` and ``POD_SERVE_CASES``, meshes with a
+"pod" axis and microbatches on a mesh, and the per-layer FSDP gathers of a
+(2, 2) train step and serve tick), or ``card_pod`` (2 ranks sharing the
+card: the per-layer FSDP step on (2, 1), a tick on (2, 1, 1)). ``two`` and
+``four`` also run the serving driver at
 slot counts whose caches shard their sequence (olmo-1b on (2, 1) at 4
 and 1 slots, zamba2-7b on (2, 2) at 1). Ranks meet through a FileStore at
 STORE; REF is the npz of ``tests/jax_mesh_reference.py``. Rank 0 writes
@@ -726,7 +731,7 @@ def group_fam2(rank, world, dev, ref, outdir, out, meta):
 # ---------------------------------------------------------------------------
 
 def kvseq_case(case, mesh, dev, ref, out, meta):
-    """The sharded serve step of a ``KVSEQ_CASES`` case from the
+    """The sharded serve step of a ``SERVE_CASES`` case from the
     reference's params and seeded states: each tick's logits, the states
     after the ticks (``full_tensor``), each rank's local cache shapes, the
     largest collective of a tick against one layer's cache shard (bytes,
@@ -736,7 +741,7 @@ def kvseq_case(case, mesh, dev, ref, out, meta):
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     cfg = JR.kvseq_config(case, get_arch)
-    _, _, b, layout, _ = JR.KVSEQ_CASES[case]
+    _, _, b, layout, _ = JR.SERVE_CASES[case]
     params = convert.from_numpy(ref_tree(ref, f"kv/{case}/params"))
     if layout == "resident":               # bf16 values: exact in bf16
         params = M.cast_params(params, torch.bfloat16)
@@ -811,10 +816,247 @@ def group_kv(rank, world, dev, ref, outdir, out, meta):
         kvseq_case(case, meshes[shape], dev, ref, out, meta)
 
 
+# ---------------------------------------------------------------------------
+# meshes with a "pod" axis, microbatches on a mesh, FSDP's per-layer gather
+# (tests/test_torch_mesh_pod.py)
+# ---------------------------------------------------------------------------
+
+def _mesh_of(shape, device_type="cpu"):
+    return LM.make_mesh(shape, JR.mesh_axes(shape), device_type=device_type)
+
+
+def _full_grads(grads, params, pspecs, mesh) -> dict:
+    flat_p, flat_s = convert.flatten(params), convert.flatten(pspecs)
+    return {k: full_np(S.from_local(g, flat_s[k], mesh, flat_p[k].shape))
+            for k, g in convert.flatten(grads).items()}
+
+
+def pod_train_case(case, mesh, ref, out, meta):
+    """A ``POD_CASES`` case from the reference's params and POD_BATCH-row
+    batches: with microbatches 1 the loss and every gradient of the first
+    batch; 3 steps' losses; with microbatches k > 1 also the first
+    batch's sharded gradients beside the one-device port's (rank 0), at
+    the config's own capacity for olmo-1b and, for olmoe-1b-7b, at the
+    no-drop capacity without the aux loss, where the expert-parallel
+    branch and one device compute the same function."""
+    import dataclasses
+    arch, _, k = JR.POD_CASES[case]
+    tcfg = dataclasses.replace(TCFG, microbatches=k)
+    cfg = get_arch(arch).reduced()
+    params = convert.from_numpy(ref_tree(ref, f"pod/{case}/params"))
+    batches = JR.train_batches(cfg, batch=JR.POD_BATCH)
+    _, pspecs, ospecs = TS.sharded_specs(cfg, mesh)
+    dp, opt = TS.shard_train_state(params, tcfg, pspecs, ospecs, mesh)
+    if k == 1:
+        metrics, grads, _ = TS.make_sharded_grad_fn(
+            cfg, tcfg, mesh, device="cpu")(dp, batches[0])
+        out[f"pod/{case}/loss"] = metrics["loss"].numpy()
+        for key, g in _full_grads(grads, params, pspecs, mesh).items():
+            out[f"pod/{case}/grad/{key}"] = g
+    else:
+        same = cfg if cfg.moe is None else dataclasses.replace(
+            cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k,
+                router_aux_coef=0.0))
+        metrics, grads, _ = TS.make_sharded_grad_fn(
+            same, tcfg, mesh, device="cpu")(dp, batches[0])
+        out[f"pod/{case}/mb_loss"] = metrics["loss"].numpy()
+        for key, g in _full_grads(grads, params, pspecs, mesh).items():
+            out[f"pod/{case}/mb_grad/{key}"] = g
+        if dist.get_rank() == 0:
+            _, m1, g1 = TS.make_grad_fn(same, tcfg, device="cpu")(
+                params, {n: torch.as_tensor(v)
+                         for n, v in batches[0].items()})
+            out[f"pod/{case}/one_loss"] = m1["loss"].numpy()
+            for key, g in convert.flatten(g1).items():
+                out[f"pod/{case}/one_grad/{key}"] = g.numpy()
+    step = TS.make_sharded_train_step(cfg, tcfg, OCFG, mesh, device="cpu")
+    losses = []
+    for batch in batches:
+        dp, opt, m = step(dp, opt, batch)
+        losses.append(float(m["loss"]))
+    out[f"pod/{case}/steps"] = np.asarray(losses)
+    meta.setdefault("pod_shapes", {})[case] = gathered(
+        {"params": shapes_of(dp), "mu": shapes_of(opt["mu"]),
+         "coord": mesh.get_coordinate()})
+
+
+@contextlib.contextmanager
+def param_gathers():
+    """A list that gets, for each FSDP gather while the block runs, the
+    gathered leaf's shape and whether autograd records it."""
+    seen, orig = [], S.fsdp_gather
+
+    def watch(x, dim, mc):
+        y = orig(x, dim, mc)
+        seen.append([list(y.shape), torch.is_grad_enabled()])
+        return y
+    S.fsdp_gather = watch
+    try:
+        yield seen
+    finally:
+        S.fsdp_gather = orig
+
+
+GATHER_SERVE = (4, 16)          # slots, buffer of the gather test's tick
+
+
+def gather_case(mesh, dev, out, meta):
+    """Reduced olmo-1b on (2, 2): the FSDP gathers of one train step under
+    each remat policy and of one serve tick, with the param shapes."""
+    import dataclasses
+    cfg = get_arch("olmo-1b").reduced()
+    params = M.init_params(cfg, 0, device=dev)
+    _, pspecs, ospecs = TS.sharded_specs(cfg, mesh)
+    batch = JR.train_batches(cfg, 1, batch=JR.POD_BATCH)[0]
+    res = {"shapes": {k: list(v.shape) for k, v in
+                      convert.flatten(params).items()},
+           "specs": {k: list(v) for k, v in
+                     convert.flatten(pspecs).items()},
+           "layers": cfg.n_layers}
+    for remat in ("none", "full", "dots"):
+        tcfg = dataclasses.replace(TCFG, remat=remat)
+        dp, _ = TS.shard_train_state(params, tcfg, pspecs, ospecs, mesh)
+        with param_gathers() as seen:
+            TS.make_sharded_grad_fn(cfg, tcfg, mesh, device=dev)(dp, batch)
+        res[f"train/{remat}"] = seen
+    dp = S.distribute(params, pspecs, mesh)
+    b, buf = GATHER_SERVE
+    states = D.init_sharded_decode_state(cfg, mesh, b, buf,
+                                         dtype=torch.float32, device=dev)
+    step = D.make_sharded_serve_step(cfg, mesh, buf,
+                                     compute_dtype=torch.float32, device=dev)
+    with param_gathers() as seen:
+        step(dp, states, {"tokens": torch.zeros((b, 1), dtype=torch.long),
+                          "cache_len": torch.zeros((b,), dtype=torch.int32)})
+    res["serve"] = seen
+    meta["gathers"] = gathered(res)
+
+
+def groups_made(fn) -> int:
+    """How many process groups fn() makes on this rank."""
+    made, orig = [], dist.new_group
+
+    def count(*a, **kw):
+        made.append(1)
+        return orig(*a, **kw)
+    dist.new_group = count
+    try:
+        fn()
+    finally:
+        dist.new_group = orig
+    return len(made)
+
+
+def group_pod(rank, world, dev, ref, outdir, out, meta):
+    meshes = {}
+    for case, (_, shape, _) in JR.POD_CASES.items():
+        if int(np.prod(shape)) == world:
+            mesh = meshes.setdefault(shape, _mesh_of(shape))
+            pod_train_case(case, mesh, ref, out, meta)
+    if world == 8:      # a new (2, 2, 2) mesh's groups, made once
+        fresh = _mesh_of((2, 2, 2))
+        seq = ("pod", "data", "model")
+        first = groups_made(lambda: S.MeshCtx(fresh, kv_seq=seq))
+        again = groups_made(lambda: [S.MeshCtx(fresh, kv_seq=kv) for kv in
+                                     (seq, ("pod", "data"),
+                                      ("data", "model"))])
+        mc = S.MeshCtx(fresh)
+        meta["groups"] = gathered({
+            "first": first, "again": again, "batch_rank": mc.batch_rank,
+            "batch_ranks": dist.get_process_group_ranks(mc.batch_group)})
+        return
+    for case, (_, shape, _, _, _) in JR.POD_SERVE_CASES.items():
+        mesh = meshes.setdefault(shape, _mesh_of(shape))
+        kvseq_case(case, mesh, dev, ref, out, meta)
+    gather_case(meshes.setdefault((2, 2), _mesh_of((2, 2))), dev, out, meta)
+    # olmo-1b's sharded prefill on (2, 2, 1), the batch over pod x data,
+    # and the one-device port's on rank 0
+    cfg = get_arch("olmo-1b").reduced()
+    params = M.init_params(cfg, 0, device=dev)
+    mesh = meshes[(2, 2, 1)]
+    dparams = S.distribute(params, TS.sharded_specs(cfg, mesh)[1], mesh)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, SERVE_S)))
+    f32 = torch.float32
+    out["pod/prefill/mesh"] = D.make_sharded_prefill_step(
+        cfg, mesh, compute_dtype=f32, device=dev)(dparams,
+                                                   {"tokens": toks}).numpy()
+    if rank == 0:
+        out["pod/prefill/one"] = D.make_prefill_step(
+            cfg, compute_dtype=f32, device=dev)(params,
+                                                {"tokens": toks}).numpy()
+
+
+CARD_POD_TICKS = 8
+
+
+def group_card_pod(rank, world, dev, ref, outdir, out, meta):
+    """Two ranks on the card, fp32, reduced olmo-1b: the sharded grad of a
+    (2, 1) mesh (FSDP gathers one layer at a time, remat full) and the
+    teacher-forced ticks of a (2, 1, 1) mesh (the batch over "pod"), and
+    the one-device port's on the card on rank 0 (the launches counted per
+    rank)."""
+    from repro_torch.kernels import decode_attention as dec
+    cfg = get_arch("olmo-1b").reduced()
+    params = M.init_params(cfg, 0, device=dev)
+    tcfg = TS.TrainConfig(remat="full", compute_dtype="float32")
+    batch = JR.train_batches(cfg, 1, batch=JR.POD_BATCH)[0]
+    mesh = _mesh_of((2, 1), "cuda")
+    _, pspecs, ospecs = TS.sharded_specs(cfg, mesh)
+    dp, _ = TS.shard_train_state(params, tcfg, pspecs, ospecs, mesh)
+    metrics, grads, _ = TS.make_sharded_grad_fn(cfg, tcfg, mesh,
+                                                device=dev)(dp, batch)
+    out["card_pod/loss"] = metrics["loss"].cpu().numpy()
+    for key, g in _full_grads(grads, params, pspecs, mesh).items():
+        out[f"card_pod/grad/{key}"] = g
+    pod = _mesh_of((2, 1, 1), "cuda")
+    b, f32 = 4, torch.float32
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (b, CARD_POD_TICKS)))
+    dparams = S.distribute(params, TS.sharded_specs(cfg, pod)[1], pod)
+    step = D.make_sharded_serve_step(cfg, pod, CARD_POD_TICKS,
+                                     compute_dtype=f32, device=dev)
+    states = D.init_sharded_decode_state(cfg, pod, b, CARD_POD_TICKS,
+                                         dtype=f32, device=dev)
+    before = dec.decode_attention_bhd.launches
+    got = []
+    for i in range(CARD_POD_TICKS):
+        logits, states, _ = step(dparams, states, {
+            "tokens": toks[:, i:i + 1],
+            "cache_len": torch.full((b,), i, dtype=torch.int32)})
+        got.append(logits[:, 0].cpu())
+    out["card_pod/decode"] = torch.stack(got, 1).numpy()
+    meta["card_pod"] = gathered({
+        "launches": dec.decode_attention_bhd.launches - before,
+        "local_batch": list(S.to_local(states)["layers"][0].shape),
+        "layers": cfg.n_layers})
+    if rank == 0:       # the one-device port on the card
+        _, m1, g1 = TS.make_grad_fn(cfg, tcfg, device=dev)(
+            params, {n: torch.as_tensor(v, device=dev)
+                     for n, v in batch.items()})
+        out["card_pod/one_loss"] = m1["loss"].cpu().numpy()
+        for key, g in convert.flatten(g1).items():
+            out[f"card_pod/one_grad/{key}"] = g.cpu().numpy()
+        from repro_torch.models import transformer as T
+        st1 = T.init_decode_state(cfg, b, CARD_POD_TICKS, dtype=f32,
+                                  device=dev)
+        step1 = D.make_serve_step(cfg, CARD_POD_TICKS, compute_dtype=f32,
+                                  device=dev)
+        plain = []
+        for i in range(CARD_POD_TICKS):
+            logits, st1, _ = step1(params, st1, {
+                "tokens": toks[:, i:i + 1],
+                "cache_len": torch.full((b,), i, dtype=torch.int32)})
+            plain.append(logits[:, 0].cpu())
+        out["card_pod/decode_one"] = torch.stack(plain, 1).numpy()
+
+
 GROUPS = {"four": group_four, "two": group_two, "card": group_card,
           "card_kv": group_card_kv,
           "fam4": group_fam4, "fam2": group_fam2, "kv4": group_kv,
-          "kv2": group_kv}
+          "kv2": group_kv, "pod4": group_pod, "pod8": group_pod,
+          "card_pod": group_card_pod}
 
 
 def main(argv):
