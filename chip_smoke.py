@@ -221,7 +221,7 @@ their shapes here, in phase 3):
    (2) Two spawned ranks on gloo, mesh (1, 2):
    olmo-1b at full width and depth in bf16, three 4x2048 prefills (16
    flash launches a rank a call, each at 8 of the 16 heads) and
-   MESH_REQUESTS (2) of phase 5's requests served (the shortest; 16 decode launches a rank a tick, at 8 heads); gates: the launch counts and head counts, the prefill logits
+   MESH_REQUESTS (1) of phase 5's requests served (the shortest; 16 decode launches a rank a tick, at 8 heads); gates: the launch counts and head counts, the prefill logits
    within 5e-2 of the one-device bf16 prefill's range, each request's
    served logits within 5e-2 of its sharded prefill's range; at 2 layers
    in fp32 the sharded prefill within 1e-3 of the one-device prefill's
@@ -322,6 +322,28 @@ their shapes here, in phase 3):
    beside one device's, peak memory, launches, every gate's reading and
    limit, the phase's seconds); the bf16 ticks' launches count in the
    kernel table's main-path launches.
+
+13. dryrun (``launch/dryrun.py``, the counted cells; budget 40 s): one
+   spawned process (a fake process group needs a process without the real
+   one) counts olmo-1b's cells on a fake (1, 1) mesh, once on fake CUDA
+   tensors and once on fake CPU tensors: phase 10's (1, 1) train step (4 of
+   16 layers, fp32, remat full, 4x2048), the uncut bf16 prefill of 4x2048
+   (fp32 params, as the dry-run's cell) and a tick of 4 slots of a 2048
+   buffer; then it runs the same steps on a real (1, 1) mesh (nccl, one
+   rank): 1 + DRYRUN_TIMED train steps and prefill calls, DRYRUN_TICKS
+   ticks. Gates: every field that the program fixes (FLOPs, bytes, fused
+   bytes, collectives by kind, the kernel records) equal on both devices;
+   16 flash records in the prefill's count and 16 decode records in the
+   tick's, each at ``KernelSpec.cost`` of its shape (4, 2048, 16:16 of 128,
+   bf16; decode over the whole buffer), and each real prefill call and
+   tick advancing its counter by 16; the roofline's ``step_time_s`` (H100
+   constants) of the train step and of the prefill not above the measured
+   median; the train step's predicted peak (arguments + temp) within 25%
+   of ``torch.cuda.max_memory_allocated`` for a measured step. It prints a
+   ``dryrun:`` JSON line (each cell's counts, count seconds, roofline
+   terms, measured ms and their ratio, the peaks, the phase's seconds);
+   the real calls' launches count in the kernel table's main-path
+   launches.
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -471,7 +493,7 @@ SLICE_LAYERS = {"llama4-scout-17b-a16e": 2, "zamba2-7b": 21,
 MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 2
 MESH_FP32_LAYERS = 2
 MESH_MOE_LAYERS, MESH_MOE_BATCH = 2, (4, 512)
-MESH_REQUESTS = 2
+MESH_REQUESTS = 1
 # phase 10's pod mesh (2, 1, 1): olmo-1b's layers in its serving checks,
 # the fp32 prefill's batch and the ticks of each dtype; and a (2, 1) rank's
 # peak on an H100 when the step gathered whole params and gradients
@@ -493,6 +515,15 @@ KVSEQ_RUNS = {"qwen3-8b": (2, 1), "zamba2-7b": (6, 1), "olmo-1b": (2, 4)}
 KVSEQ_BUF, KVSEQ_TICKS = 32768, 16
 KVSEQ_STARTS = (16376, 20480, 24576, 32000)
 KVSEQ_BUDGET_S = 90
+# phase 13: the dry-run's olmo-1b cells on a fake (1, 1) mesh, counted on
+# fake CUDA and fake CPU tensors and run for real: phase 10's (1, 1) train
+# step (MESH_TRAIN_LAYERS layers) and the uncut prefill of PREFILL_BATCH x
+# PREFILL_LEN and tick of 4 slots of a DRYRUN_BUF buffer; the timed calls
+# of each, the ticks, the peak's tolerance and the phase's time budget
+DRYRUN_BUF, DRYRUN_CACHE_LENS = 2048, (100, 700, 1300, 2000)
+DRYRUN_TIMED, DRYRUN_TICKS = 3, 2
+DRYRUN_PEAK_TOL = 0.25
+DRYRUN_BUDGET_S = 40
 
 
 T0 = time.perf_counter()
@@ -996,6 +1027,13 @@ def main() -> int:
         for name, n in rank["launches"].items():
             totals[name] += n
     log("kvseq: " + json.dumps(kvseq))
+
+    # -- 13. the dry-run: counted cells against the same steps run ----------
+    phase("13. dryrun")
+    dry = run_dryrun(card, dev)
+    for name, n in dry["launches"].items():
+        totals[name] += n
+    log("dryrun: " + json.dumps(dry))
 
     for row in rows:
         row["launches"] = totals[row["name"]]
@@ -3478,8 +3516,8 @@ def _mesh_tp(rank: int, dev) -> dict:
         _sync(dev)
         ms.append(1e3 * (time.perf_counter() - t0))
     flash = counters["flash_attention"].launches
-    # the MESH_REQUESTS shortest of phase 5's 8 requests (162 and 221
-    # tokens: 252 ticks; the ranks' ticks take about 112 ms on one card)
+    # the MESH_REQUESTS shortest of phase 5's 8 requests (162 tokens: 193
+    # ticks; the ranks' ticks take about 112 ms on one card)
     prompts = sorted(slice_prompts(cfg, SLICES["olmo-1b"]),
                      key=len)[:MESH_REQUESTS]
     slots, buf, _, max_new, _ = SLICES["olmo-1b"]
@@ -4170,6 +4208,226 @@ def _kvseq(rank: int, dev) -> dict:
     res["gates"] = gates
     res["peak_gb"] = max(peak, _peak_gb(dev))
     return res
+
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the dry-run
+# ---------------------------------------------------------------------------
+
+def run_dryrun(card, dev) -> dict:
+    """Phase 13 (see the module docstring): one spawned process counts
+    and runs the cells (``_dryrun_rank``) and writes its readings to a
+    file that this process reads and gates."""
+    import tempfile
+
+    from repro_torch.launch import mesh as LM
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        LM.run_ranks(_dryrun_rank, 1, (tmp, dev.type))
+        out = json.loads(Path(tmp, "dryrun.json").read_text())
+    out["card"] = card
+    for name, (value, limit) in out["gates"].items():
+        if not value <= limit:
+            raise AssertionError(f"dryrun: {name} {value:.3e} > "
+                                 f"{limit:.3e}")
+    out["seconds"] = time.perf_counter() - t0
+    out["budget_s"] = DRYRUN_BUDGET_S
+    return out
+
+
+def dryrun_cells():
+    """Phase 13's cells: {name: (config, ShapeConfig, TrainConfig)}."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.train.train_step import TrainConfig
+    cfg_t, tcfg, _, _ = mesh_train_setup(None)
+    full = get_arch("olmo-1b")
+    return {"train": (cfg_t, ShapeConfig("train", TRAIN_LEN, TRAIN_BATCH,
+                                         "train"), tcfg),
+            "prefill": (full, ShapeConfig("prefill", PREFILL_LEN,
+                                          PREFILL_BATCH, "prefill"),
+                        TrainConfig()),
+            "decode": (full, ShapeConfig("decode", DRYRUN_BUF,
+                                         len(DRYRUN_CACHE_LENS), "decode"),
+                       TrainConfig())}
+
+
+def _dryrun_counts(out, gates, dev) -> dict:
+    """Each cell counted on a fake (1, 1) mesh on fake CUDA tensors and
+    fake CPU tensors (CPU only in a rehearsal without a card); the
+    equality and record gates; the CUDA count's roofline and peak."""
+    from repro_torch.core.provision.autotune import KERNELS
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.roofline import analysis as RA
+    devices = ("cuda", "cpu") if dev.type == "cuda" else ("cpu",)
+    counted = {}
+    for name, (cfg, shape, tcfg) in dryrun_cells().items():
+        got = {d: DR.count_cell(cfg, shape, (1, 1), tcfg=tcfg, device=d)
+               for d in devices}
+        first = got[devices[0]]
+        cost = first["cost"]
+        gates[f"{name}: fields that differ between fake cuda and cpu"] = [
+            sum(got[devices[0]]["cost"].program()[k]
+                != got[d]["cost"].program()[k]
+                for d in devices for k in cost.program()), 0]
+        roof = RA.analyze(cost, cfg, shape, 1)
+        counted[name] = {"cost": cost, "roof": roof,
+                         "peak_bytes": first["args_bytes"]
+                         + cost.peak_bytes}
+        out["cells"][name] = {
+            "count": cost.as_dict(), "count_s": {
+                d: got[d]["seconds"] for d in devices},
+            "args_bytes": first["args_bytes"], "temp_bytes": cost.peak_bytes,
+            "roofline": {k: roof.as_dict()[k] for k in (
+                "compute_s", "memory_s", "collective_s", "dominant",
+                "step_time_s", "model_flops", "useful_flops_ratio")}}
+    for name, kernel in (("prefill", "flash_attention"),
+                         ("decode", "decode_attention")):
+        recs = counted[name]["cost"].kernels
+        cfg, shape, _ = dryrun_cells()[name]
+        want_shape = {"b": shape.global_batch, "s": shape.seq_len,
+                      "h": cfg.n_heads, "kv": cfg.n_kv_heads,
+                      "d": cfg.resolved_head_dim, "dtype": "bfloat16"}
+        kw = {"valid": shape.global_batch * shape.seq_len} \
+            if kernel == "decode_attention" else {}
+        flops, nbytes = KERNELS[kernel].cost(want_shape, **kw)
+        gates[f"{name}: |records - {cfg.n_layers}|"] = [
+            abs(len(recs) - cfg.n_layers), 0]
+        gates[f"{name}: records not at {kernel}'s cost"] = [
+            sum(r != {"name": kernel, "shape": want_shape, "flops": flops,
+                      "bytes": nbytes} for r in recs), 0]
+    return counted
+
+
+def _dryrun_rank(rank: int, world: int, outdir: str, dev_type: str) -> None:
+    """Phase 13's process: the counts (``_dryrun_counts``), then the same
+    steps on a real (1, 1) mesh of one rank (nccl; gloo in a CPU
+    rehearsal): each cell's measured time, the train step's measured
+    peak, each prefill call's and tick's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as M
+    from repro_torch.serve import decode as D
+    from repro_torch.sharding import spmd as S
+    from repro_torch.train import train_step as TS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev_type)
+    out, gates = {"cells": {}, "gates": {}}, {}
+    out["gates"] = gates
+    counted = _dryrun_counts(out, gates, dev)
+    cells = dryrun_cells()
+    counters = launch_counters()
+    launches = dict.fromkeys(counters, 0)
+    rng = np.random.default_rng(13)
+
+    def tokens(cfg, b, s):
+        return torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                               dtype=torch.int32, device=dev)
+
+    def timed(fn, calls):
+        ms = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return ms
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{LM.free_port()}", rank=0,
+        world_size=1, **({"device_id": torch.device("cuda", 0)}
+                         if backend == "nccl" else {}))
+    try:
+        mesh = LM.make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+        # the train step: its args, a warm-up, a step whose peak is read
+        cfg, shape, tcfg = cells["train"]
+        _, _, ocfg, _ = mesh_train_setup(dev)
+        specs = TS.sharded_specs(cfg, mesh)
+        params, opt = TS.shard_train_state(M.init_params(cfg, 0, device=dev),
+                                           tcfg, *specs[1:], mesh)
+        step = TS.make_sharded_train_step(cfg, tcfg, ocfg, mesh, device=dev,
+                                          specs=specs)
+        toks = tokens(cfg, shape.global_batch, shape.seq_len + 1)
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous()}
+        step(params, opt, batch)
+        _sync(dev)
+        _reset_peak(dev)
+        ms = timed(lambda: step(params, opt, batch), DRYRUN_TIMED)
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+            else 0
+        out["cells"]["train"]["ms"] = ms
+        out["cells"]["train"]["measured_peak_bytes"] = peak
+        out["cells"]["train"]["predicted_peak_bytes"] = \
+            counted["train"]["peak_bytes"]
+        del params, opt, step
+        free()
+        if dev.type == "cuda":
+            gates["train: |predicted - measured peak| / measured"] = [
+                abs(counted["train"]["peak_bytes"] - peak) / peak,
+                DRYRUN_PEAK_TOL]
+
+        # the prefill: each call's launches
+        cfg, shape, _ = cells["prefill"]
+        _, pspecs, _ = TS.sharded_specs(cfg, mesh)
+        params = S.distribute(M.init_params(cfg, 0, device=dev), pspecs,
+                              mesh)
+        free()
+        pre = D.make_sharded_prefill_step(cfg, mesh, device=dev)
+        batch = {"tokens": tokens(cfg, shape.global_batch, shape.seq_len)}
+        per_call = []
+
+        def call():
+            before = counters["flash_attention"].launches
+            pre(params, batch)
+            per_call.append(counters["flash_attention"].launches - before)
+        call()
+        _sync(dev)
+        out["cells"]["prefill"]["ms"] = timed(call, DRYRUN_TIMED)
+        out["cells"]["prefill"]["launches_per_call"] = per_call
+        launches["flash_attention"] += sum(per_call)
+
+        # the tick
+        cfg, shape, _ = cells["decode"]
+        state = D.init_sharded_decode_state(cfg, mesh, shape.global_batch,
+                                            shape.seq_len, device=dev)
+        serve = D.make_sharded_serve_step(cfg, mesh, shape.seq_len,
+                                          device=dev)
+        clen = torch.tensor(DRYRUN_CACHE_LENS, dtype=torch.int32, device=dev)
+        per_tick = []
+        for i in range(DRYRUN_TICKS):
+            before = counters["decode_attention"].launches
+            serve(params, state, {"tokens": tokens(cfg, shape.global_batch,
+                                                   1),
+                                  "cache_len": clen + i})
+            per_tick.append(counters["decode_attention"].launches - before)
+        _sync(dev)
+        out["cells"]["decode"]["launches_per_tick"] = per_tick
+        launches["decode_attention"] += sum(per_tick)
+        del params, state
+    finally:
+        dist.destroy_process_group()
+    free()
+    if dev.type == "cuda":
+        for name, calls in (("prefill", per_call), ("decode", per_tick)):
+            want = cells[name][0].n_layers
+            gates[f"{name}: calls whose launches are not {want}"] = [
+                sum(n != want for n in calls), 0]
+    for name in ("train", "prefill"):
+        cell = out["cells"][name]
+        median = float(np.median(cell["ms"])) / 1e3
+        cell["roofline_over_measured"] = \
+            cell["roofline"]["step_time_s"] / median
+        gates[f"{name}: roofline step_time_s / measured median"] = [
+            cell["roofline_over_measured"], 1.0]
+    out["launches"] = launches
+    Path(outdir, "dryrun.json").write_text(json.dumps(out))
 
 
 def _rank_heads(cfg, kernel: str) -> int:

@@ -19,8 +19,10 @@ fp32 kernels; ``None`` keeps ``split_size``'s rule, and the autotuner
 (``core/provision/autotune.py``) searches the others.
 
 ``decode_attention_bhd`` launches the kernel for CUDA tensors and takes the
-plain version only for CPU tensors. ``decode_attention_bhd.launches`` counts
-kernel launches (one per call).
+plain version only for CPU tensors; a dry-run's fake tensors launch
+nothing and are counted at ``KernelSpec.cost`` over every position of the
+buffer (a fake ``cache_len`` holds no value; ``kernels.fake_launch``).
+``decode_attention_bhd.launches`` counts kernel launches (one per call).
 
 With ``return_lse`` both return a partial softmax, for a rank that holds one
 shard of a sequence-sharded cache: o in fp32 (not rounded to the input
@@ -34,7 +36,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import (_build, dtype_name, fake_launch, is_fake,
+                                 refuse_grad)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -161,6 +164,14 @@ def decode_attention_bhd(q, k_cache, v_cache, cache_len, *, split=None,
                          f"k{tuple(k_cache.shape)} v{tuple(v_cache.shape)} "
                          f"cache_len{tuple(cache_len.shape)}")
     check_split(split, d, h // k_cache.shape[1], q.element_size())
+    if is_fake(q):
+        kv, s = k_cache.shape[1], k_cache.shape[2]
+        out = (torch.empty_like(q, dtype=torch.float32),
+               q.new_empty((b, h), dtype=torch.float32)) if return_lse \
+            else torch.empty_like(q)
+        return fake_launch("decode_attention", out, {
+            "b": b, "s": s, "h": h, "kv": kv, "d": d,
+            "dtype": dtype_name(q.dtype)}, valid=b * s)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       return_lse=return_lse)

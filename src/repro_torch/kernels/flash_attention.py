@@ -21,8 +21,10 @@ autotuner (``core/provision/autotune.py``) searches the others. The fp32
 kernel has no knob.
 
 ``flash_attention_bhsd`` launches the kernel for CUDA tensors and takes the
-plain version only for CPU tensors. ``flash_attention_bhsd.launches`` counts
-kernel launches.
+plain version only for CPU tensors; a dry-run's fake tensors launch
+nothing and are counted at ``KernelSpec.cost`` (``kernels.fake_launch``;
+the model calls it causal, the cost's case).
+``flash_attention_bhsd.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import (_build, dtype_name, fake_launch, is_fake,
+                                 refuse_grad)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -124,6 +127,10 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, group=None):
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
     check_group(group, b, h, q.dtype)
+    if is_fake(q):
+        return fake_launch("flash_attention", torch.empty_like(q), {
+            "b": b, "s": s, "h": h, "kv": k.shape[1], "d": d,
+            "dtype": dtype_name(q.dtype)})
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":

@@ -42,7 +42,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import (_build, dtype_name, fake_launch, is_fake,
+                                 refuse_grad)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -147,6 +148,10 @@ def ssd_bhsp(x, dt, A, Bm, Cm, D, *, state_tile=None):
                          f"A{tuple(A.shape)} B{tuple(Bm.shape)} "
                          f"C{tuple(Cm.shape)} D{tuple(D.shape)}")
     check_state_tile(state_tile, x.dtype)
+    if is_fake(x):
+        return fake_launch("mamba2_ssd", torch.empty_like(x), {
+            "b": b, "s": s, "h": h, "p": p_, "n": Bm.shape[3],
+            "g": Bm.shape[1], "dtype": dtype_name(x.dtype)})
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, Bm, Cm, D)
     if x.device.type != "cuda":

@@ -46,7 +46,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import (_build, dtype_name, fake_launch, is_fake,
+                                 refuse_grad)
 from repro_torch.kernels.mamba2_ssd import check_layout
 
 _P = ctypes.c_void_p
@@ -126,6 +127,10 @@ def wkv6_bhsk(r, k, v, logw, u, *, value_tile=None):
                          f"v{tuple(v.shape)} logw{tuple(logw.shape)} "
                          f"u{tuple(u.shape)}")
     check_value_tile(value_tile, r.dtype)
+    if is_fake(r):
+        b, h, s, dk = r.shape
+        return fake_launch("rwkv6", torch.empty_like(r), {
+            "b": b, "s": s, "h": h, "k": dk, "dtype": dtype_name(r.dtype)})
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, logw, u)
     if r.device.type != "cuda":

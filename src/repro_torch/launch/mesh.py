@@ -49,12 +49,17 @@ def _mesh_or_abstract(shape, axes):
     return make_abstract_mesh(shape, axes)
 
 
+def production_shape(*, multi_pod: bool = False):
+    """(shape, axes) of a production mesh: 16x16 = 256 ranks ("data",
+    "model"); multi-pod adds a leading "pod" axis (2 x 16 x 16 = 512)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    """16x16 = 256 ranks ("data", "model"); multi-pod adds a leading
-    "pod" axis (2 x 16 x 16 = 512)."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh_or_abstract(shape, axes)
+    """The production mesh (``production_shape``)."""
+    return _mesh_or_abstract(*production_shape(multi_pod=multi_pod))
 
 
 def mesh_for_chips(chips: int, model_axis: int = 16, *,

@@ -6,10 +6,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import is_fake
 from repro_torch.models import blocks as B
 from repro_torch.models import transformer as T
 from repro_torch.sharding import spmd as S
-from repro_torch.sharding.rules import constrain
 
 # leaves the reference reads in fp32 (norms, the RWKV bonus, decay base and
 # group-norm scale, the Mamba A_log, D, dt_bias and gated-norm scale, the
@@ -85,9 +85,10 @@ def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *,
     in prefill and training, moved to the device, and, for decode, the
     positions ``cache_len[:, None]``. A position past
     the table would read outside it (the reference's ``jnp.take`` gives NaN
-    there), so it raises here. ``attn_impl`` and ``remat`` are read in
-    "train" mode only (``blocks.train_attention``,
-    ``transformer._maybe_remat``); prefill and decode run the kernels.
+    there), so it raises here (a fake ``cache_len`` is not read).
+    ``attn_impl`` and ``remat`` are read in "train" mode only
+    (``blocks.train_attention``, ``transformer._maybe_remat``); prefill and
+    decode run the kernels.
     ``mesh``: a ``spmd.MeshCtx`` when the params are this rank's shards
     and the batch its rows (the sharded steps), else None; it carries the
     KV caches' sequence layout (``MeshCtx.kv_seq_axes``) to every
@@ -103,7 +104,10 @@ def make_ctx(cfg: ArchConfig, seq_len: int, mode: str, *,
     if vision is not None:
         ctx["vision"] = torch.as_tensor(vision, device=dev)
     if cache_len is not None:
-        if cache_len.numel() and int(cache_len.max()) >= seq_len:
+        # a dry-run's fake cache_len holds no value to check (reading one
+        # raises there); the card's steps check every real one
+        if cache_len.numel() and not is_fake(cache_len) \
+                and int(cache_len.max()) >= seq_len:
             raise IndexError(f"decode position {int(cache_len.max())} is "
                              f"past the buffer of {seq_len}")
         ctx["cache_len"] = cache_len
@@ -159,7 +163,6 @@ def forward(params, tokens, cfg: ArchConfig, ctx: dict, states=None):
     model without MoE layers."""
     mesh = ctx.get("mesh")
     x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"], mesh)
-    x = constrain(x, T.BATCH)
     x, aux, states = T.apply_stack(params, x, cfg, ctx, states)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -211,7 +214,6 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: dict):
     alone, so the values are those of the reference's full-sequence head."""
     mesh = ctx.get("mesh")
     x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"], mesh)
-    x = constrain(x, T.BATCH)
     x, _, _ = T.apply_stack(params, x, cfg, ctx)      # aux is not needed
     return lm_logits(params, x[:, -1:], cfg, mesh)[:, 0]
 

@@ -58,9 +58,6 @@ from repro_torch.models import blocks as B
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
 from repro_torch.sharding import spmd as S
-from repro_torch.sharding.rules import constrain
-
-BATCH = ("batch", None, None)
 
 
 def build_layout(cfg: ArchConfig) -> dict:
@@ -146,8 +143,9 @@ def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
     place; aux is the layer's auxiliary loss, None for a block without
     one. On a mesh (``ctx["mesh"]``) every block runs tensor-parallel on
     this rank's shards (its heads, d_ff columns or experts) and a decode
-    state is this rank's (``decode_state_specs``); each layer's output is
-    constrained to the batch layout where the reference constrains it."""
+    state is this rank's (``decode_state_specs``). The reference constrains
+    each layer's output to the batch layout; here every rank's x is its own
+    rows already."""
     decode = ctx["mode"] == "decode"
     train = ctx["mode"] == "train"
     mesh = ctx.get("mesh")
@@ -162,9 +160,8 @@ def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
         h = B.apply_norm(p["ln2"], x, cfg)
         if block == "moe":
             y, aux = B.moe_block(p["moe"], h, cfg, mesh=mesh)
-            return constrain(x + y, BATCH), state, aux
-        return constrain(x + B.mlp_block(p["mlp"], h, mesh), BATCH), \
-            state, None
+            return x + y, state, aux
+        return x + B.mlp_block(p["mlp"], h, mesh), state, None
     if block == "cross_attn":
         h = B.apply_norm(p["ln1"], x, cfg)
         if decode:       # the vision K/V of the state, never written
@@ -179,7 +176,7 @@ def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
         h = B.apply_norm(p["ln2"], x, cfg)
         x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * \
             B.mlp_block(p["mlp"], h, mesh)
-        return constrain(x, BATCH), state, None
+        return x, state, None
     if block == "rwkv":
         wkv, tm_last, cm_last = state if decode else (None, None, None)
         h = B.apply_norm(p["ln1"], x, cfg)
@@ -192,12 +189,12 @@ def layer_fwd(block: str, p, x, cfg: ArchConfig, ctx: dict, state=None):
         if decode:       # the next token shifts in this token's normed inputs
             tm_last.copy_(h[:, -1:])
             cm_last.copy_(h2[:, -1:])
-        return constrain(x, BATCH), state, None
+        return x, state, None
     if block == "mamba":
         h = B.apply_norm(p["ln1"], x, cfg)
         o, state = M.mamba_block(p["m"], h, cfg, state=state, train=train,
                                  mesh=mesh)
-        return constrain(x + o, BATCH), state, None
+        return x + o, state, None
     raise NotImplementedError(block)
 
 

@@ -1,10 +1,13 @@
 """Roofline cold-start priors: analytical runtime estimates for placement.
 
 A copy of ``repro/roofline/prior.py`` with two differences. It holds no TPU
-constant: its hardware is the NVIDIA H100 (``H100``). And it has no HLO
-parser: ``TemplateCost.from_hlo`` and ``RooflinePrior.register_hlo`` read
-XLA HLO text, which the port does not produce, and raise until a cost
-source for ``TemplateCost`` exists (ROADMAP A11b).
+constant: its hardware is the NVIDIA H100 (``H100``), whose constants
+``roofline/analysis.py`` reads from here. And its cost source is a count,
+not HLO text: ``TemplateCost.from_count`` and
+``RooflinePrior.register_count`` take an ``op_cost.Cost`` (a step counted
+op by op, on fake tensors by ``launch/dryrun.py``) where the reference's
+``from_hlo`` and ``register_hlo`` parse a compiled XLA module, which the
+port does not produce; those two raise.
 
 The profiler's log-linear models need measured runs to exist; a cold
 cluster has none, and placement would default every unknown template to
@@ -79,10 +82,17 @@ def roofline_ceiling_s(flops: float, nbytes: float,
 
 def _no_hlo(what: str):
     raise NotImplementedError(
-        f"{what} parses XLA HLO text, which the port does not produce; it "
-        "waits for a cost source for TemplateCost (ROADMAP A11b: a "
-        "dispatch-mode count of the sharded steps). Register an analytic "
-        "cost with RooflinePrior.register instead.")
+        f"{what} parses XLA HLO text, which the port does not produce. Its "
+        "counterpart reads a dispatch-mode count of the step (ROADMAP "
+        "A11b.4: roofline.op_cost.count, launch.dryrun.run_cell): use "
+        "TemplateCost.from_count or RooflinePrior.register_count, or "
+        "register an analytic cost with RooflinePrior.register.")
+
+
+def _scale(scale_by: Optional[str]) -> Callable[[dict], float]:
+    if scale_by is None:
+        return lambda cfg: 1.0
+    return lambda cfg: max(float(cfg.get(scale_by, 1.0)), 0.0)
 
 
 @dataclasses.dataclass
@@ -105,9 +115,26 @@ class TemplateCost:
                 self._eval(self.coll_bytes, config))
 
     @classmethod
+    def from_count(cls, cost, *,
+                   scale_by: Optional[str] = None) -> "TemplateCost":
+        """The FLOPs, memory-term bytes and collective bytes of a counted
+        step (an ``op_cost.Cost``: ``flops``, ``bytes``, the term that
+        ``analysis`` reads on the port, and ``coll_bytes``), the
+        counterpart of the reference's ``from_hlo``. ``scale_by``
+        optionally names a config key that multiplies the cost (e.g.
+        steps or tokens per job)."""
+        scale = _scale(scale_by)
+        flops, nbytes, coll = (float(cost.flops), float(cost.bytes),
+                               float(cost.coll_bytes))
+        return cls(flops=lambda cfg: flops * scale(cfg),
+                   nbytes=lambda cfg: nbytes * scale(cfg),
+                   coll_bytes=lambda cfg: coll * scale(cfg))
+
+    @classmethod
     def from_hlo(cls, hlo_text: str, *,
                  scale_by: Optional[str] = None) -> "TemplateCost":
-        """Not in the port: raises NotImplementedError (ROADMAP A11b)."""
+        """Not in the port: raises NotImplementedError; see
+        ``from_count``."""
         _no_hlo("TemplateCost.from_hlo")
 
 
@@ -131,9 +158,19 @@ class RooflinePrior:
         self.templates[template] = TemplateCost(flops, nbytes, coll_bytes)
         return self
 
+    def register_count(self, template: str, cost, *,
+                       scale_by: Optional[str] = None) -> "RooflinePrior":
+        """``template``'s cost from a counted step
+        (``TemplateCost.from_count``), the counterpart of the reference's
+        ``register_hlo``."""
+        self.templates[template] = TemplateCost.from_count(
+            cost, scale_by=scale_by)
+        return self
+
     def register_hlo(self, template: str, hlo_text: str, *,
                      scale_by: Optional[str] = None) -> "RooflinePrior":
-        """Not in the port: raises NotImplementedError (ROADMAP A11b)."""
+        """Not in the port: raises NotImplementedError; see
+        ``register_count``."""
         _no_hlo("RooflinePrior.register_hlo")
 
     def can_estimate(self, template: str, family: str) -> bool:

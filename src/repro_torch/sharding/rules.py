@@ -1,8 +1,11 @@
 """Logical-axis sharding rules (the port of ``repro/sharding/rules.py``).
 
-Model code annotates tensors with *logical* axis names; a launcher installs
-an ``AxisRules`` mapping logical names to mesh axes for the active mesh.
-Outside any rules (unit tests, one device) the annotations are no-ops.
+The reference's model code annotates tensors with *logical* axis names; a
+launcher installs an ``AxisRules`` mapping logical names to mesh axes for
+the active mesh. The port's sharded steps pass each rank's local tensors,
+so its model carries no such annotation (the reference's
+``with_sharding_constraint`` calls have no counterpart); the rules give the
+spec functions below their mesh axes.
 
 Logical axes:
   batch   : data-parallel batch           -> ("pod", "data") / ("data",)
@@ -74,21 +77,6 @@ def logical_to_spec(logical: Sequence[Optional[str]],
             out.append(None if not mapped else
                        mapped if len(mapped) != 1 else mapped[0])
     return tuple(out)
-
-
-def constrain(x, logical: Sequence[Optional[str]]):
-    """Redistribute a DTensor to the logical axes' placements; a no-op
-    without rules, without a device mesh, and for a plain tensor (the
-    sharded steps' activations are each rank's local rows)."""
-    rules = _ACTIVE
-    if rules is None or rules.mesh is None:
-        return x
-    from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
-        return x
-    from repro_torch.sharding.spmd import placements
-    spec = logical_to_spec(logical, rules)
-    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
 
 
 # ---------------------------------------------------------------------------

@@ -261,34 +261,42 @@ def _groups(mesh) -> dict:
     cover a mesh laid over the whole world in rank order take the world's
     group. A group's ranks are the ranks that share the other axes'
     coordinates; in group rank order they run over ``axes`` major to minor,
-    as ``shard_of`` orders a multi-axis entry's chunks."""
+    as ``shard_of`` orders a multi-axis entry's chunks. The mesh's rank
+    tensor is host bookkeeping, read with every dispatch mode off (a
+    dry-run's step runs under a ``FakeTensorMode`` and a counter)."""
     got = getattr(mesh, "_spmd_groups", None)
     if got is not None:
         return got
     import itertools
     import math
+
+    from torch.utils._python_dispatch import _disable_current_modes
     names, sizes = axis_names(mesh), axis_sizes(mesh)
     wide = [a for a in names if sizes[a] > 1]
-    ranks = mesh.mesh
-    in_order = ranks.numel() == dist.get_world_size() and \
-        ranks.flatten().tolist() == list(range(ranks.numel()))
-    me, got = dist.get_rank(), {}
-    for n in range(2, len(wide) + 1):
-        for axes in itertools.combinations(wide, n):
-            if n == len(wide) and in_order:
-                got[axes] = dist.group.WORLD
-                continue
+    with _disable_current_modes():
+        ranks = mesh.mesh
+        in_order = ranks.numel() == dist.get_world_size() and \
+            ranks.flatten().tolist() == list(range(ranks.numel()))
+        combos = [axes for n in range(2, len(wide) + 1)
+                  for axes in itertools.combinations(wide, n)]
+        rows_of = {}
+        for axes in combos:
             dims = [names.index(a) for a in axes]
             rest = [i for i in range(len(names)) if i not in dims]
-            rows = ranks.permute(*rest, *dims).reshape(
-                -1, math.prod(sizes[a] for a in axes))
-            for row in rows.tolist():
-                if row != sorted(row):
-                    raise ValueError(f"mesh {names} is not laid out in "
-                                     "rank order")
-                group = dist.new_group(ranks=row)
-                if me in row:
-                    got[axes] = group
+            rows_of[axes] = ranks.permute(*rest, *dims).reshape(
+                -1, math.prod(sizes[a] for a in axes)).tolist()
+    me, got = dist.get_rank(), {}
+    for axes in combos:
+        if len(axes) == len(wide) and in_order:
+            got[axes] = dist.group.WORLD
+            continue
+        for row in rows_of[axes]:
+            if row != sorted(row):
+                raise ValueError(f"mesh {names} is not laid out in rank "
+                                 "order")
+            group = dist.new_group(ranks=row)
+            if me in row:
+                got[axes] = group
     mesh._spmd_groups = got
     return got
 

@@ -3,7 +3,7 @@ process on 4 forced host devices (run as a script; it writes an npz):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/jax_mesh_reference.py out.npz \
-            [train|moe|families|kvseq|pod ...]
+            [train|moe|families|kvseq|pod|dryrun ...]
 
 (the ``pod`` part's 8-rank case, ``pod=qwen3-8b@2x2x2``, with 8 forced
 devices).
@@ -41,6 +41,12 @@ init, inputs from numpy seeds; the ranks of the port read both.
   ``microbatches`` 2 on (2, 2) and (2, 1, 2); and the ``kvseq`` serve step
   of ``POD_SERVE_CASES`` (the KV sequence over ("pod", "data", "model"),
   the batch over ("pod", "data")).
+- ``dryrun``: the reference's dry-run (``repro/launch/dryrun.py``) of
+  ``DRYRUN_CASES`` on a (2, 2) mesh: ``build_cell``'s jitted step,
+  ``.lower().compile()``, then ``roofline.analysis.analyze`` (the HLO cost
+  model): per device FLOPs (and the dots' alone), fused and all-op
+  bytes, and collective bytes and counts by kind, at the small
+  ``DRYRUN_SHAPES``.
 """
 import dataclasses
 import sys
@@ -508,15 +514,103 @@ def run_pod(out, cases=None):
         SR.set_rules(None)
 
 
+# dryrun: case -> (arch, DRYRUN_SHAPES key); reduced configs, (2, 2)
+DRYRUN_SHAPES = {"train": (128, 8, "train"), "prefill": (128, 8, "prefill"),
+                 "decode": (128, 8, "decode")}
+DRYRUN_CASES = {"olmo-1b/train": ("olmo-1b", "train"),
+                "olmo-1b/prefill": ("olmo-1b", "prefill"),
+                "olmo-1b/decode": ("olmo-1b", "decode"),
+                "zamba2-7b/train": ("zamba2-7b", "train")}
+DRYRUN_MESH = (2, 2)
+COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+              "collective-permute")
+
+
+def dryrun_shape(name, shape_config):
+    """The ``ShapeConfig`` (of either package) of a DRYRUN_SHAPES key."""
+    seq_len, batch, kind = DRYRUN_SHAPES[name]
+    return shape_config(f"{name}_small", seq_len, batch, kind)
+
+
+def hlo_dot_flops(hlo_text):
+    """The module's dot FLOPs alone, as ``hlo_cost`` counts each (2 |result|
+    K), every while body times its trip count, fusions and calls walked."""
+    import re
+
+    from repro.roofline import hlo_cost as H
+    comps = H.parse_module(hlo_text)
+
+    def walk(comp, mult):
+        total = 0.0
+        for ins in comp.instrs:
+            if ins.op == "dot":
+                total += H._dot_flops(ins, comp) * mult
+                continue
+            m = H._TRIP_RE.search(ins.line) if ins.op == "while" else None
+            body = (H._BODY_RE.search(ins.line) if ins.op == "while" else
+                    H._CALLS_RE.search(ins.line) if ins.op == "fusion" else
+                    re.search(r"to_apply=%?([\w.\-]+)", ins.line)
+                    if ins.op == "call" else None)
+            if body and body.group(1) in comps:
+                total += walk(comps[body.group(1)],
+                              mult * (int(m.group(1)) if m else 1))
+        return total
+
+    entry = next(line for line in hlo_text.splitlines()
+                 if line.startswith("ENTRY"))
+    return walk(comps[H._COMP_START_RE.match(entry.strip()).group(1)], 1)
+
+
+def run_dryrun(out, cases=None):
+    """The ``dryrun`` part for ``cases`` (DRYRUN_CASES' keys; all of them
+    by default)."""
+    import os
+    # the reference's dryrun module asks for 512 host devices as it is
+    # imported; this process keeps the 4 it started with
+    os.environ["REPRO_DRYRUN_DEVICES"] = str(int(np.prod(DRYRUN_MESH)))
+    from repro.configs.base import get_arch
+    from repro.configs.shapes import ShapeConfig
+    from repro.launch.dryrun import build_cell
+    from repro.roofline import analysis as RA
+    from repro.sharding import rules as SR
+    from repro.train.train_step import TrainConfig
+
+    mesh = _mesh(DRYRUN_MESH)
+    for case in cases or DRYRUN_CASES:
+        arch, shape_name = DRYRUN_CASES[case]
+        cfg = get_arch(arch).reduced()
+        shape = dryrun_shape(shape_name, ShapeConfig)
+        fn, args = build_cell(cfg, shape, mesh, tcfg=TrainConfig())
+        compiled = fn.lower(*args).compile()
+        text = compiled.as_text()
+        roof = RA.analyze(compiled, cfg, shape, int(np.prod(DRYRUN_MESH)),
+                          hlo_text=text)
+        SR.set_rules(None)
+        key = f"dryrun/{case}"
+        out[f"{key}/flops"] = np.float64(roof.flops_per_device)
+        out[f"{key}/bytes_fused"] = np.float64(roof.bytes_per_device)
+        out[f"{key}/bytes"] = np.float64(
+            roof.xla_cost_analysis["bytes_all_ops_upper_bound"])
+        out[f"{key}/coll_bytes"] = np.asarray(
+            [roof.collectives.bytes_by_kind.get(k, 0) for k in COLL_KINDS],
+            np.float64)
+        out[f"{key}/coll_count"] = np.asarray(
+            [roof.collectives.count_by_kind.get(k, 0) for k in COLL_KINDS],
+            np.float64)
+        out[f"{key}/model_flops"] = np.float64(roof.model_flops)
+        out[f"{key}/dot_flops"] = np.float64(hlo_dot_flops(text))
+
+
 def main(path, parts):
     """Each part by name; ``families=CASE,CASE`` (and ``kvseq=...``,
     ``pod=...``) runs those cases only."""
     out = {}
     for part in parts:
         name, _, cases = part.partition("=")
-        if name in ("families", "kvseq", "pod"):
-            {"families": run_families, "kvseq": run_kvseq, "pod": run_pod}[
-                name](out, cases.split(",") if cases else None)
+        if name in ("families", "kvseq", "pod", "dryrun"):
+            {"families": run_families, "kvseq": run_kvseq, "pod": run_pod,
+             "dryrun": run_dryrun}[name](
+                out, cases.split(",") if cases else None)
         else:
             {"train": run_train, "moe": run_moe}[name](out)
     np.savez(path, **out)

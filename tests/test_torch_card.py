@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions, the
 train path's scans, the reduced models (MoE, VLM and audio included) on the
 card against the CPU, decode on two streams at once, the thread runner's
-per-worker streams and the subprocess runner's wait for its job's stream.
+per-worker streams and the subprocess runner's wait for its job's stream,
+and the dry-run: its counts on fake CUDA tensors equal its counts on fake
+CPU tensors, and the kernels' fake branches never take a real tensor.
 Needs only torch and numpy, so it runs where JAX is absent; every test here
 is marked ``cuda`` and skips without a card:
 
@@ -19,6 +21,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.configs.shapes import ShapeConfig  # noqa: E402
 from repro_torch.core.acai import AcaiEngine, AcaiProject  # noqa: E402
 from repro_torch.core.provision import autotune as AT  # noqa: E402
 from repro_torch.core.engine.registry import JobSpec  # noqa: E402
@@ -29,10 +32,12 @@ from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.models import mamba as MB  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import rwkv as R  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
+from repro_torch.roofline import op_cost  # noqa: E402
 from repro_torch.serve import decode as D  # noqa: E402
 from repro_torch.train.checkpoints import CheckpointManager  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
@@ -1193,3 +1198,65 @@ def test_two_ranks_on_the_card_gather_fsdp_per_layer_and_serve_on_a_pod(
     for t in range(TR.CARD_POD_TICKS):
         span = want[:, t].max() - want[:, t].min()
         assert np.abs(got[:, t] - want[:, t]).max() <= 1e-5 * span, t
+
+
+# -- the dry-run on the card -------------------------------------------------
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_a_dry_run_counts_the_same_on_fake_cuda_and_fake_cpu_tensors(card,
+                                                                    kind):
+    """Reduced olmo-1b's cell of ``kind`` (8 rows of 128 tokens) on a fake
+    (2, 2) mesh: every field that the program fixes (FLOPs, bytes, fused
+    bytes, collectives by kind, the kernel records) is the same whether
+    the fake tensors are CUDA tensors or CPU tensors."""
+    cfg, shape = get_arch("olmo-1b").reduced(), ShapeConfig(kind, 128, 8,
+                                                            kind)
+    counts = [DR.count_cell(cfg, shape, (2, 2), tcfg=T.TrainConfig(),
+                            device=dev)["cost"].program()
+              for dev in ("cuda", "cpu")]
+    assert counts[0] == counts[1]
+    assert counts[0]["flops"] > 0
+    assert bool(counts[0]["kernels"]) == (kind != "train")
+
+
+def _kernel_calls(dev):
+    """One call of each adapter on seeded bf16 inputs on ``dev`` at shapes
+    the kernels take, with each wrapper."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    b, s, h, d = 1, 128, 2, 64
+    q, k, v = (r(b, s, h, d).to(bf) for _ in range(3))
+    clen = torch.full((b,), s // 2, dtype=torch.int32, device=dev)
+    logw = -torch.exp(r(b, s, h, d) - 3)
+    u = r(h, d)
+    x = r(b, s, h, d).to(bf)
+    dt = torch.nn.functional.softplus(r(b, s, h))
+    A, D = -torch.exp(r(h)), torch.ones(h, device=dev)
+    Bm, Cm = (r(b, s, 1, 16).to(bf) for _ in range(2))
+    return [(lambda: ops.flash_attention(q, k, v), fa.flash_attention_bhsd),
+            (lambda: ops.decode_attention(q[:, :1], k, v, clen),
+             dec.decode_attention_bhd),
+            (lambda: ops.wkv6(q, k, v, logw, u), wkv.wkv6_bhsk),
+            (lambda: ops.mamba2_ssd(x, dt, A, Bm, Cm, D), ssd.ssd_bhsp)]
+
+
+def test_a_real_tensor_never_takes_the_fake_branch(card):
+    """Real CUDA tensors launch each kernel and bump its counter, with no
+    count running and under a count (which then records no kernel: the
+    launch is real); fake CUDA tensors outside a count raise and bump
+    nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    for call, wrapper in _kernel_calls(card):
+        before = wrapper.launches
+        call()
+        with op_cost.counting() as cost:
+            call()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2
+        assert not cost.kernels
+    with FakeTensorMode():
+        for call, wrapper in _kernel_calls(card):
+            before = wrapper.launches
+            with pytest.raises(RuntimeError, match="outside a count"):
+                call()
+            assert wrapper.launches == before

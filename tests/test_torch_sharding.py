@@ -156,11 +156,10 @@ def test_decode_state_specs_equal_reference(arch, shape_name, layout,
             _divides(tuple(t.shape), s, rules.mesh)
 
 
-def test_constrain_noop_without_rules():
+def test_logical_to_spec_empty_without_rules():
     SR.set_rules(None)
-    x = torch.ones(4, 4)
-    assert SR.constrain(x, ("batch", None)) is x
     assert SR.logical_to_spec(("batch", None)) == ()
+    assert SR.logical_to_spec(("tp",)) == ()
 
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))
