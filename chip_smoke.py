@@ -218,7 +218,17 @@ their shapes here, in phase 3):
    full, MESH_TRAIN_STEPS (2, for the time limit) steps of
    4x2048) against the one-device step; gate: each loss within 1e-4
    relative; the one-device step of the first batch at 2 microbatches.
-   (2) Two spawned ranks on gloo, mesh (1, 2):
+   (2) Two spawned ranks on gloo, mesh (1, 2): first MESH_TRAIN_STEPS
+   train steps of olmo-1b at full width and MESH_TP_TRAIN_LAYERS (2) of
+   16 layers, fp32, remat full, 4x2048, each rank holding its vocab
+   columns of the logits (the loss's row max and sums all-reduced over
+   "model"); gates: each rank's loss of each step and grad norm of the
+   first (which holds the head's gradient) within 1e-4 relative of the
+   one-device steps' (rank 0 runs them on the same init and batches),
+   each rank's peak memory in the first step (reset after
+   its state is built) within DRYRUN_PEAK_TOL of the dry-run's count of
+   the same (1, 2) cell (``launch/dryrun.count_cell`` on fake tensors,
+   counted by rank 0 before its process group starts); then
    olmo-1b at full width and depth in bf16, three 4x2048 prefills (16
    flash launches a rank a call, each at 8 of the 16 heads) and
    MESH_REQUESTS (1) of phase 5's requests served (the shortest; 16 decode launches a rank a tick, at 8 heads); gates: the launch counts and head counts, the prefill logits
@@ -344,6 +354,32 @@ their shapes here, in phase 3):
    terms, measured ms and their ratio, the peaks, the phase's seconds);
    the real calls' launches count in the kernel table's main-path
    launches.
+
+14. examples (the paper's serving and sweep workflows as the port's
+   examples; budget 30 s): ``repro_torch.examples.serve_batch.run`` at
+   --full (published width and depth, random weights from seed 0 cast to
+   bf16 once, the reference's batch 4, prompts of 8 and 12 new tokens:
+   19 ticks) for olmo-1b and zamba2-7b, through
+   ``serve.decode.greedy_generate``. Gates: the decode launches exactly
+   one a tick per layer that attends (olmo-1b 16, zamba2-7b's shared block
+   13 a tick) and no other kernel, each launch at the model's (heads,
+   head dim): (16, 128) and (32, 112); tokens of (4, 12) in the vocab.
+   Then the same run in fp32 (the decode kernel at fp32) against one
+   forward over the prompt and the tokens, which keeps no decode state:
+   at each generated position the forward's row max less its logit of
+   the token chosen, over the row's range, within EXAMPLES_GAP (a token
+   read from a wrong slot or a stale state is not the forward's argmax);
+   the bf16 run's share of tokens equal to the fp32 run's is printed.
+   Then ``hyperparam_sweep.main`` on the card and on the CPU (each root
+   under build/, deleted): the 10 stages FINISHED, 16 DAG edges, the
+   broken pipeline's states and the best job's metadata keys those of the
+   CPU run, every sweep job's tensors on the card (its outputs, not its
+   metadata), no kernel launched by the sweep. It prints an
+   ``examples:`` JSON line (each model's seconds, ms a tick, launches,
+   heads and peak memory; each sweep's stages, held count, states, edges,
+   broken pipeline and seconds; every gate's reading and limit; the
+   phase's seconds); the decode launches count in the kernel table's
+   main-path launches.
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -499,6 +535,9 @@ MESH_REQUESTS = 1
 # peak on an H100 when the step gathered whole params and gradients
 MESH_POD_LAYERS, MESH_POD_FP32, MESH_POD_TICKS = 2, (4, 512), 8
 MESH_FSDP_WHOLE_PEAK_GB = 7.93
+# phase 10 (2)'s train step on (1, 2), the loss over vocab shards:
+# olmo-1b's layers
+MESH_TP_TRAIN_LAYERS = 2
 # phase 11: each family at full width and cut depth on a (1, 2) mesh (its
 # layers), the fp32 prefill batch and ticks, and the phase's time budget
 MESH_FAMILIES = {"rwkv6-7b": 2, "zamba2-7b": 6, "llama-3.2-vision-11b": 5,
@@ -524,6 +563,13 @@ DRYRUN_BUF, DRYRUN_CACHE_LENS = 2048, (100, 700, 1300, 2000)
 DRYRUN_TIMED, DRYRUN_TICKS = 3, 2
 DRYRUN_PEAK_TOL = 0.25
 DRYRUN_BUDGET_S = 40
+# phase 14: the examples, serve_batch at --full for these models (the
+# reference's other flags: batch 4, prompts of 8, 12 new tokens), the fp32
+# run's tokens against one forward (the gap to each row's argmax, over the
+# row's range), then the sweep; the phase's time budget
+EXAMPLE_ARCHS = ("olmo-1b", "zamba2-7b")
+EXAMPLES_GAP = 1e-3
+EXAMPLES_BUDGET_S = 30
 
 
 T0 = time.perf_counter()
@@ -1034,6 +1080,13 @@ def main() -> int:
     for name, n in dry["launches"].items():
         totals[name] += n
     log("dryrun: " + json.dumps(dry))
+
+    # -- 14. the paper's serving and sweep workflows as the port's examples --
+    phase("14. examples")
+    examples = run_examples(card, counters, dev)
+    for name, n in examples["launches"].items():
+        totals[name] += n
+    log("examples: " + json.dumps(examples))
 
     for row in rows:
         row["launches"] = totals[row["name"]]
@@ -2914,14 +2967,19 @@ def _sync(dev) -> None:
 
 
 def _mesh_steps(step, params, opt, batches, dev) -> dict:
-    losses, ms = [], []
+    """Each step's loss, grad norm, ms and the peak since the last reset
+    as of its end (``peak_gb`` the last)."""
+    losses, norms, ms, peaks = [], [], [], []
     for batch in batches:
         t0 = time.perf_counter()
         params, opt, metrics = step(params, opt, batch)
         losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
         _sync(dev)
         ms.append(1e3 * (time.perf_counter() - t0))
-    return {"losses": losses, "ms_per_step": ms, "peak_gb": _peak_gb(dev)}
+        peaks.append(_peak_gb(dev))
+    return {"losses": losses, "grad_norms": norms, "ms_per_step": ms,
+            "peaks_gb": peaks, "peak_gb": peaks[-1]}
 
 
 def _mesh_one_rank(out, gate, dev) -> None:
@@ -3013,6 +3071,40 @@ def run_mesh(card, dev, kernels_at_rank=None) -> dict:
     for r, rank in enumerate(ranks["tp"]):
         for name, (value, limit) in rank["gates"].items():
             gate(f"rank {r} {name}", value, limit)
+    # (2)'s train steps: the loss over vocab shards against one device, the
+    # first step's grad norm (the head's gradient, which a backward scaled
+    # by the model ranks or a wrong one-hot would move) and the second
+    # step's loss (after an update from that gradient), and each rank's
+    # first-step peak against the dry-run's count of the same cell
+    count = ranks["tp"][0]["train"]["count"]
+    one = ranks["tp"][0]["train"]["one_device"]
+    for r, rank in enumerate(ranks["tp"]):
+        got = rank["train"]
+        for i, (a, b) in enumerate(zip(got["losses"], one["losses"])):
+            gate(f"(1, 2) train step {i} rank {r} loss, relative",
+                 abs(a - b) / abs(b), 1e-4)
+        gate(f"(1, 2) train step 0 rank {r} grad norm, relative",
+             abs(got["grad_norms"][0] - one["grad_norms"][0])
+             / abs(one["grad_norms"][0]), 1e-4)
+        if dev.type == "cuda":
+            measured = got["peaks_gb"][0] * 1e9
+            gate(f"(1, 2) train step rank {r}: |dry-run peak - measured| / "
+                 "measured", abs(count["peak_bytes"] - measured) / measured,
+                 DRYRUN_PEAK_TOL)
+    out["tp_train"] = {
+        "layers": ranks["tp"][0]["train"]["layers"],
+        "losses": [rank["train"]["losses"] for rank in ranks["tp"]],
+        "one_device_losses": one["losses"],
+        "grad_norms": [rank["train"]["grad_norms"] for rank in ranks["tp"]],
+        "one_device_grad_norms": one["grad_norms"],
+        "ms": [rank["train"]["ms_per_step"] for rank in ranks["tp"]],
+        "one_device_ms": one["ms_per_step"],
+        "peak_gb": [rank["train"]["peaks_gb"][0] for rank in ranks["tp"]],
+        "dryrun_peak_gb": count["peak_bytes"] / 1e9,
+        "dryrun_args_gb": count["args_bytes"] / 1e9,
+        "dryrun_temp_gb": count["temp_bytes"] / 1e9,
+        "dryrun_count_s": count["count_s"],
+        "dryrun_collectives": count["collectives"], "card": card}
     for r, rank in enumerate(ranks["fsdp"]):
         for i, (a, b) in enumerate(zip(rank["losses"],
                                        out["one_device"]["losses"])):
@@ -3450,11 +3542,17 @@ def _mesh_rank(rank: int, world: int, part: str, outdir: str,
     from repro_torch.launch import mesh as LM
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the dry-run's count of (2)'s train step, before this process has a
+    # process group (a count starts a fake one of its own)
+    count = mesh_tp_train_count(device) if part == "tp" and rank == 0 \
+        else None
     dev = LM.init_rank(rank, world, backend="gloo", device=device,
                        init_method=init_method)
     try:
         _reset_peak(dev)
         res = (_mesh_tp if part == "tp" else _mesh_fsdp)(rank, dev)
+        if count is not None:
+            res["train"]["count"] = count
         res["rank"] = rank        # "fsdp": (a)'s peak, its steps' own
         res.setdefault("peak_gb", _peak_gb(dev))
         Path(outdir, f"{part}.{rank}.json").write_text(json.dumps(res))
@@ -3497,7 +3595,7 @@ def _mesh_tp(rank: int, dev) -> dict:
             heads[name].add(int(q.shape[2]))      # q: (B, S, H, D)
             return orig(q, *a, **kw)
         setattr(ops, name, seen)
-    res, gates = {}, {}
+    res, gates = {"train": _mesh_tp_train(rank, mesh, dev)}, {}
 
     # olmo-1b uncut in bf16: three 4x2048 prefills, then 4 requests served
     cfg = get_arch("olmo-1b")
@@ -3624,6 +3722,66 @@ def _mesh_tp(rank: int, dev) -> dict:
         1e-5]
     res["gates"] = gates
     return res
+
+
+def mesh_tp_train_cell():
+    """Phase 10 (2)'s train steps: (config, ShapeConfig, TrainConfig,
+    OptimizerConfig, batches), olmo-1b at full width and
+    MESH_TP_TRAIN_LAYERS layers, fp32, remat full, phase 10's
+    MESH_TRAIN_STEPS 4x2048 batches."""
+    from repro_torch.configs.shapes import ShapeConfig
+    cfg, tcfg, ocfg, batches = mesh_train_setup(None)
+    cfg = dataclasses.replace(cfg, n_layers=MESH_TP_TRAIN_LAYERS)
+    return (cfg, ShapeConfig("train", TRAIN_LEN, TRAIN_BATCH, "train"),
+            tcfg, ocfg, batches)
+
+
+def mesh_tp_train_count(device: str) -> dict:
+    """The dry-run's count of phase 10 (2)'s train step on a fake (1, 2)
+    mesh (fake tensors of ``device``): a rank's arguments, the step's own
+    peak of live bytes, their sum (the predicted peak), the count's
+    seconds. Run in a process without a process group."""
+    from repro_torch.launch import dryrun as DR
+    cfg, shape, tcfg, _, _ = mesh_tp_train_cell()
+    got = DR.count_cell(cfg, shape, (1, 2), tcfg=tcfg, device=device)
+    return {"args_bytes": got["args_bytes"],
+            "temp_bytes": got["cost"].peak_bytes,
+            "peak_bytes": got["args_bytes"] + got["cost"].peak_bytes,
+            "count_s": got["seconds"],
+            "collectives": got["cost"].coll_count}
+
+
+def _mesh_tp_train(rank: int, mesh, dev) -> dict:
+    """Phase 10 (2)'s train steps on the (1, 2) mesh: each rank its vocab
+    columns of the logits, the loss's row max and sums all-reduced over
+    "model" (``model.vocab_sharded_nll``); each step's loss, grad norm
+    and ms, and this rank's peak (reset after its state is built, as the
+    dry-run counts the arguments and the step's own bytes; the first
+    step's is the one the count holds); rank 0 then runs the one-device
+    steps on the same init and batches."""
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+    cfg, _, tcfg, ocfg, batches = mesh_tp_train_cell()
+    specs = TS.sharded_specs(cfg, mesh)
+    params, opt = TS.shard_train_state(M.init_params(cfg, 0, device=dev),
+                                       tcfg, *specs[1:], mesh)
+    free()
+    step = TS.make_sharded_train_step(cfg, tcfg, ocfg, mesh, device=dev,
+                                      specs=specs)
+    _sync(dev)
+    _reset_peak(dev)
+    got = _mesh_steps(step, params, opt, batches, dev)
+    del step, params, opt
+    free()
+    if rank == 0:
+        params = M.init_params(cfg, 0, device=dev)
+        got["one_device"] = _mesh_steps(
+            TS.make_train_step(cfg, tcfg, ocfg, device=dev), params,
+            TS.make_opt_state(params, tcfg), batches, dev)
+        del params
+        free()
+    got["layers"] = cfg.n_layers
+    return got
 
 
 def _mesh_fsdp(rank: int, dev) -> dict:
@@ -4428,6 +4586,147 @@ def _dryrun_rank(rank: int, world: int, outdir: str, dev_type: str) -> None:
             cell["roofline_over_measured"], 1.0]
     out["launches"] = launches
     Path(outdir, "dryrun.json").write_text(json.dumps(out))
+
+
+def run_examples(card, counters, dev) -> dict:
+    """Phase 14 (see the module docstring): ``serve_batch.run`` at --full
+    for EXAMPLE_ARCHS with the launch counters and the (heads, head dim)
+    of every decode launch, then ``hyperparam_sweep.main`` on the card and
+    on the CPU, each in a root under build/ that it deletes."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.examples import hyperparam_sweep as HS
+    from repro_torch.examples import serve_batch as SB
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    out = {"card": card, "gates": {}, "serve_batch": {},
+           "launches": dict.fromkeys(counters, 0)}
+
+    def gate(name, value, limit):
+        out["gates"][name] = [value, limit]
+        if not value <= limit:
+            raise AssertionError(f"examples: {name} {value:.3e} > "
+                                 f"{limit:.3e}")
+
+    seen = set()
+    orig = ops.decode_attention
+
+    def decode(q, *a, **kw):
+        seen.add(tuple(q.shape[2:]))                  # (H, D)
+        return orig(q, *a, **kw)
+    ops.decode_attention = decode
+    batch, prompt_len, max_new = 4, 8, 12             # the reference's flags
+    ticks = prompt_len + max_new - 1
+    try:
+        for arch in EXAMPLE_ARCHS:
+            cfg = SB.config(arch, full=True)
+            for c in counters.values():
+                c.launches = 0
+            seen.clear()
+            _reset_peak(dev)
+            t1 = time.perf_counter()
+            tokens = SB.run(arch, batch, prompt_len, max_new, full=True,
+                            device=dev)
+            _sync(dev)
+            secs = time.perf_counter() - t1
+            launches = {k: c.launches for k, c in counters.items()}
+            for k, n in launches.items():
+                out["launches"][k] += n
+            per_tick = launches_per_call(cfg)[1].get("decode_attention", 0)
+            want = {k: per_tick * ticks if k == "decode_attention" else 0
+                    for k in launches}
+            gate(f"{arch}: launches off the expected "
+                 f"({per_tick} decode a tick x {ticks} ticks)",
+                 sum(abs(launches[k] - want[k]) for k in launches)
+                 if dev.type == "cuda" else 0, 0)
+            if dev.type == "cuda":
+                gate(f"{arch}: decode launches not at {cfg.n_heads} heads "
+                     f"of {cfg.resolved_head_dim}",
+                     len(seen ^ {(cfg.n_heads, cfg.resolved_head_dim)}), 0)
+            ok = tuple(tokens.shape) == (batch, max_new) and bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+            gate(f"{arch}: tokens not of (B, max_new) in the vocab",
+                 0 if ok else 1, 0)
+            out["serve_batch"][arch] = {
+                "layers": cfg.n_layers, "seconds": secs, "ticks": ticks,
+                "ms_per_tick": 1e3 * secs / ticks, "launches": launches,
+                "decode_heads": sorted(seen), "peak_gb": _peak_gb(dev)}
+            free()
+            params = M.init_params(cfg, SB.WEIGHT_SEED, device=dev)
+            prompt, _ = SB.inputs(cfg, batch, prompt_len)
+            fp32 = SB.run(arch, batch, prompt_len, max_new, full=True,
+                          device=dev, params=params, prompt=prompt,
+                          compute_dtype=torch.float32)
+            gap = greedy_gap(cfg, params, prompt, fp32, dev)
+            gate(f"{arch}: fp32 tokens' gap to one forward's argmax, over "
+                 "the row's range", gap, EXAMPLES_GAP)
+            out["serve_batch"][arch] |= {
+                "fp32_gap": gap,
+                "bf16_tokens_equal_fp32": float(
+                    (tokens.cpu() == fp32.cpu()).float().mean())}
+            del params
+            free()
+    finally:
+        ops.decode_attention = orig
+
+    for c in counters.values():
+        c.launches = 0
+    sweeps = {}
+    for where in (dev.type, "cpu") if dev.type == "cuda" else ("cpu",):
+        root = Path(tempfile.mkdtemp(prefix="sweep-", dir=ROOT / "build"))
+        t1 = time.perf_counter()
+        try:
+            sweeps[where] = HS.main(["--device", where,
+                                     "--workdir", str(root)])
+        finally:
+            shutil.rmtree(root)
+        sweeps[where]["seconds"] = time.perf_counter() - t1
+    got, cpu = sweeps[dev.type], sweeps["cpu"]
+    gate("sweep: stages not FINISHED (of 10)",
+         sum(s != "FINISHED" for s in got["states"])
+         + abs(len(got["states"]) - 10), 0)
+    gate("sweep: |DAG edges - 16|", abs(got["edges"] - 16), 0)
+    gate("sweep: broken pipeline's states unlike the CPU run's",
+         0 if got["broken"] == cpu["broken"] else 1, 0)
+    gate(f"sweep: jobs whose tensors were not on {dev.type}",
+         sum(not d.startswith(dev.type) for d in got["devices"].values()),
+         0)
+    gate("sweep: kernel launches", sum(c.launches for c in
+                                       counters.values()), 0)
+    gate("sweep: metadata keys unlike the CPU run's",
+         0 if sorted(got["best"]) == sorted(cpu["best"]) else 1, 0)
+    out["sweep"] = {w: {k: v[k] for k in ("stages", "held", "states",
+                                          "edges", "broken", "seconds")}
+                    | {"best_accuracy": v["best"]["accuracy"],
+                       "devices": sorted(set(v["devices"].values()))}
+                    for w, v in sweeps.items()}
+    out["seconds"] = time.perf_counter() - t0
+    out["budget_s"] = EXAMPLES_BUDGET_S
+    return out
+
+
+def greedy_gap(cfg, params, prompt, tokens, dev) -> float:
+    """Greedy tokens (B, n) held against one fp32 forward over the prompt
+    (B, S) and the tokens, which keeps no decode state: the largest, over
+    the generated positions, of the forward's row max less its logit of
+    the token chosen, over the row's range (0 where every token is the
+    forward's argmax)."""
+    import torch
+
+    from repro_torch.models import model as M
+    seq = torch.cat([prompt.to(dev), tokens[:, :-1].to(dev)], 1)
+    ctx = M.make_ctx(cfg, seq.shape[1], "prefill",
+                     compute_dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        logits = M.forward(params, seq, cfg, ctx)[0][
+            :, prompt.shape[1] - 1:].float()
+    chosen = logits.gather(-1, tokens.to(dev)[..., None].long())[..., 0]
+    top, low = logits.amax(-1), logits.amin(-1)
+    return float(((top - chosen) / (top - low)).max())
 
 
 def _rank_heads(cfg, kernel: str) -> int:

@@ -141,32 +141,104 @@ def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype, mesh=None):
     return params["embed"][tokens].to(compute_dtype)
 
 
-def lm_logits(params, x, cfg: ArchConfig, mesh=None):
+def lm_logits(params, x, cfg: ArchConfig, mesh=None, gather: bool = True):
     """Logits (B, S, V), or (B, S, K, V) with codebooks (the head's columns
     codebook-major, as in the reference). On a mesh the head is
     vocab-sharded (``lm_head`` is in ``_COL_TP``, a tied table in its vocab
-    rows) and this rank's columns are gathered whole, for the loss and for
-    greedy decoding. An untied head that FSDP shards is gathered over data
-    here, once a call."""
+    rows) and this rank's columns are gathered whole, for greedy decoding;
+    with ``gather`` False (the loss, ``vocab_sharded_nll``) a rank keeps
+    its own columns, (B, S, K V / tp) flat, codebooks or not. An untied
+    head that FSDP shards is gathered over data here, once a call."""
     xf = S.tp_copy(B.apply_norm(params["final_norm"], x, cfg), mesh)
     w = params["embed"].t() if cfg.tie_embeddings else \
         S.gather_params(params["lm_head"], mesh, "lm_head")
-    logits = S.tp_gather(xf @ w.to(xf.dtype), mesh, -1)
+    logits = xf @ w.to(xf.dtype)
+    if not gather and mesh is not None and mesh.tp > 1:
+        return logits
+    logits = S.tp_gather(logits, mesh, -1)
     if cfg.n_codebooks:
         logits = logits.unflatten(-1, (cfg.n_codebooks, cfg.vocab_size))
     return logits
 
 
-def forward(params, tokens, cfg: ArchConfig, ctx: dict, states=None):
+class _VocabShardedNLL(torch.autograd.Function):
+    """logz - gold of each row and codebook from this rank's vocab columns
+    of the fp32 logits, as the reference's partitioner computes it: the
+    row's max all-reduced (MAX) over the model group and held constant,
+    the sum of exp(l - max) and the gold logit (read on the rank whose
+    columns hold the label, zero elsewhere) all-reduced (SUM) in one call.
+    Backward: softmax - onehot at this rank's columns times the upstream
+    gradient, and no collective: every model rank holds the same loss, so
+    a summing backward (``spmd.tp_sum``'s) would scale the head's gradient
+    by the model axis' size."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab, col0, group):
+        # logits (..., C): global columns [col0, col0 + C), codebook-major
+        # over K codebooks of ``vocab``; labels (..., K) vocab ids
+        c, k = logits.shape[-1], labels.shape[-1]
+        spans = [(min(max(i * vocab - col0, 0), c),
+                  min(max((i + 1) * vocab - col0, 0), c)) for i in range(k)]
+        mine = [i for i, (a, b) in enumerate(spans) if a < b]
+        m = logits.new_full(labels.shape, float("-inf"))
+        for i in mine:
+            a, b = spans[i]
+            m[..., i] = logits[..., a:b].amax(-1)
+        m = S.all_reduce(m, group, op=torch.distributed.ReduceOp.MAX)
+        local = labels + torch.tensor([i * vocab - col0 for i in range(k)],
+                                      device=labels.device)
+        held = (local >= 0) & (local < c)
+        idx = local.clamp(0, c - 1)
+        parts = logits.new_zeros((2, *labels.shape))
+        for i in mine:
+            a, b = spans[i]
+            parts[0, ..., i] = torch.sub(logits[..., a:b],
+                                         m[..., i:i + 1]).exp_().sum(-1)
+        parts[1] = torch.where(held, logits.gather(-1, idx), 0.0)
+        parts = S.all_reduce(parts, group)
+        logz = m + torch.log(parts[0])
+        ctx.save_for_backward(logits, logz, idx, held)
+        ctx.spans = spans
+        return logz - parts[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, idx, held = ctx.saved_tensors
+        grad = torch.empty_like(logits)      # every column is in one span
+        for i, (a, b) in enumerate(ctx.spans):
+            if a < b:
+                part = grad[..., a:b]
+                torch.sub(logits[..., a:b], logz[..., i:i + 1], out=part)
+                part.exp_().mul_(g[..., i:i + 1])
+        grad.scatter_add_(-1, idx, -torch.where(held, g, 0.0))
+        return grad, None, None, None, None
+
+
+def vocab_sharded_nll(logits, labels, cfg: ArchConfig, mesh):
+    """Each row's (and codebook's) logz - gold, (B, S) or (B, S, K), from
+    this rank's vocab columns of the logits (``lm_logits(gather=False)``,
+    fp32) and the global labels (B, S[, K]; any in [0, V)), on a model
+    axis above 1: a rank never holds the whole (rows, S, V). The
+    logsumexp runs per codebook, whose columns may lie on one rank, span
+    several, or share a rank with others."""
+    books = labels if cfg.n_codebooks else labels[..., None]
+    nll = _VocabShardedNLL.apply(logits, books, cfg.vocab_size,
+                                 mesh.tp_rank * logits.shape[-1],
+                                 mesh.model_group)
+    return nll if cfg.n_codebooks else nll[..., 0]
+
+
+def forward(params, tokens, cfg: ArchConfig, ctx: dict, states=None,
+            gather: bool = True):
     """Returns (logits, aux, states). aux is the auxiliary loss summed over
     the layers (MoE's load-balancing loss), a 0-d fp32 tensor: zero for a
-    model without MoE layers."""
+    model without MoE layers. ``gather``: ``lm_logits``'."""
     mesh = ctx.get("mesh")
     x = embed_tokens(params, tokens, cfg, ctx["compute_dtype"], mesh)
     x, aux, states = T.apply_stack(params, x, cfg, ctx, states)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return lm_logits(params, x, cfg, mesh), aux, states
+    return lm_logits(params, x, cfg, mesh, gather), aux, states
 
 
 def loss_fn(params, batch, cfg: ArchConfig, ctx: dict):
@@ -183,16 +255,22 @@ def loss_fn(params, batch, cfg: ArchConfig, ctx: dict):
     sum over the global count of valid labels, plus aux over the number of
     batch shards (aux is already the mean over them); over a batch the
     batch shards do not split, (loss + aux) over their number. The
-    metrics are the global batch's."""
-    logits, aux, _ = forward(params, batch["tokens"], cfg, ctx)
+    metrics are the global batch's. On a model axis above 1 the logits
+    stay vocab-sharded (``vocab_sharded_nll``)."""
+    mesh = ctx.get("mesh")
+    sharded = mesh is not None and mesh.tp > 1
+    logits, aux, _ = forward(params, batch["tokens"], cfg, ctx,
+                             gather=not sharded)
     labels = batch["labels"]
     logits = logits.float()
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, safe[..., None])[..., 0]
-    nll = (logz - gold) * valid
-    mesh = ctx.get("mesh")
+    if sharded:
+        nll = vocab_sharded_nll(logits, safe, cfg, mesh) * valid
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, safe[..., None])[..., 0]
+        nll = (logz - gold) * valid
     if mesh is not None and mesh.shards_batch:
         tot = S.all_reduce(torch.stack([nll.sum().detach().double(),
                                         valid.sum().double()]),

@@ -37,14 +37,16 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum over the group; a new tensor (t is left as it is)."""
+def all_reduce(t: torch.Tensor, group,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum over the group (or ``op``: ``dist.ReduceOp.MAX`` for a row's
+    max over vocab shards); a new tensor (t is left as it is)."""
     if _staged(t, group):
         h = t.detach().cpu().contiguous()
-        dist.all_reduce(h, group=group)
+        dist.all_reduce(h, op=op, group=group)
         return h.to(t.device)
     out = t.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
 
 

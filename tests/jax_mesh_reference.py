@@ -3,7 +3,7 @@ process on 4 forced host devices (run as a script; it writes an npz):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/jax_mesh_reference.py out.npz \
-            [train|moe|families|kvseq|pod|dryrun ...]
+            [train|moe|families|kvseq|pod|loss|dryrun ...]
 
 (the ``pod`` part's 8-rank case, ``pod=qwen3-8b@2x2x2``, with 8 forced
 devices).
@@ -41,6 +41,12 @@ init, inputs from numpy seeds; the ranks of the port read both.
   ``microbatches`` 2 on (2, 2) and (2, 1, 2); and the ``kvseq`` serve step
   of ``POD_SERVE_CASES`` (the KV sequence over ("pod", "data", "model"),
   the batch over ("pod", "data")).
+- ``loss``: the loss over vocab shards (``LOSS_CASES``): reduced olmo-1b
+  (a tied table), qwen3-8b (an untied head) and musicgen-large's
+  codebook-major head at 4 codebooks (2 whole ones a rank of a model axis
+  of 2) and at 3 (a rank's 384 columns split a codebook), fp32, remat
+  none, on (1, 2), (2, 2) and (2, 1, 2), with ignored labels: the loss
+  and every gradient, as ``train``.
 - ``dryrun``: the reference's dry-run (``repro/launch/dryrun.py``) of
   ``DRYRUN_CASES`` on a (2, 2) mesh: ``build_cell``'s jitted step,
   ``.lower().compile()``, then ``roofline.analysis.analyze`` (the HLO cost
@@ -127,6 +133,38 @@ POD_SERVE_CASES = {
     "zamba2-7b@2x2x1/1": ("zamba2-7b", (2, 2, 1), 1, "fsdp", {}),
 }
 SERVE_CASES = {**KVSEQ_CASES, **POD_SERVE_CASES}
+
+
+# loss: case -> (arch, mesh, config fields). Each config's params are the
+# same on every mesh (saved once, under ``loss/ARCH_KEY/params``)
+LOSS_CONFIGS = {"olmo-1b": ("olmo-1b", {}), "qwen3-8b": ("qwen3-8b", {}),
+                "musicgen-large": ("musicgen-large", {}),
+                "musicgen-large-3books": ("musicgen-large",
+                                          {"n_codebooks": 3})}
+LOSS_MESHES = ((1, 2), (2, 2), (2, 1, 2))
+LOSS_CASES = {f"{key}@{'x'.join(map(str, shape))}": (key, shape)
+              for key in LOSS_CONFIGS for shape in LOSS_MESHES}
+
+
+def loss_config(key, get_arch):
+    """The reduced config of a ``LOSS_CONFIGS`` key from ``get_arch``."""
+    arch, fields = LOSS_CONFIGS[key]
+    return dataclasses.replace(get_arch(arch).reduced(), **fields)
+
+
+def loss_batch(cfg):
+    """A seeded BATCH x SEQ batch (tokens and labels, (B, S, K) with
+    codebooks) with some labels ignored (-100): a run of row 0 and, with
+    codebooks, one codebook of row 1."""
+    rng = np.random.default_rng(400)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    toks = rng.integers(0, cfg.vocab_size,
+                        (BATCH, SEQ + 1, *books)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    labels[0, 3:11] = -100
+    if books:
+        labels[1, :, 1] = -100
+    return {"tokens": toks[:, :-1].copy(), "labels": labels}
 
 
 def train_batches(cfg, steps=TRAIN_STEPS, batch=BATCH):
@@ -514,6 +552,49 @@ def run_pod(out, cases=None):
         SR.set_rules(None)
 
 
+def run_loss(out, cases=None):
+    """The ``loss`` part for ``cases`` (LOSS_CASES' keys; all of them by
+    default): under ``loss/CASE/`` the loss and every gradient of
+    ``build_sharded_train``'s specs, as ``run_train``'s."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs.base import get_arch
+    from repro.launch.train import build_sharded_train
+    from repro.models import model as M
+    from repro.sharding import rules as SR
+    from repro.train.optimizer import OptimizerConfig
+    from repro.train.train_step import TrainConfig, make_loss_fn
+
+    tcfg = TrainConfig(remat="none", compute_dtype="float32")
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=2)
+    init = jax.jit(M.init_params, static_argnums=0)
+    for case in cases or LOSS_CASES:
+        key, shape = LOSS_CASES[case]
+        mesh = _mesh(shape)
+        named = lambda t, mesh=mesh: jax.tree.map(
+            lambda sp: NamedSharding(mesh, sp), t,
+            is_leaf=lambda x: isinstance(x, P))
+        cfg = loss_config(key, get_arch)
+        params = jax.tree.map(np.asarray, init(cfg, jax.random.PRNGKey(0)))
+        if f"loss/{key}/params/embed" not in out:
+            out.update(_flat(params, f"loss/{key}/params"))
+        _, pspecs = build_sharded_train(cfg, tcfg, ocfg, mesh)
+        rules = SR.current_rules()
+        bspecs = SR.batch_specs(cfg, "train", BATCH, rules)
+        grad = jax.jit(jax.value_and_grad(make_loss_fn(cfg, tcfg),
+                                          has_aux=True),
+                       in_shardings=(named(pspecs), named(bspecs)))
+        (_, metrics), grads = grad(
+            jax.device_put(params, named(pspecs)),
+            jax.device_put(jax.tree.map(jnp.asarray, loss_batch(cfg)),
+                           named(bspecs)))
+        out[f"loss/{case}/loss"] = np.asarray(metrics["loss"])
+        out.update(_flat(grads, f"loss/{case}/grad"))
+        SR.set_rules(None)
+
+
 # dryrun: case -> (arch, DRYRUN_SHAPES key); reduced configs, (2, 2)
 DRYRUN_SHAPES = {"train": (128, 8, "train"), "prefill": (128, 8, "prefill"),
                  "decode": (128, 8, "decode")}
@@ -603,13 +684,13 @@ def run_dryrun(out, cases=None):
 
 def main(path, parts):
     """Each part by name; ``families=CASE,CASE`` (and ``kvseq=...``,
-    ``pod=...``) runs those cases only."""
+    ``pod=...``, ``loss=...``) runs those cases only."""
     out = {}
     for part in parts:
         name, _, cases = part.partition("=")
-        if name in ("families", "kvseq", "pod", "dryrun"):
+        if name in ("families", "kvseq", "pod", "loss", "dryrun"):
             {"families": run_families, "kvseq": run_kvseq, "pod": run_pod,
-             "dryrun": run_dryrun}[name](
+             "loss": run_loss, "dryrun": run_dryrun}[name](
                 out, cases.split(",") if cases else None)
         else:
             {"train": run_train, "moe": run_moe}[name](out)

@@ -1167,6 +1167,38 @@ def test_two_ranks_on_the_card_decode_a_kv_sequence_sharded_over_model(
         assert np.abs(got[:, t] - want[:, t]).max() <= 1e-5 * span, t
 
 
+def test_two_ranks_on_the_card_take_the_loss_over_vocab_shards(card,
+                                                               tmp_path):
+    """Two ranks on gloo share the card on a (1, 2) mesh, fp32, reduced
+    olmo-1b (a tied table), qwen3-8b (an untied head) and musicgen-large
+    at 4 and 3 codebooks (a rank's columns split a codebook at 3): the
+    sharded loss (each rank its vocab columns, the row max and sums
+    all-reduced through host memory) equals the gathered path's value on
+    each rank (the columns gathered whole, then the whole softmax) at
+    rtol 1e-6, and the loss and every gradient equal the one-device
+    step's on the card at rtol 1e-4, atol 1e-5."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import jax_mesh_reference as JR
+    import torch_mesh_ranks as TR
+    npz, meta = TR.spawn("card_loss", 2, tmp_path, timeout=600)
+    tol = dict(rtol=1e-4, atol=1e-5)
+    for key in JR.LOSS_CONFIGS:
+        cfg = JR.loss_config(key, get_arch)
+        loss = float(npz[f"card_loss/{key}/loss"])
+        for rank in meta["card_loss"][key]:
+            assert rank["logits_shape"][-1] == cfg.vocab_size
+            assert rank["gathered"] == pytest.approx(loss, rel=1e-6)
+        np.testing.assert_allclose(loss, npz[f"card_loss/{key}/one_loss"],
+                                   **tol)
+        prefix = f"card_loss/{key}/one_grad/"
+        keys = [k[len(prefix):] for k in npz.files if k.startswith(prefix)]
+        assert keys
+        for k in keys:
+            np.testing.assert_allclose(npz[f"card_loss/{key}/grad/{k}"],
+                                       npz[prefix + k], err_msg=k, **tol)
+
+
 def test_two_ranks_on_the_card_gather_fsdp_per_layer_and_serve_on_a_pod(
         card, tmp_path):
     """Two ranks on gloo share the card, reduced olmo-1b, fp32: on (2, 1)

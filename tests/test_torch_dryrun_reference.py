@@ -38,17 +38,18 @@ within 0.02):
 **Collective bytes by kind**, the port's over the reference's (measured;
 each held within 0.02), and why each kind differs:
 
-- all-gather: olmo-1b train 1.381. The FSDP weight gathers are equal byte
-  for byte (688,128 in both); the port also gathers the vocab-sharded
-  logits for its loss (one (4, 128, 128) bf16 shard a rank: 262,144
-  bytes), where XLA all-reduces the softmax's row max and sum. Prefill
-  1.006 and decode 1.019: the weights again equal; the port gathers its
-  logits over vocab and over the batch shards (its steps return the
-  global batch's logits on every rank), the reference keeps them sharded
-  (and gathers its (4, 2) position arrays, 64 bytes, in decode). zamba2-7b
-  train 1.247: its logits gather, and its shared block's FSDP gather at
-  each call.
-- all-reduce: olmo-1b train 0.583, zamba2-7b train 0.491. The port sums a
+- all-gather: olmo-1b train 1.000: the FSDP weight gathers are equal byte
+  for byte (688,128 in both), and both losses keep the logits
+  vocab-sharded. Prefill 1.006 and decode 1.019: the
+  weights again equal; the port gathers its logits over vocab and over
+  the batch shards (its steps return the global batch's logits on every
+  rank), the reference keeps them sharded (and gathers its (4, 2)
+  position arrays, 64 bytes, in decode). zamba2-7b train 0.910: the
+  reference's 131 all-gathers move 69,888 bytes more than the port's 121
+  (FSDP gathers, its shared block's at each call in the port).
+- all-reduce: olmo-1b train 0.585, zamba2-7b train 0.494 (the loss's
+  row max and sums over "model" are two small all-reduces a step in
+  both). The port sums a
   column-parallel input's partial gradients (q, k and v; gate and up) on
   the rank and all-reduces once (``spmd.tp_copy``), where XLA all-reduces
   each (tuples of 3 and 2): 22 activation all-reduces against 34 in
@@ -90,12 +91,12 @@ REF_TIMEOUT = 300
 FLOPS = {"olmo-1b/train": 0.877, "olmo-1b/prefill": 0.709,
          "olmo-1b/decode": 0.172, "zamba2-7b/train": 0.666}
 # port / reference by kind; "port" or "ref" where only that side has any
-COLL = {"olmo-1b/train": {"all-gather": 1.381, "all-reduce": 0.583,
+COLL = {"olmo-1b/train": {"all-gather": 1.000, "all-reduce": 0.585,
                           "reduce-scatter": "port",
                           "collective-permute": "ref"},
         "olmo-1b/prefill": {"all-gather": 1.006, "all-reduce": 0.9},
         "olmo-1b/decode": {"all-gather": 1.019, "all-reduce": 0.9},
-        "zamba2-7b/train": {"all-gather": 1.247, "all-reduce": 0.491,
+        "zamba2-7b/train": {"all-gather": 0.910, "all-reduce": 0.494,
                             "reduce-scatter": "port",
                             "collective-permute": "ref"}}
 

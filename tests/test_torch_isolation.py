@@ -13,7 +13,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.examples import hyperparam_sweep as HS  # noqa: E402
 from repro_torch.examples import quickstart as Q  # noqa: E402
+from repro_torch.examples import serve_batch as SB  # noqa: E402
 from repro_torch.launch import serve as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
@@ -52,6 +54,20 @@ def test_importing_every_module_pulls_in_no_jax_repro_or_triton():
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
     assert int(proc.stdout.split()[0]) >= 94
+
+
+def test_the_examples_import_no_jax_and_no_repro():
+    """The serving and sweep examples alone (each copies what it needs of
+    ``examples/``, which imports JAX)."""
+    code = ("import sys\n"
+            "import repro_torch.examples.serve_batch\n"
+            "import repro_torch.examples.hyperparam_sweep\n"
+            "print('BAD', sorted(m for m in sys.modules if m.split('.')[0]"
+            " in ('jax', 'jaxlib', 'repro', 'examples')))\n")
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
 
 
 def test_import_needs_no_nvcc(tmp_path):
@@ -97,6 +113,11 @@ ENTRY_POINTS = {
         "-smoke"), "--steps", "1"]),
     "examples.quickstart": lambda: Q.main(["--arch", CFG.name.removesuffix(
         "-smoke"), "--steps", "1"]),
+    "examples.serve_batch": lambda: SB.main(["--arch", CFG.name.removesuffix(
+        "-smoke"), "--max-new", "1"]),
+    "examples.serve_batch.run": lambda: SB.run(CFG.name.removesuffix(
+        "-smoke"), max_new=1),
+    "examples.hyperparam_sweep": lambda: HS.main([]),
 }
 
 

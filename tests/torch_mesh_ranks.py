@@ -18,8 +18,12 @@ families' sharded prefill, the VLM's and musicgen-large's decode, on
 sequence shards), ``pod4`` and ``pod8`` (4 and 8 ranks: the ``pod`` cases
 of ``jax_mesh_reference.POD_CASES`` and ``POD_SERVE_CASES``, meshes with a
 "pod" axis and microbatches on a mesh, and the per-layer FSDP gathers of a
-(2, 2) train step and serve tick), or ``card_pod`` (2 ranks sharing the
-card: the per-layer FSDP step on (2, 1), a tick on (2, 1, 1)). ``two`` and
+(2, 2) train step and serve tick), ``card_pod`` (2 ranks sharing the
+card: the per-layer FSDP step on (2, 1), a tick on (2, 1, 1)), or
+``loss4`` and ``loss2`` (4 and 2 ranks: the ``loss`` cases of
+``jax_mesh_reference.LOSS_CASES`` on their meshes, the loss over vocab
+shards), or ``card_loss`` (2 ranks sharing the card: the loss over vocab
+shards on (1, 2) against the gathered path and one device). ``two`` and
 ``four`` also run the serving driver at
 slot counts whose caches shard their sequence (olmo-1b on (2, 1) at 4
 and 1 slots, zamba2-7b on (2, 2) at 1). Ranks meet through a FileStore at
@@ -1052,11 +1056,100 @@ def group_card_pod(rank, world, dev, ref, outdir, out, meta):
         out["card_pod/decode_one"] = torch.stack(plain, 1).numpy()
 
 
+# ---------------------------------------------------------------------------
+# the loss over vocab shards (tests/test_torch_loss_vocab.py)
+# ---------------------------------------------------------------------------
+
+def group_loss(rank, world, dev, ref, outdir, out, meta):
+    """Every ``LOSS_CASES`` case whose mesh has ``world`` ranks: the loss
+    and every gradient from the reference's params and batch, as
+    ``family_train``'s; and each case's largest tensor on this rank whose
+    last dim is the head's whole K V (none: the logits stay sharded),
+    DTensors and flat buffers left out."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Widest(TorchDispatchMode):
+        def __init__(self, cols):
+            super().__init__()
+            self.cols, self.most = cols, 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            got = func(*args, **(kwargs or {}))
+            for t in (got if isinstance(got, (tuple, list)) else (got,)):
+                # plain tensors (a DTensor's shape is the global one) of
+                # 2 dims or more (not a flat buffer of a collective)
+                if type(t) is torch.Tensor and t.dim() > 1 \
+                        and t.shape[-1] == self.cols:
+                    self.most = max(self.most, t.numel() // self.cols)
+            return got
+
+    meshes = {}
+    for case, (key, shape) in JR.LOSS_CASES.items():
+        if int(np.prod(shape)) != world:
+            continue
+        mesh = meshes.get(shape) or meshes.setdefault(shape, _mesh_of(shape))
+        cfg = JR.loss_config(key, get_arch)
+        params = convert.from_numpy(ref_tree(ref, f"loss/{key}/params"))
+        _, pspecs, ospecs = TS.sharded_specs(cfg, mesh)
+        dp, _ = TS.shard_train_state(params, TCFG, pspecs, ospecs, mesh)
+        batch = {k: torch.from_numpy(v)
+                 for k, v in JR.loss_batch(cfg).items()}
+        with Widest((cfg.n_codebooks or 1) * cfg.vocab_size) as widest:
+            metrics, grads, _ = TS.make_sharded_grad_fn(
+                cfg, TCFG, mesh, device=dev)(dp, batch)
+        out[f"loss/{case}/loss"] = metrics["loss"].numpy()
+        for k, g in _full_grads(grads, params, pspecs, mesh).items():
+            out[f"loss/{case}/grad/{k}"] = g
+        meta.setdefault("widest_rows", {})[case] = gathered(widest.most)
+
+
+def group_card_loss(rank, world, dev, ref, outdir, out, meta):
+    """Two ranks on the card, (1, 2), fp32, the ``LOSS_CONFIGS`` configs
+    from ``init_params`` on the card: the sharded grad's loss over vocab
+    shards and its gradients, and the gathered path's value on each rank
+    (the rank's logits gathered whole over "model", then the whole
+    softmax), and the one-device port's loss and gradients on rank 0."""
+    mesh = _mesh_of((1, 2), "cuda")
+    mc = S.MeshCtx(mesh, batch_sharded=False)
+    for key in JR.LOSS_CONFIGS:
+        cfg = JR.loss_config(key, get_arch)
+        params = M.init_params(cfg, 0, device=dev)
+        batch = {n: torch.from_numpy(v).to(dev)
+                 for n, v in JR.loss_batch(cfg).items()}
+        _, pspecs, ospecs = TS.sharded_specs(cfg, mesh)
+        dp, _ = TS.shard_train_state(params, TCFG, pspecs, ospecs, mesh)
+        metrics, grads, _ = TS.make_sharded_grad_fn(cfg, TCFG, mesh,
+                                                    device=dev)(dp, batch)
+        out[f"card_loss/{key}/loss"] = metrics["loss"].cpu().numpy()
+        for k, g in _full_grads(grads, params, pspecs, mesh).items():
+            out[f"card_loss/{key}/grad/{k}"] = g
+        with torch.no_grad():
+            ctx = M.make_ctx(cfg, JR.SEQ, "train", remat="none",
+                             compute_dtype=torch.float32, device=dev,
+                             mesh=mc)
+            logits = M.forward(S.to_local(dp), batch["tokens"], cfg,
+                               ctx)[0].float()
+            labels = batch["labels"]
+            valid = labels >= 0
+            safe = torch.where(valid, labels, 0).long()
+            nll = (torch.logsumexp(logits, -1) - logits.gather(
+                -1, safe[..., None])[..., 0]) * valid
+        meta.setdefault("card_loss", {})[key] = gathered(
+            {"gathered": float(nll.sum() / valid.sum()),
+             "logits_shape": list(logits.shape)})
+        if rank == 0:
+            _, m1, g1 = TS.make_grad_fn(cfg, TCFG, device=dev)(params, batch)
+            out[f"card_loss/{key}/one_loss"] = m1["loss"].cpu().numpy()
+            for k, g in convert.flatten(g1).items():
+                out[f"card_loss/{key}/one_grad/{k}"] = g.cpu().numpy()
+
+
 GROUPS = {"four": group_four, "two": group_two, "card": group_card,
           "card_kv": group_card_kv,
           "fam4": group_fam4, "fam2": group_fam2, "kv4": group_kv,
           "kv2": group_kv, "pod4": group_pod, "pod8": group_pod,
-          "card_pod": group_card_pod}
+          "card_pod": group_card_pod, "loss4": group_loss,
+          "loss2": group_loss, "card_loss": group_card_loss}
 
 
 def main(argv):
