@@ -36,9 +36,10 @@ from repro_torch.sharding import spmd as S
 
 def dense_init(gen: torch.Generator, shape, fan_in=None):
     """Normal / sqrt(fan_in) in fp32, fan_in being the second-to-last dim
-    (the input dim of a weight, stacked or not) unless given."""
-    return torch.randn(shape, generator=gen, device=gen.device) \
-        / math.sqrt(shape[-2] if fan_in is None else fan_in)
+    (the input dim of a weight, stacked or not) unless given; divided in
+    place, so that a 3 GB head holds one buffer, not two."""
+    return torch.randn(shape, generator=gen, device=gen.device).div_(
+        math.sqrt(shape[-2] if fan_in is None else fan_in))
 
 
 def init_norm(cfg: ArchConfig, lead=(), device="cpu"):

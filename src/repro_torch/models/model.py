@@ -24,22 +24,51 @@ FP32_PATHS = (("layers", "single", "attn", "wk"),
               ("layers", "single", "attn", "wv"))
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
-    """fp32 params from a seeded ``torch.Generator`` on ``device``, with the
+def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda",
+                dtype=torch.float32):
+    """Params from a seeded ``torch.Generator`` on ``device``, with the
     reference's structure, shapes and init scales (not its random bits).
     With codebooks (K = ``n_codebooks``) the embedding is (K, V, d) and the
-    head (d, K V), its columns codebook-major."""
+    head (d, K V), its columns codebook-major.
+
+    ``dtype`` only chooses the leaves' storage: the tree is the one that
+    ``cast_params`` makes, its leaves of ``FP32_KEYS`` and ``FP32_PATHS``
+    fp32 and the others ``dtype``. Every leaf is drawn in fp32 and cast
+    alone, a stacked one a layer at a time (``transformer.init_stack``),
+    so the draws are the same for every ``dtype``
+    (``init_params(cfg, dtype=torch.bfloat16)`` is ``cast_params(
+    init_params(cfg), torch.bfloat16)`` bit for bit) and no fp32 tree
+    exists: qwen3-32b's 65.5 GB of bf16 weights are made on one 80 GB
+    card, where its 131 GB fp32 tree is not. The embedding and the head
+    are drawn before the layers, so a model cut to fewer layers has the
+    same embedding, head and first layers as the whole model."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     books = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+
+    def dtype_of(path):
+        return torch.float32 if stays_fp32(path) else dtype
+
     params = {"embed": torch.randn((*books, cfg.vocab_size, cfg.d_model),
-                                   generator=gen, device=dev) * 0.02,
+                                   generator=gen, device=dev).mul_(0.02)
+              .to(dtype),
               "final_norm": B.init_norm(cfg, device=dev)}
-    params.update(T.init_stack(cfg, gen))
     if not cfg.tie_embeddings:
         params["lm_head"] = B.dense_init(
-            gen, (cfg.d_model, (cfg.n_codebooks or 1) * cfg.vocab_size))
+            gen, (cfg.d_model, (cfg.n_codebooks or 1) * cfg.vocab_size)
+        ).to(dtype)
+    params.update(T.init_stack(cfg, gen, dtype_of))
     return params
+
+
+def stays_fp32(path: tuple) -> bool:
+    """Whether the subtree or leaf at ``path`` (keys from the tree's root)
+    stays fp32 in a tree cast to a compute dtype: under a key of
+    ``FP32_KEYS`` (``ln1`` holds ``scale``) or at a path of
+    ``FP32_PATHS``."""
+    path = tuple(path)
+    return any(k in FP32_KEYS for k in path) or \
+        any(path[:i] in FP32_PATHS for i in range(1, len(path) + 1))
 
 
 def param_shapes(cfg: ArchConfig):
@@ -68,7 +97,7 @@ def cast_params(params, dtype):
     def cast(tree, path):
         for key, val in tree.items():
             at = (*path, key)
-            if key in FP32_KEYS or at in FP32_PATHS:
+            if stays_fp32(at):
                 continue
             tree[key] = cast(val, at) if isinstance(val, dict) \
                 else val.to(dtype)

@@ -51,8 +51,9 @@ init, inputs from numpy seeds; the ranks of the port read both.
   ``DRYRUN_CASES`` on a (2, 2) mesh: ``build_cell``'s jitted step,
   ``.lower().compile()``, then ``roofline.analysis.analyze`` (the HLO cost
   model): per device FLOPs (and the dots' alone), fused and all-op
-  bytes, and collective bytes and counts by kind, at the small
-  ``DRYRUN_SHAPES``.
+  bytes, collective bytes and counts by kind, and the compiled module's
+  ``memory_analysis().temp_size_in_bytes``, at the small
+  ``DRYRUN_SHAPES``; and the temp bytes alone of ``DRYRUN_PEAK_CASES``.
 """
 import dataclasses
 import sys
@@ -597,11 +598,15 @@ def run_loss(out, cases=None):
 
 # dryrun: case -> (arch, DRYRUN_SHAPES key); reduced configs, (2, 2)
 DRYRUN_SHAPES = {"train": (128, 8, "train"), "prefill": (128, 8, "prefill"),
-                 "decode": (128, 8, "decode")}
+                 "decode": (128, 8, "decode"), "train512": (512, 8, "train")}
 DRYRUN_CASES = {"olmo-1b/train": ("olmo-1b", "train"),
                 "olmo-1b/prefill": ("olmo-1b", "prefill"),
                 "olmo-1b/decode": ("olmo-1b", "decode"),
                 "zamba2-7b/train": ("zamba2-7b", "train")}
+# cells whose compiled temp bytes alone are kept: zamba2-7b's train step
+# at 512 tokens, where the shared attention block's saved activations make
+# the peak (tests/test_torch_dryrun_reference.py)
+DRYRUN_PEAK_CASES = {"zamba2-7b/train512": ("zamba2-7b", "train512")}
 DRYRUN_MESH = (2, 2)
 COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
               "collective-permute")
@@ -680,6 +685,15 @@ def run_dryrun(out, cases=None):
             np.float64)
         out[f"{key}/model_flops"] = np.float64(roof.model_flops)
         out[f"{key}/dot_flops"] = np.float64(hlo_dot_flops(text))
+        out[f"{key}/temp_bytes"] = np.float64(
+            compiled.memory_analysis().temp_size_in_bytes)
+    for case, (arch, shape_name) in DRYRUN_PEAK_CASES.items():
+        fn, args = build_cell(get_arch(arch).reduced(),
+                              dryrun_shape(shape_name, ShapeConfig), mesh,
+                              tcfg=TrainConfig())
+        out[f"dryrun/{case}/temp_bytes"] = np.float64(
+            fn.lower(*args).compile().memory_analysis().temp_size_in_bytes)
+        SR.set_rules(None)
 
 
 def main(path, parts):

@@ -70,10 +70,13 @@ FLASH_CASES = [
     # 64-wide tile); llama-3.2-vision-11b's: 32 on 8 of 128
     *[(1, 512, 32, 32, 64, True, dt) for dt in ("float32", "bfloat16")],
     (1, 256, 32, 8, 128, True, "bfloat16"),
+    # qwen3-32b's heads: 64 on 8 kv heads of 128 (GQA 8:1)
+    (1, 256, 64, 8, 128, True, "float32"), (2, 512, 64, 8, 128, True, "bfloat16"),
 ]
 DECODE_SHAPES = [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 32), (3, 300, 4, 2, 128),
                  (2, 300, 4, 4, 112), (4, 256, 40, 8, 128),
-                 (4, 288, 32, 32, 64), (4, 288, 32, 8, 128)]
+                 (4, 288, 32, 32, 64), (4, 288, 32, 8, 128),
+                 (4, 256, 64, 8, 128)]        # qwen3-32b's, GQA 8:1
 # cache_len of 1, of the whole buffer and of 0 (zeros), GQA 4:1, head dim 112
 DECODE_EDGE_SHAPES = [(4, 1024, 16, 16, 128), (3, 512, 8, 2, 128),
                       (3, 300, 16, 4, 112), (2, 64, 4, 1, 64)]

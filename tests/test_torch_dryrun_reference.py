@@ -62,6 +62,17 @@ each held within 0.02), and why each kind differs:
 - collective-permute: the reference's reshards (olmo-1b one (128, 32)
   leaf, 16,384 bytes; zamba2-7b 100 small ones, 71,232 bytes); the port
   reads every leaf in its layout and runs none.
+
+**Peak of live bytes**, the port's ``peak_bytes`` over the reference's
+compiled ``memory_analysis().temp_size_in_bytes`` (measured; each held at
+or below 1 and within 0.02): olmo-1b train 0.716, prefill 0.623, decode
+0.131 (the port writes the decode state in place; XLA's module makes new
+caches); zamba2-7b train 0.556, and 0.611 at 512 tokens
+(``DRYRUN_PEAK_CASES``), where the shared attention block's storages hold
+97.6% of the port's live bytes at the peak (``tools/dryrun_peak.py``):
+the block runs outside remat at each of its sites and keeps its scores
+for the backward, as the reference's outer scan body, which is not
+rematerialised, keeps them (ROADMAP C, "Slice 20 quirk").
 """
 import os
 import subprocess
@@ -86,10 +97,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import jax_mesh_reference as JR  # noqa: E402
 
 TESTS = Path(__file__).resolve().parent
+sys.path.insert(0, str(TESTS.parent / "tools"))
+import dryrun_peak  # noqa: E402
+
 SRC = TESTS.parent / "src"
 REF_TIMEOUT = 300
 FLOPS = {"olmo-1b/train": 0.877, "olmo-1b/prefill": 0.709,
          "olmo-1b/decode": 0.172, "zamba2-7b/train": 0.666}
+# the port's peak_bytes over the reference's compiled temp bytes
+PEAK = {"olmo-1b/train": 0.716, "olmo-1b/prefill": 0.623,
+        "olmo-1b/decode": 0.131, "zamba2-7b/train": 0.556}
+PEAK_512 = 0.611
 # port / reference by kind; "port" or "ref" where only that side has any
 COLL = {"olmo-1b/train": {"all-gather": 1.000, "all-reduce": 0.585,
                           "reduce-scatter": "port",
@@ -213,3 +231,27 @@ def test_collective_bytes_by_kind_within_the_stated_bands(ref, port, case):
         else:
             assert got / want == pytest.approx(band, abs=0.02), kind
     assert "collective-broadcast" not in cost.coll_by_kind
+
+
+@pytest.mark.parametrize("case", list(JR.DRYRUN_CASES))
+def test_peak_at_or_below_the_references_temp(ref, port, case):
+    ratio = port[case][0].peak_bytes / ref[f"dryrun/{case}/temp_bytes"]
+    assert ratio <= 1.0
+    assert ratio == pytest.approx(PEAK[case], abs=0.02)
+
+
+def test_zamba2_train_peak_is_the_shared_blocks_saved_activations(ref):
+    """zamba2-7b's train step at 512 tokens: the port's peak at or below
+    the reference's temp, and the shared attention block's storages (its
+    saved scores and activations at each site) most of the live bytes
+    there; the same holds its production cells' 205.1 / 103.1 GB
+    (PERF.md, the dry-run's peak)."""
+    (arch, shape_name), = JR.DRYRUN_PEAK_CASES.values()
+    got = dryrun_peak.peak_of_count(
+        get_arch(arch).reduced(), JR.dryrun_shape(shape_name, ShapeConfig),
+        JR.DRYRUN_MESH)
+    ratio = got["temp_bytes"] / ref["dryrun/zamba2-7b/train512/temp_bytes"]
+    assert ratio <= 1.0 and ratio == pytest.approx(PEAK_512, abs=0.02)
+    live = got["live_by_scope"]
+    assert got["peak_scopes"] == ["layer_fwd[shared_attn]"]
+    assert live["layer_fwd[shared_attn]"] >= 0.9 * sum(live.values())
